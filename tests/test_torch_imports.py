@@ -1,0 +1,127 @@
+"""The port imports torch and numpy — never jax, never the reference package.
+
+Checked two ways: an AST walk over every source file of the port (and
+``chip_smoke.py``), and a subprocess whose import system refuses ``jax`` and
+``repro`` outright while it imports every module of ``repro_torch``.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+FORBIDDEN = {"jax", "jaxlib", "repro"}
+
+
+def _sources():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_package_layout_mirrors_the_reference():
+    for sub in ("core", "codec", "nn", "train", "kernels", "data"):
+        assert (PKG / sub / "__init__.py").is_file(), sub
+    assert (PKG / "kernels" / "csrc" / "gbatc_kernels.cu").is_file()
+    assert (ROOT / "chip_smoke.py").is_file()
+
+
+def test_no_jax_or_reference_import_in_sources():
+    bad = [
+        f"{path.relative_to(ROOT)}:{line} imports {root}"
+        for path in _sources()
+        for root, line in _imported_roots(path)
+        if root in FORBIDDEN
+    ]
+    assert not bad, bad
+
+
+def test_cuda_sources_do_not_include_torch_headers():
+    for src in (PKG / "kernels" / "csrc").glob("*.cu"):
+        assert "torch/" not in src.read_text(), src.name
+
+
+_BLOCKED_IMPORT_SCRIPT = r"""
+import importlib, importlib.abc, pkgutil, sys
+
+class Refuse(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "repro"):
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Refuse())
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
+from repro_torch.core.pipeline import GBATCCodec, PipelineConfig
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_and_reference_blocked():
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED_IMPORT_SCRIPT],
+        capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_importing_builds_nothing():
+    """Kernels are built at first launch, never at import."""
+    from repro_torch.kernels import _build, gbatc_project  # noqa: F401
+
+    assert _build.build_info() == {}
+
+
+@pytest.mark.parametrize("entry", ["codec", "pipeline", "engine", "decompress", "ops"])
+def test_device_none_without_cuda_raises(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.core import gae
+    from repro_torch.core.pipeline import GBATCCodec, GBATCPipeline, PipelineConfig
+    from repro_torch.kernels import ops
+
+    calls = {
+        "codec": lambda: GBATCCodec(PipelineConfig()),
+        "pipeline": lambda: GBATCPipeline(PipelineConfig(), n_species=4),
+        "engine": lambda: gae.GuaranteeEngine(),
+        "decompress": lambda: codec.decompress(b"GBTC"),
+        "ops": lambda: ops.gbatc_correct_batched(
+            np.zeros((1, 2, 4), np.float32), np.zeros((1, 2, 4), np.float32),
+            np.zeros((1, 4, 4), np.float32)),
+    }
+    with pytest.raises(RuntimeError, match="CUDA"):
+        calls[entry]()
+
+
+def test_chip_smoke_fails_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, timeout=300,
+                         env={"PATH": "/usr/bin:/bin"})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
