@@ -8,16 +8,22 @@ Run from the checkout root on a machine with one NVIDIA Hopper card:
 Phases (each prints one JSON line; any failure exits non-zero):
 
 1. ``env``    card name and power limit, torch / CUDA / nvcc versions;
-2. ``build``  compiles the CUDA kernels from the sources in the checkout;
+2. ``build``  compiles every CUDA source of the checkout (one ``nvcc`` each,
+   all started together) into a fresh directory of this run, so a re-run
+   builds again and never reuses an earlier run's libraries;
 3. ``kernels``  each kernel against its plain PyTorch version on the card at
-   the main path's shapes (S=58, NB=20480, D=80) and at ragged shapes, with
-   its time, the plain version's, the one-call library yardstick's and the
-   card's bound for the same work;
+   the main paths' shapes (GBATC: S=58, NB=20480, D=80; flash attention:
+   (4096, 2, 232, 16) fp32 non-causal) and at ragged and reference shapes,
+   with its time, the plain version's, the one-call library yardstick's
+   and the card's bound for the same work;
 4. ``main_path``  ``GBATCCodec.compress`` (fit + guarantee + container) and
-   ``codec.decompress`` from the bytes alone at the paper's widths on an
-   S3D surrogate of 58 x 16 x 320 x 320, with the kernels' launch counts
-   reset just before and read just after;
-5. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+   ``codec.decompress`` from the bytes alone, conv family, at the paper's
+   widths on an S3D surrogate of 58 x 16 x 320 x 320, with the kernels'
+   launch counts reset just before and read just after;
+5. ``attention_path``  the same for the attention family (arch (32, 2, 1,
+   64)) on the same data, its launch counts read separately for compress
+   and for decompress;
+6. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -27,9 +33,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -43,6 +52,29 @@ S, NB, D = 58, 20480, 80  # main-path kernel shapes (T=16, 320x320, block 4x5x4)
 RAGGED = [(3, 513, 80), (5, 513, 64), (2, 1, 80), (4, 100, 37)]
 FP32_LIMIT = 1e-5  # max abs difference, unit-scale inputs, fp32 accumulate order
 FP64_REL_LIMIT = 1e-12  # max abs difference relative to the row's l2 norm
+
+# flash attention: the attention family's shape per fused-decode chunk
+# (4096 blocks, 2 heads, 58 species x 4 frames = 232 tokens, head dim 16)
+# and the reference's own sweep (tests/test_kernels.py) plus ragged shapes:
+# (b, h, tq, tk, d, causal, window, dtypes)
+FLASH_PATH = (4096, 2, 232, 16)
+FLASH_SHAPES = [
+    (1, 1, 128, 128, 64, True, 0, ("float32", "bfloat16")),
+    (2, 3, 256, 256, 64, True, 0, ("float32", "bfloat16")),
+    (1, 2, 128, 384, 128, True, 0, ("float32", "bfloat16")),
+    (1, 1, 200, 200, 64, True, 0, ("float32", "bfloat16")),
+    (2, 2, 64, 64, 32, True, 0, ("float32", "bfloat16")),
+    (1, 2, 256, 256, 64, True, 16, ("float32",)),
+    (1, 2, 256, 256, 64, True, 64, ("float32",)),
+    (1, 2, 256, 256, 64, True, 1000, ("float32",)),
+    (1, 1, 128, 256, 64, False, 0, ("float32",)),
+    (2, 2, 232, 232, 16, False, 0, ("float32", "bfloat16")),
+    (3, 2, 1, 16, 16, False, 0, ("float32", "bfloat16")),
+    (1, 2, 100, 37, 8, False, 0, ("float32",)),
+    (2, 1, 70, 300, 128, False, 24, ("float32",)),
+]
+# the reference's tolerances (tests/test_kernels.py::_tol), max abs diff
+FLASH_LIMIT = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def emit(obj) -> None:
@@ -79,31 +111,45 @@ def phase_env(torch) -> dict:
     return info
 
 
+# ptxas -v names each kernel instantiation by its mangled name
+PTXAS_NAMES = {
+    "gbatc_kernels": (
+        r"gbatc_tile_kernelI([fd])Li(\d)ELi(\d)E",
+        lambda m: "{}/{}/cmax{}".format(
+            {"f": "f32", "d": "f64"}[m.group(1)],
+            ("project", "correct", "select")[int(m.group(2))], m.group(3))),
+    "flash_attention": (
+        r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        lambda m: "flash/{}/dp{}".format(
+            "f32" if m.group(1) == "f" else "bf16", m.group(2))),
+}
+
+
 def phase_build() -> dict:
     from repro_torch.kernels import _build
 
     _build.load()
     info = {"phase": "build", **_build.build_info()}
     # registers and spill bytes per kernel instantiation, from ptxas -v
-    import re
-
-    usage, name = {}, None
-    for ln in _build.build_log("gbatc_kernels").splitlines():
-        hit = re.search(r"gbatc_tile_kernelI([fd])Li(\d)ELi(\d)E", ln)
-        if hit:
-            name = "{}/{}/cmax{}".format(
-                {"f": "f32", "d": "f64"}[hit.group(1)],
-                ("project", "correct", "select")[int(hit.group(2))], hit.group(3))
-        elif name and "spill" in ln:
-            usage[name] = {"spill_bytes": sum(
-                int(n) for n in re.findall(r"(\d+) bytes spill", ln))}
-        elif name and "registers" in ln:
-            usage[name]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
-            name = None
+    usage = {}
+    for stem, (pattern, label) in PTXAS_NAMES.items():
+        name = None
+        for ln in _build.build_log(stem).splitlines():
+            hit = re.search(pattern, ln)
+            if hit:
+                name = label(hit)
+            elif name and "spill" in ln:
+                usage[name] = {"spill_bytes": sum(
+                    int(n) for n in re.findall(r"(\d+) bytes spill", ln))}
+            elif name and "registers" in ln:
+                usage[name]["registers"] = int(
+                    re.search(r"Used (\d+) registers", ln).group(1))
+                name = None
     info["ptxas"] = usage
     emit(info)
-    if not info["compiled"]:
-        fail("kernels were not compiled from the checkout's sources in this run")
+    if sorted(info["compiled"]) != sorted(_build.SOURCES):
+        fail(f"only {info['compiled']} of {list(_build.SOURCES)} were compiled "
+             "from the checkout's sources in this run")
     return info
 
 
@@ -249,81 +295,188 @@ def phase_kernels(torch, launches: int) -> list[dict]:
     return rows
 
 
-def phase_main_path(torch, args) -> dict:
-    import numpy as np
+def phase_flash(torch, launches: int) -> dict:
+    """The flash-attention kernel against its plain version on every shape
+    of FLASH_SHAPES and at the attention path's shape, where it is timed."""
+    import torch.nn.functional as F
 
-    from repro_torch import codec
-    from repro_torch.core import metrics
-    from repro_torch.core.pipeline import GBATCCodec, PipelineConfig
-    from repro_torch.data import s3d
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref as kref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def qkv(b, h, tq, tk, d, dtype, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return [torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+                for t in (tq, tk, tk)]
+
+    def check(q, k, v, causal, window, dtype_name):
+        got = fk.flash_attention(q, k, v, causal=causal, window=window)
+        want = kref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if got.dtype != q.dtype or got.shape != q.shape:
+            fail(f"flash_attention returned {got.dtype}{tuple(got.shape)}")
+        if not torch.isfinite(got).all():
+            fail("flash_attention output is not finite")
+        err = float((got.float() - want.float()).abs().max())
+        if err > FLASH_LIMIT[dtype_name]:
+            fail(f"flash_attention differs from its plain version by {err:.3e} "
+                 f"({dtype_name}, shape {tuple(q.shape)}/{k.shape[2]}, "
+                 f"causal={causal}, window={window})")
+        return err
+
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for i, (b, h, tq, tk, d, causal, window, dtypes) in enumerate(FLASH_SHAPES):
+        for name in dtypes:
+            q, k, v = qkv(b, h, tq, tk, d, getattr(torch, name), 200 + i)
+            errs[name] = max(errs[name], check(q, k, v, causal, window, name))
+
+    b, h, t, d = FLASH_PATH
+    q, k, v = qkv(b, h, t, t, d, torch.bfloat16, 300)
+    errs["bfloat16"] = max(errs["bfloat16"], check(q, k, v, False, 0, "bfloat16"))
+    q, k, v = qkv(b, h, t, t, d, torch.float32, 301)
+    err = check(q, k, v, False, 0, "float32")
+    first = fk.flash_attention(q, k, v, causal=False)
+    if not torch.equal(first, fk.flash_attention(q, k, v, causal=False)):
+        fail("flash_attention is not deterministic: two launches differ")
+    del first
+    kernel = lambda: fk.flash_attention(q, k, v, causal=False)  # noqa: E731
+    plain = lambda: kref.flash_attention_ref(q, k, v, causal=False)  # noqa: E731
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+    ms = time_ms(torch, kernel, launches)
+    plain_ms = time_ms(torch, plain, launches)
+    library_ms = time_ms(torch, sdpa, launches)
+    sdpa_err = float((sdpa() - plain()).abs().max())
+    n = b * h * t * d
+    nbytes, flops = 4 * n * 4, 4 * b * h * t * t * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    del q, k, v
+    torch.cuda.empty_cache()
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:116",
+        "launches": 0, "max_abs_err": max(err, errs["float32"]),
+        "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "dtype": "float32", "shape": list(FLASH_PATH), "causal": False,
+        "bytes": nbytes, "flops": flops,
+        "max_abs_err_bf16": errs["bfloat16"], "library_max_abs_err": sdpa_err,
+        "shapes_checked": [list(c[:7]) + [list(c[7])] for c in FLASH_SHAPES],
+        "tolerance": "max abs diff <= 2e-5 (fp32), 2e-2 (bf16)",
+    }
+    emit({"phase": "kernels", "kernel": "flash_attention",
+          "launches_timed": launches,
+          "summary": {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16",
+                                          "ms", "plain_ms", "library_ms",
+                                          "bound_ms", "bound_by")}})
+    return row
+
+
+def all_counts() -> dict:
+    from repro_torch.kernels import flash_attention as fk
     from repro_torch.kernels import gbatc_project as gk
+
+    return {**gk.launch_counts(), **fk.launch_counts()}
+
+
+def reset_counts() -> None:
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import gbatc_project as gk
+
+    gk.reset_launches()
+    fk.reset_launches()
+
+
+def generate(args):
+    from repro_torch.data import s3d
 
     t0 = time.perf_counter()
     data = s3d.generate(s3d.S3DConfig(
         n_species=58, n_time=args.frames, height=args.height, width=args.width,
         seed=args.seed))["species"]
-    gen_s = time.perf_counter() - t0
-    cfg = PipelineConfig(latent=36, conv_channels=(32, 64), use_correction=True,
-                         ae_steps=args.ae_steps, corr_steps=args.corr_steps,
-                         seed=args.seed)
+    return data, time.perf_counter() - t0
+
+
+def drive(torch, data, cfg, args, name: str, widths: dict,
+          ae_steps: int) -> tuple:
+    """Fit + compress at 1e-3, decompress from the bytes, a second bound on
+    the same fit, with every gate of the path; returns (info, blob). Launch
+    counts are reset just before compress and read just after it, then
+    reset again just before decompress and read just after it."""
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.core import metrics
+    from repro_torch.core.pipeline import GBATCCodec
+
     target = 1e-3
-    gk.reset_launches()
     torch.cuda.reset_peak_memory_stats()
     gb = GBATCCodec(cfg)
+    reset_counts()
     t0 = time.perf_counter()
     blob, rep = gb.compress_report(data, target_nrmse=target)
     torch.cuda.synchronize()
     compress_s = time.perf_counter() - t0
+    compress_counts = all_counts()
     stage_s = json.loads(json.dumps(gb.pipeline.timings))  # deep copy
+    reset_counts()
     t0 = time.perf_counter()
     field = codec.decompress(blob)
     torch.cuda.synchronize()
     decompress_s = time.perf_counter() - t0
-    counts = gk.launch_counts()
+    decompress_counts = all_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # host share of the decode: a fresh parse + entropy decode of every
-    # stream, no network and no kernel (not part of the counted main path)
+    # stream, no network and no kernel (not part of the counted path)
     t0 = time.perf_counter()
     codec.decode_artifact(blob)
     parse_s = time.perf_counter() - t0
 
     # -- the result is right, by the repo's own means ----------------------
+    s = data.shape[0]
     if field.shape != data.shape or field.dtype != np.float32:
-        fail(f"decompressed field is {field.dtype}{field.shape}")
+        fail(f"{name}: decompressed field is {field.dtype}{field.shape}")
     if not np.isfinite(field).all():
-        fail("decompressed field is not finite")
-    nrmse = np.array([metrics.nrmse(data[s], field[s]) for s in range(58)])
+        fail(f"{name}: decompressed field is not finite")
+    nrmse = np.array([metrics.nrmse(data[i], field[i]) for i in range(s)])
     if not (nrmse <= target * (1 + 1e-3)).all():
-        fail(f"per-species NRMSE bound missed: max {nrmse.max():.4e} > {target}")
+        fail(f"{name}: per-species NRMSE bound missed: max {nrmse.max():.4e} > {target}")
     if not np.array_equal(field, rep.recon):
-        fail("decompress(blob) differs from the compress report's recon "
-             f"(max abs {np.abs(field - rep.recon).max():.3e})")
+        fail(f"{name}: decompress(blob) differs from the compress report's "
+             f"recon (max abs {np.abs(field - rep.recon).max():.3e})")
     if len(blob) != rep.bytes_breakdown["total"]:
-        fail("len(blob) != byte breakdown total")
-    for name, n in counts.items():
-        if n < 1:
-            fail(f"kernel {name} was never launched on the main path")
+        fail(f"{name}: len(blob) != byte breakdown total")
+    launches = {k: compress_counts[k] + decompress_counts[k] for k in compress_counts}
+    for kernel in ("gbatc_project_batched", "gbatc_select_accumulate",
+                   "gbatc_correct_batched"):
+        if launches[kernel] < 1:
+            fail(f"kernel {kernel} was never launched on {name}")
 
     # -- a second bound on the same fit reuses the prepared state ---------
-    before = gk.launch_counts()
+    before = all_counts()
     t0 = time.perf_counter()
     blob2, rep2 = gb.compress_report(target_nrmse=1e-2)
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
-    after = gk.launch_counts()
+    after = all_counts()
     if after["gbatc_project_batched"] != before["gbatc_project_batched"]:
-        fail("second compress launched the projection again (prepare not reused)")
+        fail(f"{name}: second compress launched the projection again "
+             "(prepare not reused)")
     if not (rep2.per_species_nrmse <= 1e-2 * (1 + 1e-3)).all():
-        fail("second compress (1e-2) missed its bound")
+        fail(f"{name}: second compress (1e-2) missed its bound")
 
     info = {
-        "phase": "main_path", "shape": list(data.shape),
+        "phase": name, "family": cfg.family, "shape": list(data.shape),
         "cut": {"frames": args.frames, "height": args.height,
                 "width": args.width, "of_paper": [50, 640, 640],
-                "ae_steps": args.ae_steps, "corr_steps": args.corr_steps},
-        "widths": {"species": 58, "block": [4, 5, 4], "latent": 36,
-                   "conv_channels": [32, 64], "correction": [232, 464, 232]},
-        "generate_s": gen_s, "compress_s": compress_s,
+                "ae_steps": ae_steps, "corr_steps": args.corr_steps},
+        "widths": widths,
+        "compress_s": compress_s,
         "decompress_s": decompress_s, "decode_artifact_s": parse_s,
         "second_compress_s": second_s,
         "timings_s": stage_s,
@@ -333,21 +486,62 @@ def phase_main_path(torch, args) -> dict:
         "compression_ratio": rep.compression_ratio, "blob_bytes": len(blob),
         "breakdown": rep.bytes_breakdown,
         "second_blob_bytes": len(blob2),
-        "launches": counts, "peak_device_gb": peak_gb,
+        "launches": launches,
+        "launches_compress": compress_counts,
+        "launches_decompress": decompress_counts,
+        "peak_device_gb": peak_gb,
     }
+    return info, blob
+
+
+def phase_main_path(torch, args, data) -> dict:
+    from repro_torch.core.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(latent=36, conv_channels=(32, 64), use_correction=True,
+                         ae_steps=args.ae_steps, corr_steps=args.corr_steps,
+                         seed=args.seed)
+    info, _ = drive(torch, data, cfg, args, "main_path", {
+        "species": 58, "block": [4, 5, 4], "latent": 36,
+        "conv_channels": [32, 64], "correction": [232, 464, 232]}, args.ae_steps)
+    emit(info)
+    return info
+
+
+def phase_attention_path(torch, args, data) -> dict:
+    from repro_torch.core.container import ContainerReader
+    from repro_torch.core.pipeline import PipelineConfig
+
+    cfg = PipelineConfig(family="attention", arch=(32, 2, 1, 64), latent=36,
+                         use_correction=True, ae_steps=args.attn_ae_steps,
+                         corr_steps=args.corr_steps, seed=args.seed)
+    info, blob = drive(torch, data, cfg, args, "attention_path", {
+        "species": 58, "block": [4, 5, 4], "latent": 36,
+        "arch": {"d_model": 32, "n_heads": 2, "depth": 1, "mlp_hidden": 64},
+        "tokens": 232, "head_dim": 16, "correction": [232, 464, 232]},
+        args.attn_ae_steps)
+    tag = ContainerReader(blob)["meta"][0]
+    if tag != 2:
+        fail(f"attention_path: blob's family tag is {tag}, expected 2")
+    if info["launches_compress"]["flash_attention"] < 1:
+        fail("flash_attention was never launched during compress")
+    if info["launches_decompress"]["flash_attention"] < 1:
+        fail("flash_attention was never launched during decompress")
+    info["family_tag"] = tag
     emit(info)
     return info
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--phases", default="env,build,kernels,main_path")
+    ap.add_argument("--phases",
+                    default="env,build,kernels,main_path,attention_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
     ap.add_argument("--height", type=int, default=320)
     ap.add_argument("--width", type=int, default=320)
     ap.add_argument("--ae-steps", type=int, default=200)
+    ap.add_argument("--attn-ae-steps", type=int, default=300)
     ap.add_argument("--corr-steps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
@@ -359,17 +553,45 @@ def main() -> None:
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     import repro_torch  # noqa: F401  (fails here when run outside a checkout)
 
+    # a fresh build directory per run: the build phase proves a build from
+    # the checkout's sources every time, and a re-run never fails on (or
+    # reuses) an earlier run's libraries
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    build_dir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(ROOT, "build"))
+    os.environ["REPRO_TORCH_BUILD_DIR"] = build_dir
+    try:
+        run(torch, args, phases)
+    finally:
+        shutil.rmtree(build_dir, ignore_errors=True)
+
+
+def run(torch, args, phases) -> None:
     t_start = time.perf_counter()
     if "env" in phases:
         phase_env(torch)
     if "build" in phases:
         phase_build()
-    rows = phase_kernels(torch, max(20, args.launches)) if "kernels" in phases else []
-    if "main_path" in phases:
-        info = phase_main_path(torch, args)
-        for r in rows:
-            r["launches"] = info["launches"][r["name"]]
-    complete = all(p in phases for p in ("build", "kernels", "main_path"))
+    rows = []
+    if "kernels" in phases:
+        launches = max(20, args.launches)
+        rows = phase_kernels(torch, launches) + [phase_flash(torch, launches)]
+    paths = {}
+    if "main_path" in phases or "attention_path" in phases:
+        data, gen_s = generate(args)
+        emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
+        if "main_path" in phases:
+            paths["main_path"] = phase_main_path(torch, args, data)
+        if "attention_path" in phases:
+            paths["attention_path"] = phase_attention_path(torch, args, data)
+        del data
+    for r in rows:
+        by_path = {p: {"compress": info["launches_compress"][r["name"]],
+                       "decompress": info["launches_decompress"][r["name"]]}
+                   for p, info in paths.items()}
+        r["launches_by_path"] = by_path
+        r["launches"] = sum(c["compress"] + c["decompress"] for c in by_path.values())
+    complete = all(p in phases for p in ("build", "kernels", "main_path",
+                                         "attention_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -167,15 +167,69 @@ def _conv_validate(arch: tuple) -> Optional[str]:
     return None  # any positive widths configure a conv stack
 
 
+#: default attention arch words (d_model, n_heads, depth, mlp_hidden) —
+#: the reference's; override via ``PipelineConfig(family="attention", arch=...)``
+DEFAULT_ATTENTION_ARCH = (32, 2, 1, 64)
+
+
+def _attention_build(scfg: StructuralConfig, n_species: int, device=None):
+    """The attention model the codec runs: every forward pass it makes
+    without gradients (latents, the fused decode on both sides) goes
+    through the flash kernel on a CUDA device."""
+    from repro_torch.models import block_attention as ba
+
+    geom = scfg.geometry
+    dm, nh, depth, mlp = scfg.arch
+    return ba.BlockAttentionAE(ba.BlockAttentionConfig(
+        n_species=n_species,
+        block=(geom.bt, geom.ph, geom.pw),
+        latent=scfg.latent,
+        d_model=dm, n_heads=nh, depth=depth, mlp_hidden=mlp,
+        attn_impl="flash",
+    ), device=device)
+
+
+def _attention_fit(model, blocks, **kw):
+    """Trains through the direct attention on the same parameters (the
+    kernel has no backward; the reference's fit never selects flash)."""
+    from repro_torch.models import block_attention as ba
+
+    return ba.fit(model, blocks, **kw)
+
+
+def _attention_arch_of(cfg: Any) -> tuple:
+    arch = getattr(cfg, "arch", None)
+    if arch is None:
+        arch = DEFAULT_ATTENTION_ARCH
+    arch = tuple(int(c) for c in arch)
+    err = _attention_validate(arch)
+    if err:
+        raise ValueError(f"bad attention arch {arch}: {err}")
+    return arch
+
+
+def _attention_validate(arch: tuple) -> Optional[str]:
+    if len(arch) != 4:
+        return (f"attention arch carries {len(arch)} words, expected 4 "
+                f"(d_model, n_heads, depth, mlp_hidden)")
+    dm, nh, _, _ = arch
+    if dm % nh:
+        return f"d_model {dm} not divisible by n_heads {nh}"
+    return None
+
+
 CONV = EncoderFamily(
     name="conv", tag=1,
     build_model=_conv_build, fit=_conv_fit,
     arch_of=_conv_arch_of, validate_arch=_conv_validate,
 )
-#: wire tags the reference registers but the port cannot decode yet
-NOT_YET_PORTED: dict[int, str] = {2: "attention"}
+ATTENTION = EncoderFamily(
+    name="attention", tag=2,
+    build_model=_attention_build, fit=_attention_fit,
+    arch_of=_attention_arch_of, validate_arch=_attention_validate,
+)
 
-FAMILIES: dict[str, EncoderFamily] = {f.name: f for f in (CONV,)}
+FAMILIES: dict[str, EncoderFamily] = {f.name: f for f in (CONV, ATTENTION)}
 _BY_TAG: dict[int, EncoderFamily] = {f.tag: f for f in FAMILIES.values()}
 assert len(_BY_TAG) == len(FAMILIES) and 0 not in _BY_TAG, \
     "family tags must be unique and nonzero"
@@ -187,10 +241,6 @@ def get(name: str) -> EncoderFamily:
     try:
         return FAMILIES[name]
     except KeyError:
-        if name in NOT_YET_PORTED.values():
-            raise NotImplementedError(
-                f"encoder family {name!r} is not yet ported to repro_torch"
-            ) from None
         raise ValueError(
             f"unknown encoder family {name!r} "
             f"(registered: {sorted(FAMILIES)})"

@@ -147,12 +147,6 @@ def _unpack_meta(buf: bytes,
             raise ContainerFormatError("meta stream truncated", stream="meta")
         (tag,) = _META_FAMILY.unpack_from(buf, 0)
         fam = families.by_tag(tag)
-        if fam is None and tag in families.NOT_YET_PORTED:
-            raise ContainerFormatError(
-                f"encoder family {families.NOT_YET_PORTED[tag]!r} (tag {tag}) "
-                f"is not yet ported to repro_torch",
-                stream="meta", offset=0,
-            )
         if fam is None:
             raise ContainerFormatError(
                 f"unknown encoder family tag {tag} "

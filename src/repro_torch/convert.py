@@ -1,11 +1,13 @@
 """Parameters carried between the reference's trees and PyTorch layouts.
 
-The reference keeps parameters as nested dicts, ``{layer: {"w": ..., "b":
-...}}``, with dense ``w`` as (in, out) and convolution kernels as DHWIO.
-The port's modules hold ``{layer}.weight`` / ``{layer}.bias`` with dense
-weights (out, in) and convolution kernels (O, I, D, H, W). The two layouts
-are told apart by rank alone, so one pair of functions serves the
-autoencoder and the correction network:
+The reference keeps parameters as nested dicts, ``{layer: {"w": ...,
+"b": ...}}`` — three levels deep for the attention family
+(``enc_block0/attn/wq``, ``enc_block0/ln1/scale``) — with 2-D weights as
+(in, out) and convolution kernels as DHWIO. The port's modules hold the
+same paths joined by dots, ``w`` / ``b`` renamed ``weight`` / ``bias``
+(every other leaf keeps its name), with 2-D weights (out, in) and
+convolution kernels (O, I, D, H, W). The two layouts are told apart by
+rank alone, so one pair of functions serves every network of the codec:
 
 * :func:`from_reference` — numpy tree -> flat ``state_dict`` of tensors;
 * :func:`to_reference` — flat ``state_dict`` -> numpy tree.
@@ -22,6 +24,9 @@ import torch
 
 _LEAF = {"w": "weight", "b": "bias"}
 _LEAF_BACK = {v: k for k, v in _LEAF.items()}
+# leaves that keep their name: the attention family's norm scales,
+# attention projections and SwiGLU weights
+_NAMED = frozenset({"scale", "wq", "wk", "wv", "wo", "wg", "wu", "wd"})
 
 
 def _to_torch_layout(a: np.ndarray) -> np.ndarray:
@@ -40,16 +45,27 @@ def _to_reference_layout(a: np.ndarray) -> np.ndarray:
     return a
 
 
+def _leaves(tree: dict, path=()):
+    """(path, leaf) pairs of a nested-dict tree, keys sorted at every level."""
+    for key in sorted(tree):
+        value = tree[key]
+        if isinstance(value, dict):
+            yield from _leaves(value, path + (key,))
+        else:
+            yield path + (key,), value
+
+
 def from_reference(tree: dict, device=None) -> dict[str, torch.Tensor]:
     """Reference parameter tree (numpy leaves) -> flat ``state_dict``."""
     out = {}
-    for layer in sorted(tree):
-        for leaf, value in tree[layer].items():
-            if leaf not in _LEAF:
-                raise KeyError(f"unknown parameter leaf {layer}/{leaf}")
-            arr = np.ascontiguousarray(
-                _to_torch_layout(np.asarray(value, dtype=np.float32)))
-            out[f"{layer}.{_LEAF[leaf]}"] = torch.tensor(arr, device=device)
+    for path, value in _leaves(tree):
+        *layers, leaf = path
+        if not layers or (leaf not in _LEAF and leaf not in _NAMED):
+            raise KeyError(f"unknown parameter leaf {'/'.join(path)}")
+        arr = np.ascontiguousarray(
+            _to_torch_layout(np.asarray(value, dtype=np.float32)))
+        out[".".join([*layers, _LEAF.get(leaf, leaf)])] = torch.tensor(
+            arr, device=device)
     return out
 
 
@@ -57,11 +73,14 @@ def to_reference(state: dict) -> dict:
     """Flat ``state_dict`` -> reference parameter tree (numpy fp32 leaves)."""
     tree: dict = {}
     for name, value in state.items():
-        layer, _, leaf = name.rpartition(".")
-        if leaf not in _LEAF_BACK or not layer:
+        *layers, leaf = name.split(".")
+        if not layers or (leaf not in _LEAF_BACK and leaf not in _NAMED):
             raise KeyError(f"unknown parameter name {name!r}")
         arr = value.detach().cpu().numpy() if isinstance(value, torch.Tensor) \
             else np.asarray(value)
-        tree.setdefault(layer, {})[_LEAF_BACK[leaf]] = np.ascontiguousarray(
+        node = tree
+        for key in layers:
+            node = node.setdefault(key, {})
+        node[_LEAF_BACK.get(leaf, leaf)] = np.ascontiguousarray(
             _to_reference_layout(arr.astype(np.float32, copy=False)))
     return tree

@@ -78,9 +78,11 @@ class PipelineConfig:
     # negligible NRMSE impact (beyond-paper option, default off)
     param_dtype_bytes: int = 4
     # encoder family (see repro_torch.codec.families): "conv" is the
-    # paper's block autoencoder, the only family ported yet. ``arch``
-    # carries the family's wire arch words — for conv it defaults to
-    # ``conv_channels`` (kept as the historical spelling)
+    # paper's block autoencoder, "attention" the patch-token block
+    # attention AE. ``arch`` carries the family's wire arch words — for
+    # conv it defaults to ``conv_channels`` (kept as the historical
+    # spelling), for attention to (d_model, n_heads, depth, mlp_hidden)
+    # = (32, 2, 1, 64)
     family: str = "conv"
     arch: Optional[tuple[int, ...]] = None
 

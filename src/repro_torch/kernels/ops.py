@@ -1,7 +1,8 @@
-"""Device dispatch for the guarantee kernels.
+"""Device dispatch for the hand-written kernels.
 
 A tensor on a CUDA device goes to the hand-written kernel
-(:mod:`repro_torch.kernels.gbatc_project`) and to nothing else: a build or
+(:mod:`repro_torch.kernels.gbatc_project`,
+:mod:`repro_torch.kernels.flash_attention`) and to nothing else: a build or
 launch failure raises, there is no fallback. A tensor on the CPU — which
 only happens when the caller asked for ``device="cpu"`` — goes to the plain
 version in :mod:`repro_torch.kernels.ref`.
@@ -17,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gbatc_project as _cuda
 from repro_torch.kernels import ref as _ref
 
@@ -54,3 +56,12 @@ def gbatc_select_accumulate(x_rec, coeff_vals, rank, m, basis, *,
     if dev.type == "cuda":
         return _cuda.gbatc_select_accumulate(x_rec, coeff_vals, rank, m, basis)
     return _ref.gbatc_select_accumulate_ref(x_rec, coeff_vals, rank, m, basis)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    device: DeviceLike = None):
+    """(B, H, Tq, D) attention; see :func:`repro_torch.kernels.ref.flash_attention_ref`."""
+    dev, (q, k, v) = _stage((q, k, v), device)
+    if dev.type == "cuda":
+        return _flash.flash_attention(q, k, v, causal=causal, window=window)
+    return _ref.flash_attention_ref(q, k, v, causal=causal, window=window)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the CUDA kernels in ``csrc/gbatc_kernels.cu``.
+"""Plain PyTorch versions of the CUDA kernels in ``csrc/``.
 
 Each is the oracle its kernel is held against on the card, and what
 :mod:`repro_torch.kernels.ops` runs for tensors that live on the CPU.
@@ -7,7 +7,32 @@ Nothing on the main path calls them when the device is CUDA.
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True, window: int = 0) -> torch.Tensor:
+    """``softmax(q k^T / sqrt(D) + mask) v`` with fp32 scores; q (B, H, Tq,
+    D), k and v (B, H, Tk, D) (heads already expanded); returns (B, H, Tq,
+    D) in q's dtype. Masked scores are filled with ``-1e30``. Any Tk works,
+    causal or not."""
+    tq, tk, d = q.shape[2], k.shape[2], q.shape[3]
+    scale = 1.0 / math.sqrt(d)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    qpos = torch.arange(tq, device=q.device)[:, None]
+    kpos = torch.arange(tk, device=q.device)[None, :]
+    mask = torch.ones((tq, tk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window > 0:
+        mask &= kpos > qpos - window
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)
 
 
 def gbatc_project_batched_ref(residual: torch.Tensor,

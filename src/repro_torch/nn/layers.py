@@ -51,9 +51,10 @@ def conv3d(x: torch.Tensor, weight: torch.Tensor,
 conv3d_transpose = conv3d
 
 
-def _normal(shape, fan_in: int, generator: Optional[torch.Generator],
-            device) -> torch.Tensor:
-    # drawn on the CPU so one seed gives one set of numbers on any device
+def normal_fan_in(shape, fan_in: int, generator: Optional[torch.Generator],
+                  device) -> torch.Tensor:
+    """Normal draws with std ``1/sqrt(fan_in)``, the reference's init law;
+    drawn on the CPU so one seed gives one set of numbers on any device."""
     w = torch.randn(shape, generator=generator, dtype=torch.float32)
     return (w / math.sqrt(fan_in)).to(device)
 
@@ -63,7 +64,7 @@ class Dense(nn.Module):
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
         self.weight = nn.Parameter(
-            _normal((out_dim, in_dim), in_dim, generator, device))
+            normal_fan_in((out_dim, in_dim), in_dim, generator, device))
         self.bias = nn.Parameter(
             torch.zeros(out_dim, dtype=torch.float32, device=device))
 
@@ -82,7 +83,7 @@ class Conv3d(nn.Module):
             raise ValueError(f"SAME conv needs an odd kernel, got {kernel}")
         fan_in = in_ch * math.prod(kernel)
         self.weight = nn.Parameter(
-            _normal((out_ch, in_ch, *kernel), fan_in, generator, device))
+            normal_fan_in((out_ch, in_ch, *kernel), fan_in, generator, device))
         self.bias = nn.Parameter(
             torch.zeros(out_ch, dtype=torch.float32, device=device))
 

@@ -7,8 +7,7 @@
   runs on another backend, so ``x_rec`` drifts by fp32 ulps from the one
   the guarantee was computed against), and the reverse;
 * a well-formed blob of another container version raises the typed
-  "does not read this version yet" error; a tag-2 (attention family)
-  blob says the family is not yet ported.
+  "does not read this version yet" error.
 
 Fits are tiny (S=4, T=8, 20x20 -> 40 blocks, conv (8,16), <= 10 steps).
 """
@@ -162,19 +161,6 @@ def test_older_versions_raise_typed_not_yet(reference_blob, version):
         t_codec.decompress(old, device="cpu")
     with pytest.raises(ContainerFormatError, match="does not write"):
         t_codec.encode(rep.artifact, version=version)
-
-
-def test_attention_family_tag_says_not_yet_ported(port_blob):
-    blob, rep = port_blob
-    art = rep.artifact
-    meta = bytearray(t_wire._pack_meta(art, 5))
-    meta[0] = 2  # the reference's attention-family wire tag
-    with pytest.raises(ContainerFormatError, match="not yet ported"):
-        t_wire._unpack_meta(bytes(meta), version=5)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        PipelineConfig(family="attention") and t_codec.families.get("attention")
-    with pytest.raises(ValueError):
-        t_codec.families.get("no-such-family")
 
 
 def test_corrupt_blob_raises_and_evicts(port_blob):

@@ -11,6 +11,8 @@ The reference engine imports ``enable_x64`` from ``jax.experimental``,
 which the installed JAX no longer has. :func:`reference_x64` puts the name
 there for the duration of one test module and removes it again, so files
 that do not ask for it see the reference exactly as it is checked in.
+:func:`reference_pallas_load` does the same for ``pallas.load`` and
+``pallas.store``, which the reference's flash-attention kernel calls.
 """
 
 import contextlib
@@ -42,6 +44,31 @@ def reference_x64_shim():
 @pytest.fixture(scope="module")
 def reference_x64():
     with reference_x64_shim():
+        yield
+
+
+@contextlib.contextmanager
+def pallas_load_shim():
+    """Give ``jax.experimental.pallas`` the ``load`` / ``store`` names the
+    reference's flash-attention kernel calls; take them away again on
+    exit."""
+    from jax.experimental import pallas as pl
+
+    added = [n for n in ("load", "store") if n not in vars(pl)]
+    if "load" in added:
+        pl.load = lambda ref, idx: ref[idx]
+    if "store" in added:
+        pl.store = lambda ref, idx, val: ref.__setitem__(idx, val)
+    try:
+        yield
+    finally:
+        for n in added:
+            delattr(pl, n)
+
+
+@pytest.fixture(scope="module")
+def reference_pallas_load():
+    with pallas_load_shim():
         yield
 
 
@@ -109,6 +136,19 @@ def test_shim_is_scoped_to_the_fixture():
     with reference_x64_shim():
         from jax.experimental import enable_x64  # noqa: F401
     assert ("enable_x64" in vars(jax.experimental)) == before
+
+
+def test_pallas_shim_is_scoped_to_the_fixture():
+    """``tests/test_kernels.py`` sees ``pallas.load`` / ``pallas.store``
+    exactly as the installed JAX has them once the shim context exits."""
+    from jax.experimental import pallas as pl
+
+    from repro.kernels import flash_attention as r_flash
+
+    before = {n: n in vars(pl) for n in ("load", "store")}
+    with pallas_load_shim():
+        assert r_flash.pl is pl and callable(pl.load) and callable(pl.store)
+    assert {n: n in vars(pl) for n in ("load", "store")} == before
 
 
 def test_reuse_equals_cold_prepare():

@@ -33,9 +33,10 @@ def _imported_roots(path):
 
 
 def test_package_layout_mirrors_the_reference():
-    for sub in ("core", "codec", "nn", "train", "kernels", "data"):
+    for sub in ("core", "codec", "nn", "train", "kernels", "data", "models"):
         assert (PKG / sub / "__init__.py").is_file(), sub
-    assert (PKG / "kernels" / "csrc" / "gbatc_kernels.cu").is_file()
+    for src in ("gbatc_kernels.cu", "flash_attention.cu"):
+        assert (PKG / "kernels" / "csrc" / src).is_file(), src
     assert (ROOT / "chip_smoke.py").is_file()
 
 
@@ -72,6 +73,10 @@ for name in names:
     importlib.import_module(name)
 assert not any(m.split(".")[0] in ("jax", "jaxlib", "repro") for m in sys.modules)
 from repro_torch.core.pipeline import GBATCCodec, PipelineConfig
+from repro_torch.kernels import flash_attention, ops
+from repro_torch.models import block_attention, common
+assert "repro_torch.models.block_attention" in names
+assert "repro_torch.kernels.flash_attention" in names
 print(len(names))
 """
 
@@ -83,17 +88,18 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    assert int(out.stdout.strip().splitlines()[-1]) >= 29
 
 
 def test_importing_builds_nothing():
     """Kernels are built at first launch, never at import."""
-    from repro_torch.kernels import _build, gbatc_project  # noqa: F401
+    from repro_torch.kernels import _build, flash_attention, gbatc_project  # noqa: F401
 
     assert _build.build_info() == {}
 
 
-@pytest.mark.parametrize("entry", ["codec", "pipeline", "engine", "decompress", "ops"])
+@pytest.mark.parametrize("entry", ["codec", "pipeline", "engine", "decompress", "ops",
+                                   "attention_codec", "flash_ops"])
 def test_device_none_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -112,6 +118,9 @@ def test_device_none_without_cuda_raises(entry):
         "ops": lambda: ops.gbatc_correct_batched(
             np.zeros((1, 2, 4), np.float32), np.zeros((1, 2, 4), np.float32),
             np.zeros((1, 4, 4), np.float32)),
+        "attention_codec": lambda: GBATCCodec(PipelineConfig(family="attention")),
+        "flash_ops": lambda: ops.flash_attention(
+            *[np.zeros((1, 1, 4, 8), np.float32)] * 3),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

@@ -6,6 +6,9 @@ against its plain version there). Here the plain versions — what
 reference's Pallas kernels in interpret mode on the reference's own shape
 sweep, from the same numpy inputs: fp32 to atol 1e-5 (different summation
 order of 80..130 products of unit-scale values), fp64 to rtol 1e-12.
+Flash attention uses the reference's own tolerances: 2e-5 in fp32, 2e-2 in
+bf16 (both sides round the same fp32 inputs to bf16, compute in fp32 and
+round the output once).
 """
 
 import jax
@@ -13,8 +16,12 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from test_torch_gae import reference_pallas_load  # noqa: F401  (module-scoped shim fixture)
 
+from repro.kernels import flash_attention as ref_flash
 from repro.kernels import gbatc_project as ref_kernels
+from repro.kernels import ref as ref_oracles
+from repro_torch.kernels import flash_attention as flash_wrapper
 from repro_torch.kernels import gbatc_project as cuda_wrappers
 from repro_torch.kernels import ops, ref
 
@@ -148,3 +155,108 @@ def test_ops_default_device_raises_without_cuda():
     x, _, u, _, _ = _inputs(1, 8, 16)
     with pytest.raises(RuntimeError, match="CUDA"):
         ops.gbatc_project_batched(x, u)
+
+
+# -- flash attention -------------------------------------------------------
+# (b, h, tq, tk, d, causal, window, block_q, block_k): the reference's sweep
+# in tests/test_kernels.py, then the codec's own non-causal shape at small
+# batch with a block that divides Tk = 232 (the reference cannot run it
+# with its default block of 128, see test_flash_ragged_tk_*)
+FLASH_SWEEP = [
+    (1, 1, 128, 128, 64, True, 0, 128, 128),
+    (2, 3, 256, 256, 64, True, 0, 128, 128),
+    (1, 2, 128, 384, 128, True, 0, 128, 128),
+    (1, 1, 200, 200, 64, True, 0, 128, 128),
+    (2, 2, 64, 64, 32, True, 0, 128, 128),
+    (1, 2, 256, 256, 64, True, 16, 128, 128),
+    (1, 2, 256, 256, 64, True, 64, 128, 128),
+    (1, 2, 256, 256, 64, True, 1000, 128, 128),
+    (1, 1, 128, 256, 64, False, 0, 128, 128),
+    (1, 2, 256, 256, 64, True, 0, 64, 64),
+    (1, 2, 256, 256, 64, True, 0, 128, 256),
+    (1, 2, 256, 256, 64, True, 0, 32, 128),
+    (2, 2, 232, 232, 16, False, 0, 8, 8),
+]
+
+
+def _qkv(b, h, tq, tk, d, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(b, h, tq, d)).astype(np.float32),
+            rng.normal(size=(b, h, tk, d)).astype(np.float32),
+            rng.normal(size=(b, h, tk, d)).astype(np.float32))
+
+
+# the reference sweeps bf16 on its five causal shapes only
+FLASH_CASES = [(c, "float32") for c in FLASH_SWEEP] + [
+    (c, "bfloat16") for c in FLASH_SWEEP[:5]]
+
+
+@pytest.mark.parametrize("case,dtype", FLASH_CASES)
+def test_flash_ref_matches_pallas(reference_pallas_load, case, dtype):  # noqa: F811
+    b, h, tq, tk, d, causal, window, bq, bk = case
+    q, k, v = _qkv(b, h, tq, tk, d, seed=tq + tk + d + window)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_flash.flash_attention(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), causal=causal,
+        window=window, block_q=bq, block_k=bk, interpret=True)
+    got = ref.flash_attention_ref(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal,
+        window=window)
+    assert got.dtype == tdt and tuple(got.shape) == (b, h, tq, d)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("b,h,tq,tk,d", [(2, 2, 232, 232, 16), (3, 2, 1, 16, 16),
+                                         (1, 2, 100, 37, 64)])
+def test_flash_ragged_tk_matches_reference_oracle(b, h, tq, tk, d):
+    """Non-causal with Tk not a multiple of the reference's block: its
+    Pallas wrapper refuses (it cannot mask a padded key tail when not
+    causal), the port's plain version takes it and agrees with the
+    reference's jnp oracle to 2e-5."""
+    q, k, v = _qkv(b, h, tq, tk, d, seed=7 + tk)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    if tk > 128 and tk % 128:
+        with pytest.raises(NotImplementedError, match="Tk % block_k"):
+            ref_flash.flash_attention(jq, jk, jv, causal=False, block_k=128,
+                                      interpret=True)
+    want = ref_oracles.flash_attention_ref(jq, jk, jv, causal=False)
+    got = ref.flash_attention_ref(*_t(q, k, v), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_flash_fully_masked_keys_carry_no_weight():
+    """Keys outside a causal window get weight 0: perturbing them leaves
+    the output bitwise unchanged."""
+    q, k, v = _qkv(1, 2, 64, 64, 16, seed=3)
+    a = ref.flash_attention_ref(*_t(q, k, v), causal=True, window=8)
+    k2, v2 = k.copy(), v.copy()
+    k2[:, :, :40] += 5.0
+    v2[:, :, :40] -= 3.0
+    b = ref.flash_attention_ref(*_t(q, k2, v2), causal=True, window=8)
+    np.testing.assert_array_equal(a[:, :, 47:].numpy(), b[:, :, 47:].numpy())
+
+
+def test_ops_flash_on_cpu_runs_the_plain_version():
+    q, k, v = _qkv(2, 2, 20, 20, 8, seed=4)
+    np.testing.assert_array_equal(
+        ops.flash_attention(q, k, v, causal=False, device="cpu").numpy(),
+        ref.flash_attention_ref(*_t(q, k, v), causal=False).numpy())
+
+
+def test_flash_wrapper_refuses_cpu_tensors():
+    q, k, v = _t(*_qkv(1, 1, 8, 8, 16, seed=5))
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        flash_wrapper.flash_attention(q, k, v)
+    assert flash_wrapper.launch_counts() == {"flash_attention": 0}
+
+
+def test_ops_flash_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    q, k, v = _qkv(1, 1, 8, 8, 16, seed=6)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ops.flash_attention(q, k, v)
