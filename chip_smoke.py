@@ -23,7 +23,16 @@ Phases (each prints one JSON line; any failure exits non-zero):
 5. ``attention_path``  the same for the attention family (arch (32, 2, 1,
    64)) on the same data, its launch counts read separately for compress
    and for decompress;
-6. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+6. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
+   (the JAX package's ``kernels/ops.py``, name for name) once at its
+   full-width shape, from numpy inputs on the default device, against its
+   plain version, with the launch counts reset just before each call and
+   read just after (each call launches its own kernel once and nothing
+   else); the ``kernels`` phase also holds the five kernels behind them
+   that no other path runs (2D GBATC pair, block_quant, rglru_scan,
+   rwkv6_scan) against their plain versions at those shapes, at the
+   reference's sweeps and in bf16;
+7. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -76,6 +85,24 @@ FLASH_SHAPES = [
 # the reference's tolerances (tests/test_kernels.py::_tol), max abs diff
 FLASH_LIMIT = {"float32": 2e-5, "bfloat16": 2e-2}
 
+# the kernels behind kernels/ops.py that no codec path runs, at full-width
+# shapes of configurations the repo supports:
+GBATC_2D = (S * NB, D)  # the main path's 58 x 20480 blocks under one basis
+BQ_PATH = ((14336, 4096), 8, 64)  # a gradient bucket the size of RWKV-6 7B's
+# channel-mix weight (configs/rwkv6_7b.py) at CompressionConfig's defaults
+# (parallel/gradient_compression.py:39-41): (shape, n_bits, block)
+RGLRU_PATH = (8, 4096, 2560)  # RecurrentGemma-2B's rglru_width
+RWKV_PATH = (8, 1024, 64, 64)  # RWKV-6 7B: 64 heads of 64
+# and at the reference's own sweeps (tests/test_kernels.py) plus ragged ones
+GBATC_2D_SWEEP = [(100, 80), (1000, 80), (64, 64), (513, 80), (77, 37)]
+BQ_SWEEP = [((64, 256), 64), ((3, 7, 128), 32), ((1024, 64), 64), ((5, 600), 300)]
+RGLRU_SWEEP = [(1, 64, 32), (2, 128, 256), (1, 100, 130)]
+RWKV_SWEEP = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 100, 2, 64), (1, 128, 4, 64),
+              (2, 37, 3, 20)]
+RGLRU_LIMIT = 1e-5  # max abs diff at unit-scale inputs
+RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
+BF16_ULP = 2.0 ** -7  # one bf16 rounding of the output, relative
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -117,10 +144,22 @@ PTXAS_NAMES = {
         r"gbatc_tile_kernelI([fd])Li(\d)ELi(\d)E",
         lambda m: "{}/{}/cmax{}".format(
             {"f": "f32", "d": "f64"}[m.group(1)],
-            ("project", "correct", "select")[int(m.group(2))], m.group(3))),
+            ("project", "correct", "select", "masked")[int(m.group(2))],
+            m.group(3))),
     "flash_attention": (
         r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "flash/{}/dp{}".format(
+            "f32" if m.group(1) == "f" else "bf16", m.group(2))),
+    "block_quant": (
+        r"block_quant_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        lambda m: "block_quant/{}/v{}".format(
+            "f32" if m.group(1) == "f" else "bf16", m.group(2))),
+    "rglru_scan": (
+        r"rglru_kernelI(f|13__nv_bfloat16)E",
+        lambda m: "rglru/{}".format("f32" if m.group(1) == "f" else "bf16")),
+    "rwkv6_scan": (
+        r"rwkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E",
+        lambda m: "rwkv6/{}/np{}".format(
             "f32" if m.group(1) == "f" else "bf16", m.group(2))),
 }
 
@@ -153,10 +192,10 @@ def phase_build() -> dict:
     return info
 
 
-def time_ms(torch, fn, launches: int) -> float:
+def time_ms(torch, fn, launches: int, warmup: int = 3) -> float:
     """Median over ``launches`` single-launch CUDA-event timings. Operands
     are far larger than the 50 MB L2, so every launch finds it cold."""
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -205,6 +244,38 @@ def compare(torch, got, want, rows, dtype) -> float:
     return float(diff.max()) if diff.numel() else 0.0
 
 
+def kernel_row(torch, name, source, replaces, fn, plain, lib, dtype, shape,
+               nbytes, flops, launches, err, plain_launches=None, **extra):
+    """One ``{"kernels": ...}`` entry: the kernel's time, its plain
+    version's, the one-call library yardstick's (``lib``, or None where no
+    single call computes the function), and the card's bound for the work.
+    ``plain_launches`` times a slow plain version over fewer launches."""
+    ms = time_ms(torch, fn, launches)
+    plain_ms = (time_ms(torch, plain, plain_launches, warmup=1) if plain_launches
+                else time_ms(torch, plain, launches))
+    library_ms = time_ms(torch, lib, launches) if lib is not None else None
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return {
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
+        "launches": 0, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "dtype": dtype, "shape": list(shape),
+        "bytes": nbytes, "flops": flops, **extra,
+    }
+
+
+def same_twice(torch, name: str, fn) -> None:
+    """Two launches on the same inputs give the same bits."""
+    first, second = fn(), fn()
+    first = first if isinstance(first, tuple) else (first,)
+    second = second if isinstance(second, tuple) else (second,)
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        fail(f"{name} is not deterministic: two launches differ")
+
+
 def phase_kernels(torch, launches: int) -> list[dict]:
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
@@ -240,26 +311,13 @@ def phase_kernels(torch, launches: int) -> list[dict]:
         got, want = fn(), plain()
         err = compare(torch, got, want, rows_for_norm, dtype)
         del got, want
-        ms = time_ms(torch, fn, launches)
-        plain_ms = time_ms(torch, plain, launches)
-        library_ms = time_ms(torch, lib, launches) if lib is not None else None
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[str(dtype).split(".")[-1]] * 1e3
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/gbatc_kernels.cu",
-            "replaces": f"src/repro/kernels/gbatc_project.py:{line}",
-            "launches": 0, "max_abs_err": max(err, ragged_err[name, dtype]),
-            "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library_ms,
-            "dtype": str(dtype).split(".")[-1], "shape": [S, NB, D],
-            "bytes": nbytes, "flops": flops,
-            "ragged_shapes_checked": RAGGED,
-            "tolerance": ("max abs diff <= 1e-12 x row l2 norm"
-                          if dtype == torch.float64 else "max abs diff <= 1e-5"),
-        })
+        rows.append(kernel_row(
+            torch, name, "gbatc_kernels.cu",
+            f"src/repro/kernels/gbatc_project.py:{line}", fn, plain, lib,
+            str(dtype).split(".")[-1], (S, NB, D), nbytes, flops, launches,
+            max(err, ragged_err[name, dtype]), ragged_shapes_checked=RAGGED,
+            tolerance=("max abs diff <= 1e-12 x row l2 norm"
+                       if dtype == torch.float64 else "max abs diff <= 1e-5")))
 
     x, c, u, rank, m = make_inputs(torch, S, NB, D, torch.float64, 1)
     row("gbatc_project_batched", 207, torch.float64,
@@ -337,38 +395,22 @@ def phase_flash(torch, launches: int) -> dict:
     errs["bfloat16"] = max(errs["bfloat16"], check(q, k, v, False, 0, "bfloat16"))
     q, k, v = qkv(b, h, t, t, d, torch.float32, 301)
     err = check(q, k, v, False, 0, "float32")
-    first = fk.flash_attention(q, k, v, causal=False)
-    if not torch.equal(first, fk.flash_attention(q, k, v, causal=False)):
-        fail("flash_attention is not deterministic: two launches differ")
-    del first
-    kernel = lambda: fk.flash_attention(q, k, v, causal=False)  # noqa: E731
+    same_twice(torch, "flash_attention", lambda: fk.flash_attention(q, k, v, causal=False))
     plain = lambda: kref.flash_attention_ref(q, k, v, causal=False)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-    ms = time_ms(torch, kernel, launches)
-    plain_ms = time_ms(torch, plain, launches)
-    library_ms = time_ms(torch, sdpa, launches)
-    sdpa_err = float((sdpa() - plain()).abs().max())
     n = b * h * t * d
-    nbytes, flops = 4 * n * 4, 4 * b * h * t * t * d
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS["float32"] * 1e3
+    row = kernel_row(
+        torch, "flash_attention", "flash_attention.cu",
+        "src/repro/kernels/flash_attention.py:116",
+        lambda: fk.flash_attention(q, k, v, causal=False), plain, sdpa,
+        "float32", FLASH_PATH, 4 * n * 4, 4 * b * h * t * t * d, launches,
+        max(err, errs["float32"]), causal=False,
+        max_abs_err_bf16=errs["bfloat16"],
+        library_max_abs_err=float((sdpa() - plain()).abs().max()),
+        shapes_checked=[list(c[:7]) + [list(c[7])] for c in FLASH_SHAPES],
+        tolerance="max abs diff <= 2e-5 (fp32), 2e-2 (bf16)")
     del q, k, v
     torch.cuda.empty_cache()
-    row = {
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:116",
-        "launches": 0, "max_abs_err": max(err, errs["float32"]),
-        "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "dtype": "float32", "shape": list(FLASH_PATH), "causal": False,
-        "bytes": nbytes, "flops": flops,
-        "max_abs_err_bf16": errs["bfloat16"], "library_max_abs_err": sdpa_err,
-        "shapes_checked": [list(c[:7]) + [list(c[7])] for c in FLASH_SHAPES],
-        "tolerance": "max abs diff <= 2e-5 (fp32), 2e-2 (bf16)",
-    }
     emit({"phase": "kernels", "kernel": "flash_attention",
           "launches_timed": launches,
           "summary": {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16",
@@ -377,19 +419,312 @@ def phase_flash(torch, launches: int) -> dict:
     return row
 
 
-def all_counts() -> dict:
-    from repro_torch.kernels import flash_attention as fk
+def phase_ops_kernels(torch, launches: int) -> list[dict]:
+    """The 2D GBATC pair, block_quant, rwkv6_scan and rglru_scan against
+    their plain versions on the card: at the reference's sweeps, ragged
+    shapes and bf16 (the 2D pair: fp64), then at the full-width shapes,
+    where each is timed. Returns their rows in that order."""
+    from repro_torch.kernels import block_quant as bk
     from repro_torch.kernels import gbatc_project as gk
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rglru_scan as rk
+    from repro_torch.kernels import rwkv6_scan as wk
 
-    return {**gk.launch_counts(), **fk.launch_counts()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(500)
+    f32, bf16 = torch.float32, torch.bfloat16
+    t_start = time.perf_counter()
+
+    def randn(*shape, dtype=f32):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    rows = []
+
+    # -- 2D GBATC pair: the batched kernels' project mode and masked mode at
+    # S = 1, held to their fp32 and fp64 limits --------------------------
+    def gbatc_inputs(nb, d, dtype):
+        q, _ = torch.linalg.qr(randn(d, d, dtype=torch.float64))
+        mask = (torch.rand(nb, d, generator=g, device="cuda") < 0.5).to(dtype)
+        return (randn(nb, d, dtype=dtype), randn(nb, d, dtype=dtype),
+                q.to(dtype).contiguous(), mask)
+
+    err = {"gbatc_project": 0.0, "gbatc_correct": 0.0}
+    for nb, d in GBATC_2D_SWEEP:
+        for dtype in (f32, torch.float64):
+            x, c, u, mask = gbatc_inputs(nb, d, dtype)
+            e_p = compare(torch, gk.gbatc_project(x, u),
+                          kref.gbatc_project_ref(x, u), x, dtype)
+            # a bool mask, converted by the wrapper as the reference's astype
+            e_c = compare(torch, gk.gbatc_correct(x, c, mask.bool(), u),
+                          kref.gbatc_correct_ref(x, c, mask, u), c, dtype)
+            if dtype == f32:
+                err["gbatc_project"] = max(err["gbatc_project"], e_p)
+                err["gbatc_correct"] = max(err["gbatc_correct"], e_c)
+    nb, d = GBATC_2D
+    n = nb * d
+    x, c, u, mask = gbatc_inputs(nb, d, f32)
+    e_p = compare(torch, gk.gbatc_project(x, u), kref.gbatc_project_ref(x, u), x, f32)
+    e_c = compare(torch, gk.gbatc_correct(x, c, mask, u),
+                  kref.gbatc_correct_ref(x, c, mask, u), c, f32)
+    same_twice(torch, "gbatc_project", lambda: gk.gbatc_project(x, u))
+    same_twice(torch, "gbatc_correct", lambda: gk.gbatc_correct(x, c, mask, u))
+    gbatc_extra = {"shapes_checked": GBATC_2D_SWEEP, "dtypes_checked": ["float32", "float64"],
+                   "tolerance": "max abs diff <= 1e-5 (fp32); <= 1e-12 x row l2 norm (fp64)"}
+    rows.append(kernel_row(
+        torch, "gbatc_project", "gbatc_kernels.cu",
+        "src/repro/kernels/gbatc_project.py:105",
+        lambda: gk.gbatc_project(x, u), lambda: kref.gbatc_project_ref(x, u),
+        lambda: torch.mm(x, u), "float32", GBATC_2D, (2 * n + d * d) * 4,
+        2 * n * d, launches, max(e_p, err["gbatc_project"]), **gbatc_extra))
+    kept = int(mask.sum())
+    rows.append(kernel_row(
+        torch, "gbatc_correct", "gbatc_kernels.cu",
+        "src/repro/kernels/gbatc_project.py:140",
+        lambda: gk.gbatc_correct(x, c, mask, u),
+        lambda: kref.gbatc_correct_ref(x, c, mask, u), None, "float32",
+        GBATC_2D, (4 * n + d * d) * 4, 2 * kept * d, launches,
+        max(e_c, err["gbatc_correct"]), mask_kept=kept, **gbatc_extra))
+    del x, c, u, mask
+
+    # -- block_quant: bitwise, fp32 and bf16 -------------------------------
+    shape, n_bits, block = BQ_PATH
+    for sh, blk in BQ_SWEEP + [(shape, block)]:
+        for bits in (4, 8):
+            for dtype in (f32, bf16):
+                xq = randn(*sh, dtype=dtype)
+                out, sc = bk.block_quant(xq, n_bits=bits, block=blk)
+                want, want_sc = kref.block_quant_ref(xq, n_bits=bits, block=blk)
+                if not (torch.equal(out, want) and torch.equal(sc, want_sc)):
+                    fail(f"block_quant differs from its plain version at {sh}, "
+                         f"block {blk}, {bits} bits, {dtype}: max abs "
+                         f"{float((out.float() - want.float()).abs().max()):.3e}")
+    xq = randn(*shape)
+    numel = xq.numel()
+    same_twice(torch, "block_quant", lambda: bk.block_quant(xq, n_bits=n_bits, block=block))
+    rows.append(kernel_row(
+        torch, "block_quant", "block_quant.cu", "src/repro/kernels/block_quant.py:53",
+        lambda: bk.block_quant(xq, n_bits=n_bits, block=block),
+        lambda: kref.block_quant_ref(xq, n_bits=n_bits, block=block), None,
+        "float32", shape, 2 * numel * 4 + numel // block * 4, 4 * numel, launches,
+        0.0, n_bits=n_bits, block=block,
+        shapes_checked=[[list(sh), blk] for sh, blk in BQ_SWEEP], bits_checked=[4, 8],
+        dtypes_checked=["float32", "bfloat16"],
+        tolerance="bitwise (out and scales), fp32 and bf16"))
+    del xq
+
+    # -- rwkv6_scan --------------------------------------------------------
+    def rw_inputs(b, t, h, n, dtype, decay=None, carried=True):
+        r, k, v = (randn(b, t, h, n, dtype=dtype) for _ in range(3))
+        if decay is None:
+            w = torch.sigmoid(3.0 * randn(b, t, h, n)).clamp(1e-6, 1 - 1e-6)
+        else:
+            w = torch.full((b, t, h, n), decay, device="cuda")
+        # a random s0 is not symmetric, so a transposed state would show
+        s0 = randn(b, h, n, n) if carried else None
+        return r, k, v, w.to(dtype), (0.5 * randn(h, n)).to(dtype), s0
+
+    def rw_check(args, what) -> float:
+        out, s_last = wk.rwkv6_scan(*args)
+        want, want_last = kref.rwkv6_scan_ref(*args)
+        if not (torch.isfinite(out).all() and torch.isfinite(s_last).all()):
+            fail(f"rwkv6_scan output is not finite ({what})")
+        top = max(1.0, float(want.float().abs().max()))
+        limit = RWKV_LIMIT * top + (BF16_ULP * top if out.dtype == bf16 else 0.0)
+        e = float((out.float() - want.float()).abs().max())
+        e_s = float((s_last - want_last).abs().max())
+        if e > limit or e_s > RWKV_LIMIT * max(1.0, float(want_last.abs().max())):
+            fail(f"rwkv6_scan differs from its plain version ({what}): out "
+                 f"{e:.3e} (limit {limit:.3e}), S_T {e_s:.3e}")
+        return max(e, e_s)
+
+    rw_err = 0.0
+    for b, t, h, n in RWKV_SWEEP + [RWKV_PATH]:
+        for dtype in (f32, bf16):
+            e = rw_check(rw_inputs(b, t, h, n, dtype), f"{(b, t, h, n)} {dtype}")
+            rw_err = max(rw_err, e) if dtype == f32 else rw_err
+    rw_check(rw_inputs(1, 64, 1, 16, f32, decay=1e-30, carried=False), "w = 1e-30")
+    above = rw_inputs(1, 16, 1, 16, f32, decay=1.5)
+    rw_check(above, "w = 1.5")
+    at_one = above[:3] + (torch.ones_like(above[3]),) + above[4:]
+    if not all(torch.equal(a, b) for a, b in zip(wk.rwkv6_scan(*above), wk.rwkv6_scan(*at_one))):
+        fail("rwkv6_scan does not clamp w > 1 to 1")
+    b, t, h, n = RWKV_PATH
+    args = rw_inputs(b, t, h, n, f32)
+    rw_err = max(rw_err, rw_check(args, "timed shape"))
+    same_twice(torch, "rwkv6_scan", lambda: wk.rwkv6_scan(*args))
+    tokens = b * t * h
+    rows.append(kernel_row(
+        torch, "rwkv6_scan", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:111",
+        lambda: wk.rwkv6_scan(*args), lambda: kref.rwkv6_scan_ref(*args), None,
+        "float32", RWKV_PATH, 5 * tokens * n * 4 + 2 * b * h * n * n * 4 + h * n * 4,
+        5 * tokens * n * n, launches, rw_err, plain_launches=3, initial_state="random (B,H,N,N)",
+        shapes_checked=RWKV_SWEEP, dtypes_checked=["float32", "bfloat16"],
+        extra_cases=["w = 1e-30", "w = 1.5 (clamped to 1)"],
+        tolerance="max abs diff <= 2e-4 x max(1, max|plain|) (+ one bf16 ulp of it in bf16)"))
+    del args
+
+    # -- rglru_scan --------------------------------------------------------
+    def rg_check(a, bb, h0, what) -> tuple:
+        h, h_last = rk.rglru_scan(a, bb, h0)
+        want, want_last = kref.rglru_scan_ref(a, bb, h0)
+        if not (torch.isfinite(h).all() and torch.isfinite(h_last).all()):
+            fail(f"rglru_scan output is not finite ({what})")
+        e = max(float((h.float() - want.float()).abs().max()),
+                float((h_last - want_last).abs().max()))
+        if e > RGLRU_LIMIT:
+            fail(f"rglru_scan differs from its plain version ({what}): {e:.3e}")
+        return e, h
+
+    def rg_inputs(b, t, w, dtype):
+        return (torch.sigmoid(2.0 + randn(b, t, w)).to(dtype),
+                randn(b, t, w, dtype=dtype), randn(b, w))
+
+    rg_err = 0.0
+    for b, t, w in RGLRU_SWEEP + [RGLRU_PATH]:
+        for dtype in (f32, bf16):
+            e, _ = rg_check(*rg_inputs(b, t, w, dtype), f"{(b, t, w)} {dtype}")
+            rg_err = max(rg_err, e) if dtype == f32 else rg_err
+    ones = torch.ones(1, 32, 16, device="cuda")
+    rg_check(torch.full_like(ones, 1e-25), ones, None, "a = 1e-25")
+    _, h = rg_check(torch.full_like(ones, 1.5), ones, None, "a = 1.5")
+    if float(h[0, -1, 0]) != 32.0:
+        fail("rglru_scan does not clamp a > 1 to 1")
+    b, t, w = RGLRU_PATH
+    a, bb, h0 = rg_inputs(b, t, w, f32)
+    e, _ = rg_check(a, bb, h0, "timed shape")
+    same_twice(torch, "rglru_scan", lambda: rk.rglru_scan(a, bb, h0))
+    n = b * t * w
+    rows.append(kernel_row(
+        torch, "rglru_scan", "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:75",
+        lambda: rk.rglru_scan(a, bb, h0), lambda: kref.rglru_scan_ref(a, bb, h0),
+        None, "float32", RGLRU_PATH, 3 * n * 4 + 2 * b * w * 4, 2 * n, launches,
+        max(rg_err, e), plain_launches=3, shapes_checked=RGLRU_SWEEP,
+        dtypes_checked=["float32", "bfloat16"],
+        extra_cases=["a = 1e-25", "a = 1.5 (clamped to 1)"],
+        tolerance="max abs diff <= 1e-5 at unit-scale inputs"))
+    del a, bb, h0
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernels": [r["name"] for r in rows],
+          "launches_timed": launches, "seconds": time.perf_counter() - t_start,
+          "summary": [{k: r[k] for k in ("name", "max_abs_err", "ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by")}
+                      for r in rows]})
+    return rows
+
+
+def phase_ops_path(torch) -> dict:
+    """Each ``repro_torch.kernels.ops.*_op`` once at its full-width shape,
+    from numpy inputs on the default device, held against its plain
+    version; launch counts are reset just before each call and read just
+    after it: each call launches its own kernel once and nothing else."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(600)
+    t_start = time.perf_counter()
+
+    def host(*shape, fn=None):
+        t = torch.randn(*shape, generator=g, device="cuda")
+        return (t if fn is None else fn(t)).cpu().numpy()
+
+    def dev(*arrays):
+        return [torch.from_numpy(a).cuda() for a in arrays]
+
+    calls: dict = {}
+
+    def call(op, kernel, fn, plain, limit_of):
+        reset_counts()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = all_counts()
+        if counts[kernel] != 1 or any(v for k, v in counts.items() if k != kernel):
+            fail(f"ops_path: {op} launched {counts}; expected one launch of "
+                 f"{kernel} and nothing else")
+        got = got if isinstance(got, tuple) else (got,)
+        want = plain()
+        want = want if isinstance(want, tuple) else (want,)
+        err = 0.0
+        for a, b in zip(got, want, strict=True):
+            if a.shape != b.shape or a.dtype != b.dtype or a.device.type != "cuda":
+                fail(f"ops_path: {op} returned {a.dtype}{tuple(a.shape)} on "
+                     f"{a.device}, its plain version {b.dtype}{tuple(b.shape)}")
+            if not torch.isfinite(a).all():
+                fail(f"ops_path: {op} output is not finite")
+            err = max(err, float((a.float() - b.float()).abs().max()))
+        limit = limit_of(want)
+        if err > limit:
+            fail(f"ops_path: {op} differs from its plain version by {err:.3e} "
+                 f"(limit {limit:.3e})")
+        calls[op] = {"kernel": kernel, "launches": counts, "seconds": seconds,
+                     "max_abs_err": err, "limit": limit}
+
+    nb, d = GBATC_2D
+    x, c = host(nb, d), host(nb, d)
+    u = torch.linalg.qr(torch.randn(d, d, generator=g, device="cuda",
+                                    dtype=torch.float64))[0].float().cpu().numpy()
+    mask = (torch.rand(nb, d, generator=g, device="cuda") < 0.5).float().cpu().numpy()
+    call("gbatc_project_op", "gbatc_project", lambda: ops.gbatc_project_op(x, u),
+         lambda: kref.gbatc_project_ref(*dev(x, u)), lambda w: FP32_LIMIT)
+    call("gbatc_correct_op", "gbatc_correct",
+         lambda: ops.gbatc_correct_op(x, c, mask, u),
+         lambda: kref.gbatc_correct_ref(*dev(x, c, mask, u)), lambda w: FP32_LIMIT)
+    del x, c, mask
+
+    shape, n_bits, block = BQ_PATH
+    xq = host(*shape)
+    call("block_quant_op", "block_quant",
+         lambda: ops.block_quant_op(xq, n_bits=n_bits, block=block),
+         lambda: kref.block_quant_ref(*dev(xq), n_bits=n_bits, block=block),
+         lambda w: 0.0)
+    del xq
+
+    b, t, h, n = RWKV_PATH
+    r, k, v = (host(b, t, h, n) for _ in range(3))
+    w = host(b, t, h, n, fn=lambda z: torch.sigmoid(3.0 * z).clamp(1e-6, 1 - 1e-6))
+    uu, s0 = host(h, n, fn=lambda z: 0.5 * z), host(b, h, n, n)
+    call("rwkv6_scan_op", "rwkv6_scan", lambda: ops.rwkv6_scan_op(r, k, v, w, uu, s0),
+         lambda: kref.rwkv6_scan_ref(*dev(r, k, v, w, uu, s0)),
+         lambda want: RWKV_LIMIT * max(1.0, *(float(a.abs().max()) for a in want)))
+    del r, k, v, w, uu, s0
+
+    b, t, wd = RGLRU_PATH
+    a = host(b, t, wd, fn=lambda z: torch.sigmoid(2.0 + z))
+    bb, h0 = host(b, t, wd), host(b, wd)
+    call("rglru_scan_op", "rglru_scan", lambda: ops.rglru_scan_op(a, bb, h0),
+         lambda: kref.rglru_scan_ref(*dev(a, bb, h0)), lambda w: RGLRU_LIMIT)
+    del a, bb, h0
+
+    qb, qh, qt, qd = FLASH_PATH
+    q, kk, vv = (host(qb, qh, qt, qd) for _ in range(3))
+    call("flash_attention_op", "flash_attention",
+         lambda: ops.flash_attention_op(q, kk, vv, causal=False),
+         lambda: kref.flash_attention_ref(*dev(q, kk, vv), causal=False),
+         lambda w: FLASH_LIMIT["float32"])
+    del q, kk, vv
+    torch.cuda.empty_cache()
+    info = {"phase": "ops_path", "calls": calls,
+            "seconds": time.perf_counter() - t_start}
+    emit(info)
+    return calls
+
+
+def _wrappers() -> list:
+    from repro_torch.kernels import block_quant, flash_attention, gbatc_project
+    from repro_torch.kernels import rglru_scan, rwkv6_scan
+
+    return [gbatc_project, flash_attention, block_quant, rglru_scan, rwkv6_scan]
+
+
+def all_counts() -> dict:
+    return {k: n for w in _wrappers() for k, n in w.launch_counts().items()}
 
 
 def reset_counts() -> None:
-    from repro_torch.kernels import flash_attention as fk
-    from repro_torch.kernels import gbatc_project as gk
-
-    gk.reset_launches()
-    fk.reset_launches()
+    for w in _wrappers():
+        w.reset_launches()
 
 
 def generate(args):
@@ -534,7 +869,7 @@ def phase_attention_path(torch, args, data) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="env,build,kernels,main_path,attention_path")
+                    default="env,build,kernels,main_path,attention_path,ops_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -574,7 +909,11 @@ def run(torch, args, phases) -> None:
     rows = []
     if "kernels" in phases:
         launches = max(20, args.launches)
-        rows = phase_kernels(torch, launches) + [phase_flash(torch, launches)]
+        batched = phase_kernels(torch, launches)
+        flash = phase_flash(torch, launches)
+        ops_rows = phase_ops_kernels(torch, launches)
+        # the order of PERF.md's table of TPU kernels
+        rows = batched + ops_rows[:2] + [flash] + ops_rows[2:]
     paths = {}
     if "main_path" in phases or "attention_path" in phases:
         data, gen_s = generate(args)
@@ -584,14 +923,18 @@ def run(torch, args, phases) -> None:
         if "attention_path" in phases:
             paths["attention_path"] = phase_attention_path(torch, args, data)
         del data
+    ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]]}
                    for p, info in paths.items()}
+        if ops_calls:
+            by_path["ops_path"] = {op: c["launches"][r["name"]]
+                                   for op, c in ops_calls.items()}
         r["launches_by_path"] = by_path
-        r["launches"] = sum(c["compress"] + c["decompress"] for c in by_path.values())
+        r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
-                                         "attention_path"))
+                                         "attention_path", "ops_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -22,7 +22,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("gbatc_kernels.cu", "flash_attention.cu")
+SOURCES = ("gbatc_kernels.cu", "flash_attention.cu", "block_quant.cu",
+           "rglru_scan.cu", "rwkv6_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

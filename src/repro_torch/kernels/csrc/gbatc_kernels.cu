@@ -1,15 +1,20 @@
 // GBATC guarantee kernels for NVIDIA Hopper (sm_90a), plain C interface.
 //
-// Three batched-over-species tall-skinny products over (S, NB, D) block
-// vectors with one (D, D) basis per species:
+// Batched-over-species tall-skinny products over (S, NB, D) block vectors
+// with one (D, D) basis per species:
 //
 //   project : C_s   = R_s @ U_s                          (fp32 or fp64)
 //   correct : out_s = x_s + C_s @ U_s^T                   (decode replay)
 //   select  : out_s = x_s + (C_s . [rank < m]) @ U_s^T    (Algorithm 1 tail)
+//   masked  : out_s = x_s + (C_s . mask_s) @ U_s^T        (explicit mask)
 //
 // They replace the Pallas TPU kernels gbatc_project_batched,
 // gbatc_correct_batched and gbatc_select_accumulate of
-// src/repro/kernels/gbatc_project.py. What is kept from them is the
+// src/repro/kernels/gbatc_project.py, and its 2D single-species pair:
+// gbatc_project is the project mode at S = 1, gbatc_correct the masked
+// mode at S = 1 (the mask an operand of the kernel's dtype, multiplied
+// into the coefficients while they are staged, as the select mode forms
+// rank < m there). What is kept from them is the
 // function; their 128-lane padding, padded rows in device memory and the
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
@@ -63,6 +68,7 @@ constexpr int MAX_D = 128;
 constexpr int MODE_PROJECT = 0;
 constexpr int MODE_CORRECT = 1;
 constexpr int MODE_SELECT = 2;
+constexpr int MODE_MASKED = 3;
 
 // 16 bytes of T, and as many ints (the rank values of the same elements)
 template <typename T>
@@ -101,13 +107,15 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
                   const T* __restrict__ x,       // correct/select: x_rec; project: unused
                   const int* __restrict__ rank,  // select only, (S, NB, D)
                   const int* __restrict__ m,     // select only, (S, NB)
+                  const T* __restrict__ mk,      // masked only, (S, NB, D)
                   T* __restrict__ out, long long nb, int d, int tiles_per_cta,
                   int vec_ok) {
   using P = Pack<T>;
   constexpr int N = P::N;
   // 16-byte global loads a thread keeps in flight while staging; the select
-  // kernel stages two operands, so half as many of each fit in registers
-  constexpr int BATCH = MODE == MODE_SELECT ? 4 : 8;
+  // and masked kernels stage two operands, so half as many of each fit in
+  // registers
+  constexpr int BATCH = (MODE == MODE_SELECT || MODE == MODE_MASKED) ? 4 : 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ld = (d + KU - 1) / KU * KU;    // padded row length
   T* u_s = reinterpret_cast<T*>(smem_raw);  // (ld, ld), laid out [k][j]
@@ -155,15 +163,19 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
       const IntPack<N>* r_v =
           MODE == MODE_SELECT
               ? reinterpret_cast<const IntPack<N>*>(rank + base) : nullptr;
+      const P* mk_v =
+          MODE == MODE_MASKED ? reinterpret_cast<const P*>(mk + base) : nullptr;
       for (int v0 = 0; v0 * THREADS < tile_vecs; v0 += BATCH) {
         P val[BATCH];
         IntPack<N> rk[BATCH];
+        P mv[BATCH];
 #pragma unroll
         for (int v = 0; v < BATCH; ++v) {
           const int idx = tid + (v0 + v) * THREADS;
           if (idx < nvec) {
             val[v] = a_v[idx];
             if (MODE == MODE_SELECT) rk[v] = r_v[idx];
+            if (MODE == MODE_MASKED) mv[v] = mk_v[idx];
           }
         }
 #pragma unroll
@@ -178,6 +190,10 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
 #pragma unroll
                 for (int c = 0; c < N; ++c)
                   if (!(rk[v].v[c] < cut)) w.v[c] = T(0);
+              }
+              if (MODE == MODE_MASKED) {
+#pragma unroll
+                for (int c = 0; c < N; ++c) w.v[c] = w.v[c] * mv[v].v[c];
               }
             } else {
 #pragma unroll
@@ -196,6 +212,7 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
           if (MODE == MODE_SELECT) {
             if (!(rank[base + i] < m_s[row])) v = T(0);
           }
+          if (MODE == MODE_MASKED) v = v * mk[base + i];
         }
         a_s[row * ld + col] = v;
       }
@@ -281,7 +298,7 @@ inline bool aligned16(const void* p) {
 
 template <typename T, int MODE, int CMAX>
 int launch_as(const T* a, const T* basis, const T* x, const int* rank,
-              const int* m, T* out, int s, long long nb, int d,
+              const int* m, const T* mk, T* out, int s, long long nb, int d,
               int tiles_per_cta, void* stream) {
   const int ld = (d + KU - 1) / KU * KU;
   const size_t smem = (size_t)(ld * ld + TILE_ROWS * ld) * sizeof(T) +
@@ -293,32 +310,30 @@ int launch_as(const T* a, const T* basis, const T* x, const int* rank,
   const long long n_tiles = (nb + TILE_ROWS - 1) / TILE_ROWS;
   const long long grid_x = (n_tiles + tiles_per_cta - 1) / tiles_per_cta;
   const int vec_ok = d % KU == 0 && aligned16(a) && aligned16(x) &&
-                     aligned16(rank) && aligned16(out);
+                     aligned16(rank) && aligned16(mk) && aligned16(out);
   dim3 grid((unsigned)grid_x, (unsigned)s);
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, basis, x, rank, m, out, nb, d, tiles_per_cta, vec_ok);
+      a, basis, x, rank, m, mk, out, nb, d, tiles_per_cta, vec_ok);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int MODE>
 int launch(const T* a, const T* basis, const T* x, const int* rank,
-           const int* m, T* out, int s, long long nb, int d,
+           const int* m, const T* mk, T* out, int s, long long nb, int d,
            int tiles_per_cta, void* stream) {
   if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 5 * TX)
-    return launch_as<T, MODE, 5>(a, basis, x, rank, m, out, s, nb, d,
+    return launch_as<T, MODE, 5>(a, basis, x, rank, m, mk, out, s, nb, d,
                                  tiles_per_cta, stream);
-  return launch_as<T, MODE, MAX_D / TX>(a, basis, x, rank, m, out, s, nb, d,
-                                        tiles_per_cta, stream);
+  return launch_as<T, MODE, MAX_D / TX>(a, basis, x, rank, m, mk, out, s, nb,
+                                        d, tiles_per_cta, stream);
 }
 
 }  // namespace
 
 extern "C" {
-
-int gbatc_max_d() { return MAX_D; }
 
 const char* gbatc_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
@@ -327,41 +342,54 @@ const char* gbatc_error_string(int code) {
 int gbatc_project_batched_f32(const float* r, const float* u, float* c, int s,
                               long long nb, int d, int tiles_per_cta,
                               void* stream) {
-  return launch<float, MODE_PROJECT>(r, u, nullptr, nullptr, nullptr, c, s, nb,
-                                     d, tiles_per_cta, stream);
+  return launch<float, MODE_PROJECT>(r, u, nullptr, nullptr, nullptr, nullptr,
+                                     c, s, nb, d, tiles_per_cta, stream);
 }
 int gbatc_project_batched_f64(const double* r, const double* u, double* c,
                               int s, long long nb, int d, int tiles_per_cta,
                               void* stream) {
-  return launch<double, MODE_PROJECT>(r, u, nullptr, nullptr, nullptr, c, s,
-                                      nb, d, tiles_per_cta, stream);
+  return launch<double, MODE_PROJECT>(r, u, nullptr, nullptr, nullptr, nullptr,
+                                      c, s, nb, d, tiles_per_cta, stream);
 }
 int gbatc_correct_batched_f32(const float* x, const float* c, const float* u,
                               float* out, int s, long long nb, int d,
                               int tiles_per_cta, void* stream) {
-  return launch<float, MODE_CORRECT>(c, u, x, nullptr, nullptr, out, s, nb, d,
-                                     tiles_per_cta, stream);
+  return launch<float, MODE_CORRECT>(c, u, x, nullptr, nullptr, nullptr, out, s,
+                                     nb, d, tiles_per_cta, stream);
 }
 int gbatc_correct_batched_f64(const double* x, const double* c,
                               const double* u, double* out, int s,
                               long long nb, int d, int tiles_per_cta,
                               void* stream) {
-  return launch<double, MODE_CORRECT>(c, u, x, nullptr, nullptr, out, s, nb, d,
-                                      tiles_per_cta, stream);
+  return launch<double, MODE_CORRECT>(c, u, x, nullptr, nullptr, nullptr, out,
+                                      s, nb, d, tiles_per_cta, stream);
 }
 int gbatc_select_accumulate_f32(const float* x, const float* c,
                                 const int* rank, const int* m, const float* u,
                                 float* out, int s, long long nb, int d,
                                 int tiles_per_cta, void* stream) {
-  return launch<float, MODE_SELECT>(c, u, x, rank, m, out, s, nb, d,
+  return launch<float, MODE_SELECT>(c, u, x, rank, m, nullptr, out, s, nb, d,
                                     tiles_per_cta, stream);
 }
 int gbatc_select_accumulate_f64(const double* x, const double* c,
                                 const int* rank, const int* m, const double* u,
                                 double* out, int s, long long nb, int d,
                                 int tiles_per_cta, void* stream) {
-  return launch<double, MODE_SELECT>(c, u, x, rank, m, out, s, nb, d,
+  return launch<double, MODE_SELECT>(c, u, x, rank, m, nullptr, out, s, nb, d,
                                      tiles_per_cta, stream);
+}
+int gbatc_correct_masked_f32(const float* x, const float* c, const float* mask,
+                             const float* u, float* out, int s, long long nb,
+                             int d, int tiles_per_cta, void* stream) {
+  return launch<float, MODE_MASKED>(c, u, x, nullptr, nullptr, mask, out, s,
+                                    nb, d, tiles_per_cta, stream);
+}
+int gbatc_correct_masked_f64(const double* x, const double* c,
+                             const double* mask, const double* u, double* out,
+                             int s, long long nb, int d, int tiles_per_cta,
+                             void* stream) {
+  return launch<double, MODE_MASKED>(c, u, x, nullptr, nullptr, mask, out, s,
+                                     nb, d, tiles_per_cta, stream);
 }
 
 }  // extern "C"

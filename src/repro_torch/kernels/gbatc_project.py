@@ -1,40 +1,39 @@
 """Wrappers of the hand-written CUDA kernels in ``csrc/gbatc_kernels.cu``.
 
 Counterparts of the Pallas functions ``gbatc_project_batched``,
-``gbatc_correct_batched`` and ``gbatc_select_accumulate`` in the JAX
-package's ``kernels/gbatc_project.py``. Each wrapper checks device, dtype,
-shape and contiguity and raises on what the kernel does not take,
-allocates its output with ``torch.empty``, launches on PyTorch's current
-stream without synchronising, checks the launch's error code, and adds one
-to its entry in :data:`LAUNCHES` where — and only where — it launches.
-
-These functions take CUDA tensors only; CPU tensors go through
-:mod:`repro_torch.kernels.ops`, which dispatches on the tensor's device.
+``gbatc_correct_batched``, ``gbatc_select_accumulate`` and the 2D
+single-species pair ``gbatc_project`` / ``gbatc_correct`` in the JAX
+package's ``kernels/gbatc_project.py``. D is at most 128 (the kernels keep a
+species' (D, D) basis in shared memory); the Pallas wrappers pad to any D.
+See :mod:`repro_torch.kernels._wrap` for what every wrapper checks and how
+it launches.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels._wrap import INT, LL, PTR, check, cuda_operand, declare, launch
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {
     "gbatc_project_batched": 0,
     "gbatc_select_accumulate": 0,
     "gbatc_correct_batched": 0,
+    "gbatc_project": 0,
+    "gbatc_correct": 0,
 }
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+MAX_D = 128  # = MAX_D in csrc/gbatc_kernels.cu
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _TILES_PER_CTA = 8  # row tiles one CTA walks with its basis resident: short
 # runs keep the grid many waves deep, so no SM idles through a long tail
-_PTR, _INT, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "gbatc_project_batched": [_PTR] * 3 + [_INT, _LL, _INT, _INT, _PTR],
-    "gbatc_correct_batched": [_PTR] * 4 + [_INT, _LL, _INT, _INT, _PTR],
-    "gbatc_select_accumulate": [_PTR] * 6 + [_INT, _LL, _INT, _INT, _PTR],
+    "gbatc_project_batched": [PTR] * 3 + [INT, LL, INT, INT, PTR],
+    "gbatc_correct_batched": [PTR] * 4 + [INT, LL, INT, INT, PTR],
+    "gbatc_select_accumulate": [PTR] * 6 + [INT, LL, INT, INT, PTR],
+    "gbatc_correct_masked": [PTR] * 5 + [INT, LL, INT, INT, PTR],
 }
 _FUNCS: dict = {}
 
@@ -48,83 +47,52 @@ def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
 
 
-def _lib() -> ctypes.CDLL:
+def _lib():
     """The loaded kernel library, with every function's C signature
     declared (built at the first call)."""
     lib = _build.load()["gbatc_kernels"]
     if not _FUNCS:
-        lib.gbatc_error_string.restype = ctypes.c_char_p
-        lib.gbatc_error_string.argtypes = [ctypes.c_int]
-        lib.gbatc_max_d.restype = ctypes.c_int
-        lib.gbatc_max_d.argtypes = []
-        for name, argtypes in _ARGTYPES.items():
-            for dtype, suffix in _SUFFIX.items():
-                fn = getattr(lib, f"{name}_{suffix}")
-                fn.argtypes, fn.restype = argtypes, ctypes.c_int
-                _FUNCS[name, dtype] = fn
+        _FUNCS.update(declare(lib, "gbatc_error_string", {
+            (name, dtype): (f"{name}_{suffix}", argtypes)
+            for name, argtypes in _ARGTYPES.items()
+            for dtype, suffix in _DTYPES.items()}))
     return lib
 
 
-def _func(name: str, dtype: torch.dtype):
-    _lib()
-    return _FUNCS[name, dtype]
+def _check_d(d: int) -> None:
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"block size D={d} outside the kernels' range 1..{MAX_D}")
 
 
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _lead(name: str, t: torch.Tensor):
+def _lead(name: str, t):
     """Validate the leading (S, NB, D) operand; returns (s, nb, d)."""
-    if not isinstance(t, torch.Tensor):
-        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.device.type != "cuda":
-        raise ValueError(
-            f"{name} is on {t.device}: the CUDA kernels take CUDA tensors only "
-            "(repro_torch.kernels.ops dispatches CPU tensors to the plain versions)"
-        )
-    if t.dtype not in _SUFFIX:
-        raise TypeError(f"{name} has dtype {t.dtype}; kernels take float32 or float64")
+    cuda_operand(name, t, _DTYPES)
     if t.dim() != 3:
         raise ValueError(f"{name} must be (S, NB, D), got shape {tuple(t.shape)}")
     s, nb, d = t.shape
-    max_d = _lib().gbatc_max_d()
-    if not 1 <= d <= max_d:
-        raise ValueError(f"block size D={d} outside the kernels' range 1..{max_d}")
+    _check_d(d)
     return s, nb, d
 
 
-def _launch(name: str, dtype, device, ptr_args, s: int, nb: int, d: int) -> None:
-    fn = _func(name, dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(*ptr_args, s, nb, d, _TILES_PER_CTA, stream)
-    if code != 0:
-        msg = _lib().gbatc_error_string(code).decode()
-        raise RuntimeError(f"{name} launch failed: {msg} (cudaError {code})")
-    LAUNCHES[name] += 1
+def _launch(func: str, counter: str, dtype, device, ptr_args, s: int, nb: int,
+            d: int) -> None:
+    lib = _lib()
+    launch(counter, _FUNCS[func, dtype], (*ptr_args, s, nb, d, _TILES_PER_CTA),
+           device, lib.gbatc_error_string)
+    LAUNCHES[counter] += 1
 
 
 def gbatc_project_batched(residual: torch.Tensor,
                           basis: torch.Tensor) -> torch.Tensor:
     """Per-species ``C_s = R_s @ U_s`` in one launch; fp32 or fp64."""
     s, nb, d = _lead("residual", residual)
-    _check("residual", residual, (s, nb, d), residual.dtype, residual.device)
-    _check("basis", basis, (s, d, d), residual.dtype, residual.device)
+    check("residual", residual, (s, nb, d), residual.dtype, residual.device)
+    check("basis", basis, (s, d, d), residual.dtype, residual.device)
     out = torch.empty_like(residual)
     if out.numel():
-        _launch("gbatc_project_batched", residual.dtype, residual.device,
-                (residual.data_ptr(), basis.data_ptr(), out.data_ptr()),
-                s, nb, d)
+        _launch("gbatc_project_batched", "gbatc_project_batched", residual.dtype,
+                residual.device,
+                (residual.data_ptr(), basis.data_ptr(), out.data_ptr()), s, nb, d)
     return out
 
 
@@ -133,12 +101,12 @@ def gbatc_correct_batched(x_rec: torch.Tensor, coeffs: torch.Tensor,
     """Per-species ``x_s + C_s @ U_s^T`` in one launch (decode replay)."""
     s, nb, d = _lead("x_rec", x_rec)
     dt, dev = x_rec.dtype, x_rec.device
-    _check("x_rec", x_rec, (s, nb, d), dt, dev)
-    _check("coeffs", coeffs, (s, nb, d), dt, dev)
-    _check("basis", basis, (s, d, d), dt, dev)
+    check("x_rec", x_rec, (s, nb, d), dt, dev)
+    check("coeffs", coeffs, (s, nb, d), dt, dev)
+    check("basis", basis, (s, d, d), dt, dev)
     out = torch.empty_like(x_rec)
     if out.numel():
-        _launch("gbatc_correct_batched", dt, dev,
+        _launch("gbatc_correct_batched", "gbatc_correct_batched", dt, dev,
                 (x_rec.data_ptr(), coeffs.data_ptr(), basis.data_ptr(),
                  out.data_ptr()), s, nb, d)
     return out
@@ -151,14 +119,80 @@ def gbatc_select_accumulate(x_rec: torch.Tensor, coeff_vals: torch.Tensor,
     mask exists only in registers."""
     s, nb, d = _lead("x_rec", x_rec)
     dt, dev = x_rec.dtype, x_rec.device
-    _check("x_rec", x_rec, (s, nb, d), dt, dev)
-    _check("coeff_vals", coeff_vals, (s, nb, d), dt, dev)
-    _check("rank", rank, (s, nb, d), torch.int32, dev)
-    _check("m", m, (s, nb), torch.int32, dev)
-    _check("basis", basis, (s, d, d), dt, dev)
+    check("x_rec", x_rec, (s, nb, d), dt, dev)
+    check("coeff_vals", coeff_vals, (s, nb, d), dt, dev)
+    check("rank", rank, (s, nb, d), torch.int32, dev)
+    check("m", m, (s, nb), torch.int32, dev)
+    check("basis", basis, (s, d, d), dt, dev)
     out = torch.empty_like(x_rec)
     if out.numel():
-        _launch("gbatc_select_accumulate", dt, dev,
+        _launch("gbatc_select_accumulate", "gbatc_select_accumulate", dt, dev,
                 (x_rec.data_ptr(), coeff_vals.data_ptr(), rank.data_ptr(),
                  m.data_ptr(), basis.data_ptr(), out.data_ptr()), s, nb, d)
+    return out
+
+
+def _two_d(name: str, t) -> tuple[int, int]:
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
+    if t.dim() != 2:
+        raise ValueError(f"{name} must be (NB, D), got shape {tuple(t.shape)}")
+    _check_d(t.shape[1])
+    return t.shape
+
+
+def _promoted(*tensors) -> torch.dtype:
+    dtype = tensors[0].dtype
+    for t in tensors[1:]:
+        dtype = torch.promote_types(dtype, t.dtype)
+    return dtype
+
+
+def gbatc_project(residual: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
+    """Single-species ``C = R @ U``; residual (NB, D), basis (D, D).
+
+    Computes in the operands' promoted dtype (fp32 or fp64, as the Pallas
+    kernel's ``jnp.result_type``; an operand of another dtype is converted
+    first). The launch is the batched projection kernel on (1, NB, D) and
+    (1, D, D) views: nothing is copied or padded."""
+    nb, d = _two_d("residual", residual)
+    dtype = _promoted(residual, basis)
+    residual, basis = residual.to(dtype), basis.to(dtype)
+    cuda_operand("residual", residual, _DTYPES)
+    check("residual", residual, (nb, d), dtype, residual.device)
+    check("basis", basis, (d, d), dtype, residual.device)
+    out = torch.empty_like(residual)
+    if out.numel():
+        _launch("gbatc_project_batched", "gbatc_project", dtype, residual.device,
+                (residual.data_ptr(), basis.data_ptr(), out.data_ptr()), 1, nb, d)
+    return out
+
+
+def gbatc_correct(x_rec: torch.Tensor, coeffs: torch.Tensor, mask: torch.Tensor,
+                  basis: torch.Tensor) -> torch.Tensor:
+    """Single-species ``x + (c * mask) @ U^T``; x_rec, coeffs, mask (NB, D),
+    basis (D, D).
+
+    Computes in the promoted dtype of x_rec, coeffs and basis (fp32 or
+    fp64). The mask (bool, int or float 0/1) is converted to that dtype
+    with one ``.to(dtype)``, as the Pallas kernel's ``m_ref[...].astype(
+    c_ref.dtype)``; the kernel multiplies it into the coefficients while it
+    stages them, so the masked coefficients never reach device memory."""
+    nb, d = _two_d("x_rec", x_rec)
+    dtype = _promoted(x_rec, coeffs, basis)
+    x_rec, coeffs, basis = x_rec.to(dtype), coeffs.to(dtype), basis.to(dtype)
+    if not isinstance(mask, torch.Tensor):
+        raise TypeError(f"mask must be a torch.Tensor, got {type(mask).__name__}")
+    mask = mask.to(dtype)
+    cuda_operand("x_rec", x_rec, _DTYPES)
+    dev = x_rec.device
+    check("x_rec", x_rec, (nb, d), dtype, dev)
+    check("coeffs", coeffs, (nb, d), dtype, dev)
+    check("mask", mask, (nb, d), dtype, dev)
+    check("basis", basis, (d, d), dtype, dev)
+    out = torch.empty_like(x_rec)
+    if out.numel():
+        _launch("gbatc_correct_masked", "gbatc_correct", dtype, dev,
+                (x_rec.data_ptr(), coeffs.data_ptr(), mask.data_ptr(),
+                 basis.data_ptr(), out.data_ptr()), 1, nb, d)
     return out

@@ -35,7 +35,8 @@ def _imported_roots(path):
 def test_package_layout_mirrors_the_reference():
     for sub in ("core", "codec", "nn", "train", "kernels", "data", "models"):
         assert (PKG / sub / "__init__.py").is_file(), sub
-    for src in ("gbatc_kernels.cu", "flash_attention.cu"):
+    for src in ("gbatc_kernels.cu", "flash_attention.cu", "block_quant.cu",
+                "rglru_scan.cu", "rwkv6_scan.cu"):
         assert (PKG / "kernels" / "csrc" / src).is_file(), src
     assert (ROOT / "chip_smoke.py").is_file()
 
@@ -77,6 +78,11 @@ from repro_torch.kernels import flash_attention, ops
 from repro_torch.models import block_attention, common
 assert "repro_torch.models.block_attention" in names
 assert "repro_torch.kernels.flash_attention" in names
+for mod in ("block_quant", "rglru_scan", "rwkv6_scan"):
+    assert f"repro_torch.kernels.{mod}" in names, mod
+for op in ("flash_attention_op", "rwkv6_scan_op", "rglru_scan_op",
+           "block_quant_op", "gbatc_project_op", "gbatc_correct_op"):
+    assert callable(getattr(ops, op)), op
 print(len(names))
 """
 
@@ -88,18 +94,21 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"},
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 29
+    assert int(out.stdout.strip().splitlines()[-1]) >= 32
 
 
 def test_importing_builds_nothing():
     """Kernels are built at first launch, never at import."""
-    from repro_torch.kernels import _build, flash_attention, gbatc_project  # noqa: F401
+    from repro_torch.kernels import _build, block_quant, flash_attention, gbatc_project  # noqa: F401
+    from repro_torch.kernels import ops, rglru_scan, rwkv6_scan  # noqa: F401
 
     assert _build.build_info() == {}
 
 
 @pytest.mark.parametrize("entry", ["codec", "pipeline", "engine", "decompress", "ops",
-                                   "attention_codec", "flash_ops"])
+                                   "attention_codec", "flash_ops", "flash_attention_op",
+                                   "rwkv6_scan_op", "rglru_scan_op", "block_quant_op",
+                                   "gbatc_project_op", "gbatc_correct_op"])
 def test_device_none_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -121,6 +130,16 @@ def test_device_none_without_cuda_raises(entry):
         "attention_codec": lambda: GBATCCodec(PipelineConfig(family="attention")),
         "flash_ops": lambda: ops.flash_attention(
             *[np.zeros((1, 1, 4, 8), np.float32)] * 3),
+        "flash_attention_op": lambda: ops.flash_attention_op(
+            *[np.zeros((1, 1, 4, 8), np.float32)] * 3),
+        "rwkv6_scan_op": lambda: ops.rwkv6_scan_op(
+            *[np.zeros((1, 2, 1, 4), np.float32)] * 4, np.zeros((1, 4), np.float32)),
+        "rglru_scan_op": lambda: ops.rglru_scan_op(*[np.zeros((1, 2, 4), np.float32)] * 2),
+        "block_quant_op": lambda: ops.block_quant_op(np.zeros((2, 64), np.float32)),
+        "gbatc_project_op": lambda: ops.gbatc_project_op(
+            np.zeros((2, 4), np.float32), np.zeros((4, 4), np.float32)),
+        "gbatc_correct_op": lambda: ops.gbatc_correct_op(
+            *[np.zeros((2, 4), np.float32)] * 3, np.zeros((4, 4), np.float32)),
     }
     with pytest.raises(RuntimeError, match="CUDA"):
         calls[entry]()

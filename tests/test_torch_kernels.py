@@ -146,7 +146,7 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         cuda_wrappers.gbatc_select_accumulate(x, c, rank, m, u)
     assert cuda_wrappers.launch_counts() == {
         "gbatc_project_batched": 0, "gbatc_select_accumulate": 0,
-        "gbatc_correct_batched": 0}
+        "gbatc_correct_batched": 0, "gbatc_project": 0, "gbatc_correct": 0}
 
 
 def test_ops_default_device_raises_without_cuda():
