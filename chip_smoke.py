@@ -15,7 +15,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    the main paths' shapes (GBATC: S=58, NB=20480, D=80; flash attention:
    (4096, 2, 232, 16) fp32 non-causal) and at ragged and reference shapes,
    with its time, the plain version's, the one-call library yardstick's
-   and the card's bound for the same work;
+   and the card's bound for the same work; the fp64 projection and flash
+   attention also give the same bits twice and the same bits for a
+   sub-range of their rows (species, blocks or batch) as the full call;
 4. ``main_path``  ``GBATCCodec.compress`` (fit + guarantee + container) and
    ``codec.decompress`` from the bytes alone, conv family, at the paper's
    widths on an S3D surrogate of 58 x 16 x 320 x 320, with the kernels'
@@ -58,9 +60,13 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}  # fp64: tensor-core DMMA rate
 
 S, NB, D = 58, 20480, 80  # main-path kernel shapes (T=16, 320x320, block 4x5x4)
-RAGGED = [(3, 513, 80), (5, 513, 64), (2, 1, 80), (4, 100, 37)]
+RAGGED = [(3, 513, 80), (5, 513, 64), (2, 1, 80), (4, 100, 37), (2, 77, 128),
+          (3, 45, 97)]
 FP32_LIMIT = 1e-5  # max abs difference, unit-scale inputs, fp32 accumulate order
 FP64_REL_LIMIT = 1e-12  # max abs difference relative to the row's l2 norm
+# row ranges of the fp64 projection's sub-range checks: each starts inside
+# a 64-row tile, so its rows meet other tile and fragment positions
+PROJECT_SUBRANGES = [(100, 5003), (20417, 20480), (1, 2)]
 
 # flash attention: the attention family's shape per fused-decode chunk
 # (4096 blocks, 2 heads, 58 species x 4 frames = 232 tokens, head dim 16)
@@ -138,29 +144,32 @@ def phase_env(torch) -> dict:
     return info
 
 
-# ptxas -v names each kernel instantiation by its mangled name
+# ptxas -v names each kernel instantiation by its mangled name; a source
+# may hold several kernels, one pattern each
 PTXAS_NAMES = {
-    "gbatc_kernels": (
+    "gbatc_kernels": [(
         r"gbatc_tile_kernelI([fd])Li(\d)ELi(\d)E",
         lambda m: "{}/{}/cmax{}".format(
             {"f": "f32", "d": "f64"}[m.group(1)],
             ("project", "correct", "select", "masked")[int(m.group(2))],
-            m.group(3))),
-    "flash_attention": (
+            m.group(3))), (
+        r"project_f64_dmmaILi(\d+)ELi(\d+)ELi(\d+)E",
+        lambda m: "f64/project/dmma/nfw{}/tm{}/stages{}".format(*m.groups()))],
+    "flash_attention": [(
         r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "flash/{}/dp{}".format(
-            "f32" if m.group(1) == "f" else "bf16", m.group(2))),
-    "block_quant": (
+            "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
+    "block_quant": [(
         r"block_quant_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "block_quant/{}/v{}".format(
-            "f32" if m.group(1) == "f" else "bf16", m.group(2))),
-    "rglru_scan": (
+            "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
+    "rglru_scan": [(
         r"rglru_kernelI(f|13__nv_bfloat16)E",
-        lambda m: "rglru/{}".format("f32" if m.group(1) == "f" else "bf16")),
-    "rwkv6_scan": (
+        lambda m: "rglru/{}".format("f32" if m.group(1) == "f" else "bf16"))],
+    "rwkv6_scan": [(
         r"rwkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "rwkv6/{}/np{}".format(
-            "f32" if m.group(1) == "f" else "bf16", m.group(2))),
+            "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
 }
 
 
@@ -171,12 +180,13 @@ def phase_build() -> dict:
     info = {"phase": "build", **_build.build_info()}
     # registers and spill bytes per kernel instantiation, from ptxas -v
     usage = {}
-    for stem, (pattern, label) in PTXAS_NAMES.items():
+    for stem, names in PTXAS_NAMES.items():
         name = None
         for ln in _build.build_log(stem).splitlines():
-            hit = re.search(pattern, ln)
+            hit = next(((m, label) for pattern, label in names
+                        if (m := re.search(pattern, ln))), None)
             if hit:
-                name = label(hit)
+                name = hit[1](hit[0])
             elif name and "spill" in ln:
                 usage[name] = {"spill_bytes": sum(
                     int(n) for n in re.findall(r"(\d+) bytes spill", ln))}
@@ -276,6 +286,17 @@ def same_twice(torch, name: str, fn) -> None:
         fail(f"{name} is not deterministic: two launches differ")
 
 
+def same_rows(torch, name: str, full, parts) -> None:
+    """A call on a sub-range of the rows gives those rows of the full call,
+    bitwise: ``parts`` holds (index into ``full``, the sub-range call's
+    result) pairs."""
+    for index, got in parts:
+        if not torch.equal(got, full[index]):
+            fail(f"{name}: a call on rows {index} differs from those rows of "
+                 f"the full call (max abs "
+                 f"{float((got - full[index]).abs().max()):.3e})")
+
+
 def phase_kernels(torch, launches: int) -> list[dict]:
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
@@ -320,6 +341,13 @@ def phase_kernels(torch, launches: int) -> list[dict]:
                        if dtype == torch.float64 else "max abs diff <= 1e-5")))
 
     x, c, u, rank, m = make_inputs(torch, S, NB, D, torch.float64, 1)
+    same_twice(torch, "gbatc_project_batched (fp64)",
+               lambda: gk.gbatc_project_batched(x, u))
+    same_rows(torch, "gbatc_project_batched (fp64)", gk.gbatc_project_batched(x, u),
+              [((slice(None), slice(a, b)), gk.gbatc_project_batched(
+                  x[:, a:b].contiguous(), u)) for a, b in PROJECT_SUBRANGES]
+              + [((slice(1, 3),), gk.gbatc_project_batched(
+                  x[1:3].contiguous(), u[1:3].contiguous()))])
     row("gbatc_project_batched", 207, torch.float64,
         lambda: gk.gbatc_project_batched(x, u),
         lambda: kref.gbatc_project_batched_ref(x, u),
@@ -393,9 +421,18 @@ def phase_flash(torch, launches: int) -> dict:
     b, h, t, d = FLASH_PATH
     q, k, v = qkv(b, h, t, t, d, torch.bfloat16, 300)
     errs["bfloat16"] = max(errs["bfloat16"], check(q, k, v, False, 0, "bfloat16"))
+    ms_bf16 = time_ms(torch, lambda: fk.flash_attention(q, k, v, causal=False),
+                      launches)
     q, k, v = qkv(b, h, t, t, d, torch.float32, 301)
     err = check(q, k, v, False, 0, "float32")
     same_twice(torch, "flash_attention", lambda: fk.flash_attention(q, k, v, causal=False))
+    # the codec encodes in 512-block batches and decodes in 4096-block ones
+    same_rows(torch, "flash_attention", fk.flash_attention(q, k, v, causal=False),
+              [(slice(0, 512), fk.flash_attention(q[:512], k[:512], v[:512],
+                                                  causal=False)),
+               (slice(1000, 1003), fk.flash_attention(
+                   q[1000:1003].contiguous(), k[1000:1003].contiguous(),
+                   v[1000:1003].contiguous(), causal=False))])
     plain = lambda: kref.flash_attention_ref(q, k, v, causal=False)  # noqa: E731
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
     n = b * h * t * d
@@ -405,7 +442,7 @@ def phase_flash(torch, launches: int) -> dict:
         lambda: fk.flash_attention(q, k, v, causal=False), plain, sdpa,
         "float32", FLASH_PATH, 4 * n * 4, 4 * b * h * t * t * d, launches,
         max(err, errs["float32"]), causal=False,
-        max_abs_err_bf16=errs["bfloat16"],
+        max_abs_err_bf16=errs["bfloat16"], ms_bf16=ms_bf16,
         library_max_abs_err=float((sdpa() - plain()).abs().max()),
         shapes_checked=[list(c[:7]) + [list(c[7])] for c in FLASH_SHAPES],
         tolerance="max abs diff <= 2e-5 (fp32), 2e-2 (bf16)")
@@ -414,7 +451,7 @@ def phase_flash(torch, launches: int) -> dict:
     emit({"phase": "kernels", "kernel": "flash_attention",
           "launches_timed": launches,
           "summary": {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16",
-                                          "ms", "plain_ms", "library_ms",
+                                          "ms", "ms_bf16", "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")}})
     return row
 

@@ -19,10 +19,43 @@
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
 //
-// Bound on this card: at D = 80 each output element costs 80 FMAs against
-// 8 (fp32) or 16 (fp64) bytes moved, which sits near the ridge of the fp32
-// CUDA-core roofline, so the kernels must neither re-read inputs nor stall
-// on them. Design:
+// Two kernels serve these modes.
+//
+// fp64 project (project_f64_dmma): at the main path's (58, 20480, 80) the
+// work is 760 MB read, 760 MB written and 15.2 GFLOP, so bytes bound it
+// (0.455 ms at 3.35 TB/s) as long as the products run on the fp64 tensor
+// cores (0.23 ms at 67 TFLOP/s); scalar DFMAs alone would take as long as
+// the bytes. What limits it now is the device-memory stream itself: the
+// ring with its MMAs taken out moves the same bytes in about the same time.
+// Design:
+//
+// * Products are DMMA, mma.sync.m16n8k8 in fp64 (IEEE fp64 products and
+//   sums). A warp owns 16 rows of a 64-row tile and half of its n8 column
+//   fragments (5 at D <= 80); its C fragments stay in registers over the
+//   whole k loop and go straight to device memory, a 16-byte store a lane.
+//   (The m8n8k4 shape of the same instruction issues more slowly.)
+// * The basis is kept in shared memory in fragment order (slot (k step,
+//   n fragment, lane) of two doubles), zero padded to k % 8 and n % 8, so
+//   every B fragment is one conflict-free 16-byte load a lane. A tile's
+//   rows are padded to ld = 4 or 12 (mod 16) doubles, so an A fragment's 8
+//   rows fall on distinct banks; the pad columns are zeroed once.
+// * Row tiles stream through a ring of STAGES buffers filled with
+//   cp.async (16-byte copies, 8-byte ones where D is odd or unaligned):
+//   while the warps run DMMA on tile t, the next STAGES-1 tiles are in
+//   flight. One barrier a tile frees the buffer of tile t-1 for refill.
+// * The grid is persistent: one CTA an SM walks a contiguous,
+//   species-major range of tiles and reloads the basis only where its
+//   range crosses a species boundary.
+// * A row's k order is fixed (k steps ascending), so its bits do not
+//   depend on which CTA or tile position computed it.
+// * D <= 80 uses 64-row tiles and 3 stages (176 KB of shared memory at
+//   D = 80; a fourth stage measured slower); 80 < D <= 128 uses 32-row
+//   tiles and 3 stages (227 KB at D = 128).
+//
+// Every other mode and the fp32 projection (gbatc_tile_kernel): at D = 80
+// each output element costs 80 FMAs against 8 (fp32) or 16 (fp64) bytes
+// moved, which sits near the ridge of the fp32 CUDA-core roofline, so the
+// kernels must neither re-read inputs nor stall on them. Design:
 //
 // * One CTA owns one species and a run of row tiles of 64 blocks; the
 //   species' basis stays in shared memory for the CTA's life (transposed on
@@ -292,8 +325,209 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
   }
 }
 
+// ---- fp64 projection on the tensor cores ---------------------------------
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// c += a . b over one m16n8k8 step in fp64. Per lane (g = lane / 4,
+// t = lane % 4): a = A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]; b =
+// B[t][g], B[t+4][g]; c = C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1].
+__device__ __forceinline__ void dmma(double (&c)[4], const double (&a)[4],
+                                     double b0, double b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b0), "d"(b1));
+}
+
+// padded shared row length of an A tile: at least D rounded up to the k
+// step of 8, and 4 or 12 mod 16, so the 8 rows of a fragment load sit on
+// distinct banks
+inline int dmma_ld(int d) {
+  int ld = (d + 7) / 8 * 8;
+  while (ld % 16 != 4 && ld % 16 != 12) ld += 4;
+  return ld;
+}
+
+template <int NFW, int TM, int STAGES>
+__global__ void __launch_bounds__(TM / 16 * 64, 1)
+project_f64_dmma(const double* __restrict__ r, const double* __restrict__ basis,
+                 double* __restrict__ out, int s_count, long long nb, int d,
+                 int ld, int vec) {
+  constexpr int WM = TM / 16;         // 16-row warp groups in a tile
+  constexpr int THREADS_D = WM * 64;  // two warps (column halves) a group
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ks_n = (d + 7) / 8;     // k steps of 8
+  const int nf_n = (d + 7) / 8;     // n fragments of 8
+  double* b_s = reinterpret_cast<double*>(smem_raw);  // (ks_n, nf_n, 32, 2)
+  double* a_s = b_s + ks_n * nf_n * 64;                // (STAGES, TM, ld)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, q = lane & 3;
+  const int nf_w = min(NFW, nf_n - wn * NFW);  // this warp's n fragments
+  const long long tps = (nb + TM - 1) / TM;    // tiles a species
+  const long long total = tps * s_count;
+  const long long t_begin = total * blockIdx.x / gridDim.x;
+  const long long t_end = total * (blockIdx.x + 1) / gridDim.x;
+
+  // pad columns d .. ld-1 add exactly 0 (B's pad rows are zero too)
+  const int pad = ld - d;
+  for (int i = tid; i < STAGES * TM * pad; i += THREADS_D)
+    a_s[(i / pad) * ld + d + i % pad] = 0.0;
+
+  auto issue = [&](long long t, int buf) {
+    const long long s = t / tps, row0 = (t - s * tps) * TM;
+    const int rows = (int)min((long long)TM, nb - row0);
+    const double* src = r + ((size_t)s * nb + row0) * d;
+    double* dst = a_s + buf * TM * ld;
+    if (vec) {
+      const int half = d >> 1, n = rows * half;
+      for (int i = tid; i < n; i += THREADS_D) {
+        const int row = i / half, c = (i - row * half) * 2;
+        cp_async16(dst + row * ld + c, src + (size_t)row * d + c);
+      }
+    } else {
+      const int n = rows * d;
+      for (int i = tid; i < n; i += THREADS_D) {
+        const int row = i / d, c = i - row * d;
+        cp_async8(dst + row * ld + c, src + i);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (t_begin + st < t_end) issue(t_begin + st, st);
+    cp_async_commit();
+  }
+
+  long long cur_s = -1;
+  for (long long t = t_begin; t < t_end; ++t) {
+    const int i = (int)(t - t_begin);
+    cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; tile t-1 is done with
+    if (t + STAGES - 1 < t_end)
+      issue(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const long long s = t / tps;
+    if (s != cur_s) {  // the range crossed into a new species
+      const double* u = basis + (size_t)s * d * d;
+      for (int idx = tid; idx < ks_n * nf_n * 64; idx += THREADS_D) {
+        const int e = idx & 1, ln = (idx >> 1) & 31, f = idx >> 6;
+        const int k = (f / nf_n) * 8 + (ln & 3) + 4 * e;
+        const int n = (f % nf_n) * 8 + (ln >> 2);
+        b_s[idx] = (k < d && n < d) ? u[k * d + n] : 0.0;
+      }
+      __syncthreads();
+      cur_s = s;
+    }
+    if (nf_w <= 0) continue;  // warp-uniform: D too small for this half
+
+    const long long row0 = (t - s * tps) * TM;
+    const int rows = (int)min((long long)TM, nb - row0);
+    const double* a0 = a_s + (i % STAGES) * TM * ld + (wm * 16 + g) * ld + q;
+    const double2* bp =
+        reinterpret_cast<const double2*>(b_s) + wn * NFW * 32 + lane;
+    double acc[NFW][4];
+#pragma unroll
+    for (int j = 0; j < NFW; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0;
+#pragma unroll 2
+    for (int ks = 0; ks < ks_n; ++ks) {
+      const double* ak = a0 + ks * 8;
+      const double a[4] = {ak[0], ak[8 * ld], ak[4], ak[8 * ld + 4]};
+      const double2* bk = bp + ks * nf_n * 32;
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) {
+        if (j < nf_w) {
+          const double2 b = bk[j * 32];
+          dmma(acc[j], a, b.x, b.y);
+        }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 16 + h * 8 + g;
+      if (row >= rows) continue;
+      double* o = out + ((size_t)s * nb + row0 + row) * d;
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) {
+        const int col = (wn * NFW + j) * 8 + 2 * q;
+        if (j >= nf_w || col >= d) continue;
+        if (vec) {
+          *reinterpret_cast<double2*>(o + col) =
+              make_double2(acc[j][2 * h], acc[j][2 * h + 1]);
+        } else {
+          o[col] = acc[j][2 * h];
+          if (col + 1 < d) o[col + 1] = acc[j][2 * h + 1];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <int NFW, int TM, int STAGES>
+int launch_dmma(const double* r, const double* u, double* c, int s,
+                long long nb, int d, void* stream) {
+  constexpr int threads = TM / 16 * 64;
+  const int ld = dmma_ld(d);
+  const size_t smem =
+      ((size_t)((d + 7) / 8) * ((d + 7) / 8) * 64 + (size_t)STAGES * TM * ld) *
+      sizeof(double);
+  auto kernel = project_f64_dmma<NFW, TM, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)s * ((nb + TM - 1) / TM);
+  const long long slots = (long long)sms * per_sm;
+  const long long grid = tiles < slots ? tiles : slots;
+  const int vec = d % 2 == 0 && aligned16(r) && aligned16(c);
+  kernel<<<(unsigned)grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, u, c, s, nb, d, ld, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_project_f64(const double* r, const double* u, double* c, int s,
+                       long long nb, int d, int tiles_per_cta, void* stream) {
+  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+    return (int)cudaErrorInvalidValue;
+  if (s == 0 || nb == 0) return (int)cudaSuccess;
+  if (d <= 80) return launch_dmma<5, 64, 3>(r, u, c, s, nb, d, stream);
+  return launch_dmma<8, 32, 3>(r, u, c, s, nb, d, stream);
 }
 
 template <typename T, int MODE, int CMAX>
@@ -348,8 +582,9 @@ int gbatc_project_batched_f32(const float* r, const float* u, float* c, int s,
 int gbatc_project_batched_f64(const double* r, const double* u, double* c,
                               int s, long long nb, int d, int tiles_per_cta,
                               void* stream) {
-  return launch<double, MODE_PROJECT>(r, u, nullptr, nullptr, nullptr, nullptr,
-                                      c, s, nb, d, tiles_per_cta, stream);
+  // persistent DMMA kernel: it sizes its own grid; tiles_per_cta is only
+  // checked, as for the other modes
+  return launch_project_f64(r, u, c, s, nb, d, tiles_per_cta, stream);
 }
 int gbatc_correct_batched_f32(const float* x, const float* c, const float* u,
                               float* out, int s, long long nb, int d,

@@ -1,0 +1,121 @@
+"""CPU guard between the CUDA sources under ``kernels/csrc/`` and their
+``ctypes`` wrappers.
+
+No ``nvcc`` is needed: each wrapper's ``_lib()`` runs against a stand-in
+library that records what the wrapper declares (symbol, argument types,
+return type), and the declarations are held against the ``extern "C"``
+block of the source the wrapper loads, read as text. A mismatch here would
+otherwise show only on the card, as a crash or a wrong argument.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import importlib
+import re
+from pathlib import Path
+
+import pytest
+
+from repro_torch.kernels import _build
+
+CSRC = Path(_build.__file__).resolve().parent / "csrc"
+WRAPPERS = ("gbatc_project", "flash_attention", "block_quant", "rglru_scan",
+            "rwkv6_scan")
+
+
+def _extern_c(stem: str) -> dict[str, tuple[str, list[str]]]:
+    """{name: (return type, [parameter type, ...])} of the functions
+    defined in the source's ``extern "C"`` block."""
+    text = (CSRC / f"{stem}.cu").read_text()
+    start = text.index('extern "C" {')
+    block = text[start + len('extern "C" {'):text.index('}  // extern "C"', start)]
+    funcs = {}
+    for ret, name, params in re.findall(
+            r"^([A-Za-z_][\w \*]*?)\s*\b([A-Za-z_]\w*)\s*\(([^()]*)\)\s*\{",
+            block, flags=re.M):
+        types = []
+        for p in params.split(","):
+            p = " ".join(p.split())
+            if p and p != "void":
+                types.append(re.sub(r"\s*\b\w+$", "", p))  # drop the name
+        funcs[name] = (" ".join(ret.split()), types)
+    return funcs
+
+
+def _ctype_of(c_type: str):
+    if "*" in c_type:
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float}[c_type]
+
+
+def _restype_of(c_type: str):
+    return ctypes.c_char_p if c_type == "const char*" else _ctype_of(c_type)
+
+
+class _Recorder:
+    """Stands in for a loaded ``ctypes.CDLL``: every attribute is a
+    function object whose ``argtypes`` / ``restype`` the wrapper sets."""
+
+    def __init__(self):
+        self.funcs: dict[str, object] = {}
+
+    def __getattr__(self, name):
+        if name.startswith("__"):
+            raise AttributeError(name)
+        return self.funcs.setdefault(name, type("Fn", (), {})())
+
+
+def _declared(monkeypatch, module_name: str) -> tuple[str, dict]:
+    """(source stem, {symbol: function record}) of what the wrapper
+    declares when it loads its library."""
+    mod = importlib.import_module(f"repro_torch.kernels.{module_name}")
+    recorder, stems = _Recorder(), []
+
+    class _Libs(dict):
+        def __getitem__(self, stem):
+            stems.append(stem)
+            return recorder
+
+    monkeypatch.setattr(_build, "load", lambda: _Libs())
+    monkeypatch.setattr(mod, "_FUNCS", {})
+    mod._lib()
+    assert len(set(stems)) == 1, stems
+    return stems[0], recorder.funcs
+
+
+@pytest.mark.parametrize("module_name", WRAPPERS)
+def test_wrapper_declarations_match_the_source(monkeypatch, module_name):
+    stem, funcs = _declared(monkeypatch, module_name)
+    exported = _extern_c(stem)
+    assert funcs, f"{module_name} declared nothing"
+    for symbol, fn in funcs.items():
+        assert symbol in exported, f"{symbol} is not in {stem}.cu's extern \"C\" block"
+        ret, params = exported[symbol]
+        argtypes = getattr(fn, "argtypes", None)
+        assert argtypes is not None, f"{symbol}: argtypes never declared"
+        assert len(argtypes) == len(params), (
+            f"{symbol}: wrapper passes {len(argtypes)} arguments, "
+            f"{stem}.cu takes {len(params)}")
+        assert list(argtypes) == [_ctype_of(p) for p in params], (symbol, params)
+        assert getattr(fn, "restype", None) == _restype_of(ret), (symbol, ret)
+
+
+@pytest.mark.parametrize("module_name", WRAPPERS)
+def test_every_exported_function_is_declared(monkeypatch, module_name):
+    stem, funcs = _declared(monkeypatch, module_name)
+    assert sorted(funcs) == sorted(_extern_c(stem))
+
+
+def test_build_sources_are_the_sources_on_disk():
+    assert sorted(_build.SOURCES) == sorted(p.name for p in CSRC.glob("*.cu"))
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_source_has_a_plain_c_interface(source):
+    includes = re.findall(r"^\s*#\s*include\s*[<\"]([^>\"]+)[>\"]",
+                          (CSRC / source).read_text(), flags=re.M)
+    assert includes, source
+    assert not [i for i in includes if i.startswith(("torch/", "ATen/", "c10/"))]
+    assert "torch/extension.h" not in includes
