@@ -10,21 +10,29 @@ Phases (each prints one JSON line; any failure exits non-zero):
 1. ``env``    card name and power limit, torch / CUDA / nvcc versions;
 2. ``build``  compiles every CUDA source of the checkout (one ``nvcc`` each,
    all started together) into a fresh directory of this run, so a re-run
-   builds again and never reuses an earlier run's libraries;
+   builds again and never reuses an earlier run's libraries; reports each
+   kernel's registers and spill (``ptxas -v``) and the instructions and
+   FFMAs of its innermost FFMA loop (``cuobjdump -sass``);
 3. ``kernels``  each kernel against its plain PyTorch version on the card at
    the main paths' shapes (GBATC: S=58, NB=20480, D=80; flash attention:
    (4096, 2, 232, 16) fp32 non-causal) and at ragged and reference shapes,
    with its time, the plain version's, the one-call library yardstick's
    and the card's bound for the same work; the fp64 projection and flash
    attention also give the same bits twice and the same bits for a
-   sub-range of their rows (species, blocks or batch) as the full call;
+   sub-range of their rows (species, blocks or batch) as the full call,
+   and so do the fp32 select and correct modes, where select on (c, rank,
+   m) must also be bitwise correct on where(rank < m, c, 0), at the main
+   shape and every ragged one;
 4. ``main_path``  ``GBATCCodec.compress`` (fit + guarantee + container) and
    ``codec.decompress`` from the bytes alone, conv family, at the paper's
    widths on an S3D surrogate of 58 x 16 x 320 x 320, with the kernels'
-   launch counts reset just before and read just after;
+   launch counts reset just before and read just after compress,
+   decompress and a second-bound compress (one select a compress, one
+   replay a decompress); the line carries the sha256 of the
+   reconstruction and of the blob, so two trees can be held to the same
+   bits;
 5. ``attention_path``  the same for the attention family (arch (32, 2, 1,
-   64)) on the same data, its launch counts read separately for compress
-   and for decompress;
+   64)) on the same data;
 6. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
    (the JAX package's ``kernels/ops.py``, name for name) once at its
    full-width shape, from numpy inputs on the default device, against its
@@ -42,6 +50,7 @@ Without CUDA the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import re
@@ -154,7 +163,11 @@ PTXAS_NAMES = {
             ("project", "correct", "select", "masked")[int(m.group(2))],
             m.group(3))), (
         r"project_f64_dmmaILi(\d+)ELi(\d+)ELi(\d+)E",
-        lambda m: "f64/project/dmma/nfw{}/tm{}/stages{}".format(*m.groups()))],
+        lambda m: "f64/project/dmma/nfw{}/tm{}/stages{}".format(*m.groups())), (
+        r"correct_f32_ringILi(\d)ELi(\d+)ELi(\d+)E",
+        lambda m: "f32/{}/ring/nch{}/minb{}".format(
+            ("project", "correct", "select", "masked")[int(m.group(1))],
+            *m.groups()[1:]))],
     "flash_attention": [(
         r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "flash/{}/dp{}".format(
@@ -171,6 +184,41 @@ PTXAS_NAMES = {
         lambda m: "rwkv6/{}/np{}".format(
             "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
 }
+
+
+def sass_loops(build) -> dict:
+    """For each kernel instantiation of PTXAS_NAMES, the instructions and
+    FFMAs of the innermost loop that holds the most FFMAs (``cuobjdump
+    -sass`` of the built library); empty where cuobjdump is missing."""
+    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    loops = {}
+    for stem, names in PTXAS_NAMES.items():
+        lib = build.build_dir() / f"lib{stem}.so"
+        if not (os.path.isfile(tool) and lib.is_file()):
+            continue
+        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, timeout=120).stdout
+        for func in re.split(r"\n\s+Function : ", sass)[1:]:
+            hit = next(((m, label) for pattern, label in names
+                        if (m := re.search(pattern, func.split("\n", 1)[0]))), None)
+            if not hit:
+                continue
+            ins = [(int(a, 16), op) for a, op in re.findall(
+                r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)]
+            spans = [(int(t, 16), int(a, 16)) for a, t in re.findall(
+                r"/\*([0-9a-f]{4,})\*/[^;\n]*\bBRA\b[^;\n]*0x([0-9a-f]+)", func)
+                if int(t, 16) < int(a, 16)]  # backward branches: loops
+            best = None
+            for lo, hi in spans:
+                if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
+                    continue  # not innermost
+                body = [o for a, o in ins if lo <= a <= hi]
+                ffma = sum(o.startswith("FFMA") for o in body)
+                if ffma and (best is None or ffma > best[1]):
+                    best = (len(body), ffma)
+            if best:
+                loops[hit[1](hit[0])] = {"loop_instructions": best[0], "ffma": best[1]}
+    return loops
 
 
 def phase_build() -> dict:
@@ -195,6 +243,7 @@ def phase_build() -> dict:
                     re.search(r"Used (\d+) registers", ln).group(1))
                 name = None
     info["ptxas"] = usage
+    info["sass_loops"] = sass_loops(_build)
     emit(info)
     if sorted(info["compiled"]) != sorted(_build.SOURCES):
         fail(f"only {info['compiled']} of {list(_build.SOURCES)} were compiled "
@@ -297,6 +346,42 @@ def same_rows(torch, name: str, full, parts) -> None:
                  f"{float((got - full[index]).abs().max()):.3e})")
 
 
+def fp32_pair_bits(torch, gk, x, c, u, rank, m) -> None:
+    """The fp32 select and correct modes keep one order of arithmetic, and
+    a row's bits do not depend on where the persistent grid computes it:
+    select on (c, rank, m) is bitwise correct on where(rank < m, c, 0);
+    both give the same bits twice, and for row sub-ranges
+    (PROJECT_SUBRANGES, clipped to NB) and species 1-2 as the full call."""
+    s, nb, _ = x.shape
+    kept = torch.where(rank < m[..., None], c,
+                       torch.zeros((), dtype=c.dtype, device=c.device))
+    sel = gk.gbatc_select_accumulate(x, c, rank, m, u)
+    cor = gk.gbatc_correct_batched(x, kept, u)
+    if not torch.equal(sel, cor):
+        fail(f"fp32 select differs from correct on the masked coefficients at "
+             f"{tuple(x.shape)} (max abs {float((sel - cor).abs().max()):.3e})")
+    same_twice(torch, "gbatc_select_accumulate (fp32)",
+               lambda: gk.gbatc_select_accumulate(x, c, rank, m, u))
+    same_twice(torch, "gbatc_correct_batched (fp32)",
+               lambda: gk.gbatc_correct_batched(x, kept, u))
+    ranges = [(a, min(b, nb)) for a, b in PROJECT_SUBRANGES if a < nb] or [(0, nb)]
+    sp = slice(1, min(3, s))
+
+    def part(index, *ts):
+        return [t[index].contiguous() for t in ts]
+
+    same_rows(torch, "gbatc_select_accumulate (fp32)", sel,
+              [((slice(None), slice(a, b)), gk.gbatc_select_accumulate(
+                  *part((slice(None), slice(a, b)), x, c, rank, m), u))
+               for a, b in ranges]
+              + [((sp,), gk.gbatc_select_accumulate(*part(sp, x, c, rank, m, u)))])
+    same_rows(torch, "gbatc_correct_batched (fp32)", cor,
+              [((slice(None), slice(a, b)), gk.gbatc_correct_batched(
+                  *part((slice(None), slice(a, b)), x, kept), u))
+               for a, b in ranges]
+              + [((sp,), gk.gbatc_correct_batched(*part(sp, x, kept, u)))])
+
+
 def phase_kernels(torch, launches: int) -> list[dict]:
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
@@ -322,6 +407,8 @@ def phase_kernels(torch, launches: int) -> list[dict]:
             note("gbatc_select_accumulate", dtype, compare(
                 torch, gk.gbatc_select_accumulate(x, c, rank, m, u),
                 kref.gbatc_select_accumulate_ref(x, c, rank, m, u), c, dtype))
+            if dtype == torch.float32:
+                fp32_pair_bits(torch, gk, x, c, u, rank, m)
     torch.cuda.synchronize()
 
     # -- main-path shapes: fp64 projection, fp32 select and replay --------
@@ -360,6 +447,7 @@ def phase_kernels(torch, launches: int) -> list[dict]:
     # the fp32 projection is part of the kernel's contract too
     compare(torch, gk.gbatc_project_batched(x, u),
             kref.gbatc_project_batched_ref(x, u), x, torch.float32)
+    fp32_pair_bits(torch, gk, x, c, u, rank, m)
     kept = int((rank < m[..., None]).sum())
     row("gbatc_select_accumulate", 288, torch.float32,
         lambda: gk.gbatc_select_accumulate(x, c, rank, m, u),
@@ -778,8 +866,8 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
           ae_steps: int) -> tuple:
     """Fit + compress at 1e-3, decompress from the bytes, a second bound on
     the same fit, with every gate of the path; returns (info, blob). Launch
-    counts are reset just before compress and read just after it, then
-    reset again just before decompress and read just after it."""
+    counts are reset just before each of the three calls and read just
+    after it."""
     import numpy as np
 
     from repro_torch import codec
@@ -830,15 +918,24 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
             fail(f"kernel {kernel} was never launched on {name}")
 
     # -- a second bound on the same fit reuses the prepared state ---------
-    before = all_counts()
+    reset_counts()
     t0 = time.perf_counter()
     blob2, rep2 = gb.compress_report(target_nrmse=1e-2)
     torch.cuda.synchronize()
     second_s = time.perf_counter() - t0
-    after = all_counts()
-    if after["gbatc_project_batched"] != before["gbatc_project_batched"]:
+    second_counts = all_counts()
+    if second_counts["gbatc_project_batched"]:
         fail(f"{name}: second compress launched the projection again "
              "(prepare not reused)")
+    # the guarantee's reconstruction: one select a compress, one replay a
+    # decompress
+    for kernel, part, counts in (
+            ("gbatc_select_accumulate", "compress", compress_counts),
+            ("gbatc_select_accumulate", "second compress", second_counts),
+            ("gbatc_correct_batched", "decompress", decompress_counts)):
+        if counts[kernel] != 1:
+            fail(f"{name}: {kernel} launched {counts[kernel]} times in {part}, "
+                 "expected once")
     if not (rep2.per_species_nrmse <= 1e-2 * (1 + 1e-3)).all():
         fail(f"{name}: second compress (1e-2) missed its bound")
 
@@ -858,9 +955,12 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
         "compression_ratio": rep.compression_ratio, "blob_bytes": len(blob),
         "breakdown": rep.bytes_breakdown,
         "second_blob_bytes": len(blob2),
+        "recon_sha256": hashlib.sha256(rep.recon.tobytes()).hexdigest(),
+        "blob_sha256": hashlib.sha256(blob).hexdigest(),
         "launches": launches,
         "launches_compress": compress_counts,
         "launches_decompress": decompress_counts,
+        "launches_second_compress": second_counts,
         "peak_device_gb": peak_gb,
     }
     return info, blob
@@ -963,7 +1063,8 @@ def run(torch, args, phases) -> None:
     ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
-                       "decompress": info["launches_decompress"][r["name"]]}
+                       "decompress": info["launches_decompress"][r["name"]],
+                       "second_compress": info["launches_second_compress"][r["name"]]}
                    for p, info in paths.items()}
         if ops_calls:
             by_path["ops_path"] = {op: c["launches"][r["name"]]

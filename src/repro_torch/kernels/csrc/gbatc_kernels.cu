@@ -19,7 +19,7 @@
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
 //
-// Two kernels serve these modes.
+// Three kernels serve these modes.
 //
 // fp64 project (project_f64_dmma): at the main path's (58, 20480, 80) the
 // work is 760 MB read, 760 MB written and 15.2 GFLOP, so bytes bound it
@@ -52,10 +52,57 @@
 //   D = 80; a fourth stage measured slower); 80 < D <= 128 uses 32-row
 //   tiles and 3 stages (227 KB at D = 128).
 //
-// Every other mode and the fp32 projection (gbatc_tile_kernel): at D = 80
-// each output element costs 80 FMAs against 8 (fp32) or 16 (fp64) bytes
-// moved, which sits near the ridge of the fp32 CUDA-core roofline, so the
-// kernels must neither re-read inputs nor stall on them. Design:
+// fp32 correct and select (correct_f32_ring; they replace the Pallas
+// gbatc_correct_batched, src/repro/kernels/gbatc_project.py:240, and
+// gbatc_select_accumulate, :288): at the main path's (58, 20480, 80) select
+// reads x, c and rank and writes out (1.52 GB, 0.455 ms at 3.35 TB/s),
+// correct reads x and c (1.14 GB, 0.341 ms); either does 7.6 G FFMA, 0.227
+// ms on the CUDA cores at 67 TFLOP/s. What bounds them on this card is the
+// FFMAs as much as the bytes: the compiler's outer-product FFMAs issue well
+// below the FFMA peak (each reads two fresh registers), so the FMA loop
+// alone takes about as long as correct's byte stream, and the design's aim
+// is to keep both going at once. Design:
+//
+// * Both modes keep one order of arithmetic, the tile kernel's before
+//   them: acc = +0, acc = fmaf(c'_k, U[j][k], acc) for k ascending (k
+//   padded with zeros to a multiple of 4), out = x + acc, where c'_k is
+//   +0 in select when rank >= m. Select on (c, rank, m) is therefore
+//   bitwise correct on where(rank < m, c, 0): the encode side's
+//   reconstruction and the decode side's replay agree bit for bit. No
+//   split-k, no TF32, no fast-math.
+// * The grid is persistent (two CTAs an SM at D <= 80); a CTA walks a
+//   contiguous, species-major range of 64-row tiles and reloads the basis,
+//   transposed to [k][j] and zero padded, only where its range crosses a
+//   species.
+// * Row tiles of c stream through a ring of STAGES shared buffers filled
+//   with cp.async (16-byte copies, 4-byte ones where D % 4 != 0 or an
+//   operand is not 16-byte aligned): while a tile is computed the next
+//   STAGES-1 are in flight. A thread copies the same chunks of every tile.
+//   Select copies rank into one more tile buffer and masks the
+//   coefficients a thread copied itself once they land, against cuts that
+//   landed a tile earlier; a thread reads only its own rank chunks, so it
+//   refills them for the next tile right after masking, and one barrier a
+//   tile serves both modes. Neither mask nor masked coefficients reach
+//   device memory.
+// * A thread owns 4 rows (16 apart) by 4 contiguous columns. Per 4 k it
+//   issues 4 16-byte loads of A (rows padded to an odd number of 16-byte
+//   chunks, so 8 rows fall on distinct banks), 4 16-byte broadcast loads of
+//   B (row length fixed at compile time, so their offsets are immediates)
+//   and 64 FFMAs; no bound test is left in the loop. A CTA has 64 threads
+//   per 16 columns (320 at D = 80). Larger thread tiles (8 x 4, 8 x 8)
+//   measured no faster: the loop's rate is the FFMAs', not the loads'.
+// * x is loaded into registers before the FMA loop, and out = x + acc goes
+//   from registers to device memory, a 16-byte store a row; a warp covers
+//   8 rows by 64 contiguous bytes, whole 32-byte sectors.
+// * Two stages: more measured slower. Two CTAs an SM at D <= 80 (89 KB
+//   of shared memory for select, 67 KB for correct), one at D <= 128 (164
+//   KB for select).
+//
+// The fp32 projection, the masked mode and the fp64 modes other than the
+// projection (gbatc_tile_kernel): at D = 80 each output element costs 80
+// FMAs against 8 (fp32) or 16 (fp64) bytes moved, which sits near the ridge
+// of the fp32 CUDA-core roofline, so the kernels must neither re-read
+// inputs nor stall on them. Design:
 //
 // * One CTA owns one species and a run of row tiles of 64 blocks; the
 //   species' basis stays in shared memory for the CTA's life (transposed on
@@ -75,11 +122,11 @@
 // * The result goes back through the same shared tile so the epilogue
 //   (+ x) reads and writes device memory coalesced.
 // * Registers are capped at 128 a thread (two CTAs per SM), so one CTA's
-//   staging overlaps the other's FMAs; the three instantiations the main
-//   path uses (D = 80) fit with at most 16 bytes of spill.
-// * The select kernel reads its per-row cut m once per row and forms
-//   rank < m in registers while staging; neither the mask nor the masked
-//   coefficients are ever written to device memory.
+//   staging overlaps the other's FMAs.
+// * The select mode reads its per-row cut m once per row and forms
+//   rank < m in registers while staging; the masked mode multiplies its
+//   mask in there. Neither the mask nor the masked coefficients are ever
+//   written to device memory.
 //
 // fp64 at D = 80 needs 51.2 KB for the basis alone, above the 48 KB static
 // limit: all shared memory is dynamic and every launcher raises the
@@ -488,8 +535,317 @@ project_f64_dmma(const double* __restrict__ r, const double* __restrict__ basis,
   cp_async_wait<0>();
 }
 
+// ---- fp32 correct and select: persistent cp.async ring, FFMA register tile
+
+constexpr int RING_RM = 4;                  // rows a thread
+constexpr int RING_NRY = 16;                // row lanes: rows ry + 16 i
+constexpr int RING_TM = RING_RM * RING_NRY;  // 64-row tiles
+constexpr int RING_STAGES = 2;              // tiles of c in the ring
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x, v[1] = t.y, v[2] = t.z, v[3] = t.w;
+}
+
+// padded shared row length of an A tile: D rounded up to 4 floats, and an
+// odd number of 16-byte chunks, so the 8 rows a warp loads at one k fall
+// on distinct banks
+inline int ring_lda(int d) {
+  int ld = (d + KU - 1) / KU * KU;
+  if ((ld / 4) % 2 == 0) ld += 4;
+  return ld;
+}
+
+// Thread tid owns rows ry + 16 i (i < 4) of a tile, ry = (tid / 4) % 16,
+// and columns col .. col+3, col = 16 (tid / 64) + 4 (tid % 4): blockDim.x
+// is 64 ceil(D / 16); NCH, the most 16-column groups, sets the launch
+// bounds and B's row length in shared memory.
+template <int MODE, int NCH, int MINB>
+__global__ void __launch_bounds__(NCH * 64, MINB)
+correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
+                 const int* __restrict__ rank,  // select only, (S, NB, D)
+                 const int* __restrict__ m,     // select only, (S, NB)
+                 const float* __restrict__ basis, float* __restrict__ out,
+                 int s_count, long long nb, int d, int lda, int vec) {
+  constexpr int RM = RING_RM, TM = RING_TM, LDB = 16 * NCH;
+  constexpr int STAGES = RING_STAGES;
+  constexpr bool SELECT = MODE == MODE_SELECT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int threads = blockDim.x;
+  const int ldk = (d + KU - 1) / KU * KU;  // k padded with zero terms
+  float* b_s = reinterpret_cast<float*>(smem_raw);  // (ldk, LDB): U^T
+  float* c_s = b_s + ldk * LDB;                      // (STAGES, TM, lda)
+  // select: one rank tile (TM, lda), then the cuts (STAGES, TM)
+  int* r_s = reinterpret_cast<int*>(c_s + STAGES * TM * lda);
+  int* m_s = r_s + (SELECT ? TM * lda : 0);
+
+  const int tid = threadIdx.x;
+  const int ry = (tid >> 2) % RING_NRY;
+  const int col = (tid >> 6) * 16 + (tid & 3) * 4;
+  // tile indices fit an int (the launcher checks S * tiles a species)
+  const int tps = (int)((nb + TM - 1) / TM);  // tiles a species
+  const int total = tps * s_count;
+  const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
+  // a thread copies the chunks (row, k) of a tile from (row_first,
+  // k_first) on, a fixed step apart: the same chunks every tile
+  const int w = vec ? 4 : 1;  // floats a chunk
+  const int q = d / w;        // chunks a row
+  const int row_first = tid / q, k_first = tid - row_first * q;
+  const int row_step = threads / q, k_step = threads - row_step * q;
+
+  // species, first row (of all S * NB) and rows of tile t
+  auto tile = [&](int t, int& s, long long& r0, int& rows) {
+    s = t / tps;
+    const long long row0 = (long long)(t - s * tps) * TM;
+    r0 = s * nb + row0;
+    rows = (int)min((long long)TM, nb - row0);
+  };
+  auto copy = [&](void* dst, const void* src) {
+    if (vec) cp_async16(dst, src);
+    else cp_async4(dst, src);
+  };
+  // calls f(row, shared offset, offset in device memory) on each chunk of
+  // a tile of `rows` rows that this thread copies
+  auto own_chunks = [&](int rows, auto f) {
+    for (int row = row_first, k = k_first; row < rows;) {
+      f(row, row * lda + k * w, (size_t)row * d + k * w);
+      row += row_step;
+      k += k_step;
+      if (k >= q) k -= q, ++row;
+    }
+  };
+  auto issue_c = [&](int t, int buf) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    const float* src = c + (size_t)r0 * d;
+    float* dst = c_s + buf * TM * lda;
+    own_chunks(rows, [&](int, int off, size_t g) { copy(dst + off, src + g); });
+  };
+  // select: rank of tile t into the one rank tile. A thread reads there
+  // only the chunks it copied itself, so it may refill them for the next
+  // tile as soon as it has masked them, with no barrier between
+  auto issue_rank = [&](int t) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    const int* src = rank + (size_t)r0 * d;
+    own_chunks(rows, [&](int, int off, size_t g) { copy(r_s + off, src + g); });
+  };
+  // select: the cuts of tile t into slot buf, one group ahead of its tile
+  auto issue_m = [&](int t, int buf) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    if (tid < rows) cp_async4(m_s + buf * TM + tid, m + r0 + tid);
+  };
+  // select: c = +0 where rank >= m, over the chunks this thread copied
+  auto mask_own = [&](int t, int buf) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    float* cd = c_s + buf * TM * lda;
+    const int* ms = m_s + buf * TM;
+    own_chunks(rows, [&](int row, int off, size_t) {
+      const int cut = ms[row];
+      if (vec) {
+        const int4 r = *reinterpret_cast<const int4*>(r_s + off);
+        float4 v = *reinterpret_cast<float4*>(cd + off);
+        if (!(r.x < cut)) v.x = 0.f;
+        if (!(r.y < cut)) v.y = 0.f;
+        if (!(r.z < cut)) v.z = 0.f;
+        if (!(r.w < cut)) v.w = 0.f;
+        *reinterpret_cast<float4*>(cd + off) = v;
+      } else if (!(r_s[off] < cut)) {
+        cd[off] = 0.f;
+      }
+    });
+  };
+
+  // zero padding, once: k in [d, ldk) of every A row adds fmaf(0, 0, acc),
+  // which is acc; B's rows k >= d and columns j >= d are zero
+  for (int i = tid; i < ldk * LDB; i += threads) b_s[i] = 0.f;
+  if (ldk > d) {
+    const int pad = ldk - d;
+    for (int i = tid; i < STAGES * TM * pad; i += threads)
+      c_s[(i / pad) * lda + d + i % pad] = 0.f;
+  }
+  if (SELECT) {  // the first tile's cuts, synchronously
+    int s;
+    long long r0;
+    int rows;
+    tile(t_begin, s, r0, rows);
+    if (tid < rows) m_s[tid] = m[r0 + tid];
+  }
+  __syncthreads();
+  // cp.async groups, oldest first: [rank t_begin], then per stage
+  // [c t, cuts t+1]; each iteration adds [rank t+1] and [c t+STAGES-1,
+  // cuts t+STAGES], so waiting for all but the newest STAGES-2 groups
+  // covers c, rank and cuts of the tile at hand
+  if (SELECT) {
+    issue_rank(t_begin);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (t_begin + st < t_end) issue_c(t_begin + st, st);
+    if (SELECT && t_begin + st + 1 < t_end)
+      issue_m(t_begin + st + 1, (st + 1) % STAGES);
+    cp_async_commit();
+  }
+
+  int cur_s = -1;
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) % STAGES;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
+    if (SELECT) {
+      mask_own(t, buf);
+      // the rank chunks just read are refilled next: keep the compiler
+      // from moving those reads past the copies
+      asm volatile("" ::: "memory");
+      if (t + 1 < t_end) issue_rank(t + 1);
+      cp_async_commit();
+    }
+    __syncthreads();  // tile t whole and masked; tile t-1 done with
+    if (t + STAGES - 1 < t_end) issue_c(t + STAGES - 1, (buf + STAGES - 1) % STAGES);
+    if (SELECT && t + STAGES < t_end) issue_m(t + STAGES, buf);
+    cp_async_commit();
+
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    const size_t g0 = (size_t)r0 * d;
+    if (s != cur_s) {  // the range crossed into a new species
+      const float* u = basis + (size_t)s * d * d;
+#pragma unroll 4
+      for (int e = tid; e < d * d; e += threads) {
+        const int j = e / d;
+        b_s[(e - j * d) * LDB + j] = u[e];  // B[k][j] = U[j][k]
+      }
+      __syncthreads();
+      cur_s = s;
+    }
+
+    // x of this thread's elements, in flight while the FFMAs run
+    float xv[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = ry + r * RING_NRY;
+      const float* xp = x + g0 + (size_t)row * d + col;
+      if (vec) {
+        if (row < rows && col < d) ld4(xp, xv[r]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xv[r][e] = (row < rows && col + e < d) ? xp[e] : 0.f;
+      }
+    }
+
+    float acc[RM][4];
+#pragma unroll
+    for (int r = 0; r < RM; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    const float* ap = c_s + buf * TM * lda + ry * lda;
+    const float* bp = b_s + col;
+    // unrolled 5 times (20 k at D = 80) for correct, twice for select,
+    // whose mask and rank pointers leave fewer registers: what measured
+    // fastest without spilling
+#pragma unroll(MODE == MODE_SELECT ? 2 : 5)
+    for (int k0 = 0; k0 < ldk; k0 += 4) {
+      float a[RM][4];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) ld4(ap + r * RING_NRY * lda + k0, a[r]);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        float b[4];
+        ld4(bp + (k0 + kk) * LDB, b);
+#pragma unroll
+        for (int r = 0; r < RM; ++r)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[r][e] = fmaf(a[r][kk], b[e], acc[r][e]);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < RM; ++r) {
+      const int row = ry + r * RING_NRY;
+      if (row >= rows) continue;
+      float* op = out + g0 + (size_t)row * d + col;
+      if (vec) {
+        if (col < d)
+          *reinterpret_cast<float4*>(op) =
+              make_float4(xv[r][0] + acc[r][0], xv[r][1] + acc[r][1],
+                          xv[r][2] + acc[r][2], xv[r][3] + acc[r][3]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < d) op[e] = xv[r][e] + acc[r][e];
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <int MODE, int NCH, int MINB>
+int launch_ring(const float* x, const float* c, const int* rank, const int* m,
+                const float* u, float* out, int s, long long nb, int d,
+                void* stream) {
+  const int threads = 64 * ((d + 15) / 16);
+  const int ldk = (d + KU - 1) / KU * KU, lda = ring_lda(d);
+  size_t words = (size_t)ldk * 16 * NCH + (size_t)RING_STAGES * RING_TM * lda;
+  if (MODE == MODE_SELECT) words += (size_t)RING_TM * lda + RING_STAGES * RING_TM;
+  const size_t smem = words * sizeof(float);
+  const long long tiles = (long long)s * ((nb + RING_TM - 1) / RING_TM);
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = correct_f32_ring<MODE, NCH, MINB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long slots = (long long)sms * per_sm;
+  const long long grid = tiles < slots ? tiles : slots;
+  const int vec = d % 4 == 0 && aligned16(x) && aligned16(c) &&
+                  aligned16(rank) && aligned16(out);
+  kernel<<<(unsigned)grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      x, c, rank, m, u, out, s, nb, d, lda, vec);
+  return (int)cudaGetLastError();
+}
+
+// two CTAs an SM at D <= 80, one at D <= 128
+template <int MODE>
+int launch_correct_f32(const float* x, const float* c, const int* rank,
+                       const int* m, const float* u, float* out, int s,
+                       long long nb, int d, int tiles_per_cta, void* stream) {
+  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+    return (int)cudaErrorInvalidValue;
+  if (s == 0 || nb == 0) return (int)cudaSuccess;
+  if (d <= 80)
+    return launch_ring<MODE, 5, 2>(x, c, rank, m, u, out, s, nb, d, stream);
+  return launch_ring<MODE, 8, 1>(x, c, rank, m, u, out, s, nb, d, stream);
 }
 
 template <int NFW, int TM, int STAGES>
@@ -589,8 +945,9 @@ int gbatc_project_batched_f64(const double* r, const double* u, double* c,
 int gbatc_correct_batched_f32(const float* x, const float* c, const float* u,
                               float* out, int s, long long nb, int d,
                               int tiles_per_cta, void* stream) {
-  return launch<float, MODE_CORRECT>(c, u, x, nullptr, nullptr, nullptr, out, s,
-                                     nb, d, tiles_per_cta, stream);
+  // persistent ring kernel, as select: tiles_per_cta is only checked
+  return launch_correct_f32<MODE_CORRECT>(x, c, nullptr, nullptr, u, out, s,
+                                          nb, d, tiles_per_cta, stream);
 }
 int gbatc_correct_batched_f64(const double* x, const double* c,
                               const double* u, double* out, int s,
@@ -603,8 +960,8 @@ int gbatc_select_accumulate_f32(const float* x, const float* c,
                                 const int* rank, const int* m, const float* u,
                                 float* out, int s, long long nb, int d,
                                 int tiles_per_cta, void* stream) {
-  return launch<float, MODE_SELECT>(c, u, x, rank, m, nullptr, out, s, nb, d,
-                                    tiles_per_cta, stream);
+  return launch_correct_f32<MODE_SELECT>(x, c, rank, m, u, out, s, nb, d,
+                                         tiles_per_cta, stream);
 }
 int gbatc_select_accumulate_f64(const double* x, const double* c,
                                 const int* rank, const int* m, const double* u,

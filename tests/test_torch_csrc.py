@@ -5,13 +5,17 @@ No ``nvcc`` is needed: each wrapper's ``_lib()`` runs against a stand-in
 library that records what the wrapper declares (symbol, argument types,
 return type), and the declarations are held against the ``extern "C"``
 block of the source the wrapper loads, read as text. A mismatch here would
-otherwise show only on the card, as a crash or a wrong argument.
+otherwise show only on the card, as a crash or a wrong argument. Likewise
+every kernel a source defines must have a pattern in
+``chip_smoke.PTXAS_NAMES``, or its registers and spill drop out of the
+card's build report unseen.
 """
 
 from __future__ import annotations
 
 import ctypes
 import importlib
+import importlib.util
 import re
 from pathlib import Path
 
@@ -119,3 +123,50 @@ def test_source_has_a_plain_c_interface(source):
     assert includes, source
     assert not [i for i in includes if i.startswith(("torch/", "ATen/", "c10/"))]
     assert "torch/extension.h" not in includes
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the checkout root, imported by path (its top
+    level needs nothing but the standard library)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _kernel_names(source: str) -> list[str]:
+    """Names of the ``__global__`` functions the source defines."""
+    text = (CSRC / source).read_text()
+    return re.findall(
+        r"__global__\s+void\s+(?:__launch_bounds__\s*\([^()]*\)\s*)?(\w+)\s*\(", text)
+
+
+def _names_kernel(pattern: str, name: str) -> bool:
+    """``pattern`` (a mangled name without its length prefix) is for the
+    kernel ``name``, not for a longer name that starts with it."""
+    return re.match(re.escape(name) + r"(?![a-z0-9_])", pattern) is not None
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_every_kernel_has_a_ptxas_pattern(source):
+    patterns = [p for p, _ in _chip_smoke().PTXAS_NAMES.get(source[:-3], [])]
+    kernels = _kernel_names(source)
+    assert kernels, f"no __global__ kernel found in {source}"
+    for name in kernels:
+        assert any(_names_kernel(p, name) for p in patterns), (
+            f"{source}: kernel {name} has no pattern in chip_smoke.PTXAS_NAMES")
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_every_ptxas_pattern_names_a_kernel(source):
+    kernels = _kernel_names(source)
+    for pattern, _ in _chip_smoke().PTXAS_NAMES.get(source[:-3], []):
+        re.compile(pattern)
+        assert any(_names_kernel(pattern, k) for k in kernels), (
+            f"chip_smoke.PTXAS_NAMES pattern {pattern!r} names no kernel of {source}")
+
+
+def test_ptxas_names_cover_every_source():
+    assert sorted(_chip_smoke().PTXAS_NAMES) == sorted(
+        Path(p).stem for p in _build.SOURCES)
