@@ -11,8 +11,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
 2. ``build``  compiles every CUDA source of the checkout (one ``nvcc`` each,
    all started together) into a fresh directory of this run, so a re-run
    builds again and never reuses an earlier run's libraries; reports each
-   kernel's registers and spill (``ptxas -v``) and the instructions and
-   FFMAs of its innermost FFMA loop (``cuobjdump -sass``);
+   kernel's registers and spill (``ptxas -v``) and the instructions, FFMAs
+   and tensor-core MMAs of its innermost FFMA or MMA loop (``cuobjdump
+   -sass``);
 3. ``kernels``  each kernel against its plain PyTorch version on the card at
    the main paths' shapes (GBATC: S=58, NB=20480, D=80; flash attention:
    (4096, 2, 232, 16) fp32 non-causal) and at ragged and reference shapes,
@@ -30,7 +31,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    decompress and a second-bound compress (one select a compress, one
    replay a decompress); the line carries the sha256 of the
    reconstruction and of the blob, so two trees can be held to the same
-   bits;
+   bits; then, on the path's own prepared state, the engine's device
+   select backend against its host backend at both bounds: the artifacts
+   (coeff_q, CSR index, basis) and the reconstruction must be equal byte
+   for byte, and the line reports the blocks whose cut m_eff differs;
 5. ``attention_path``  the same for the attention family (arch (32, 2, 1,
    64)) on the same data;
 6. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
@@ -41,7 +45,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    else); the ``kernels`` phase also holds the five kernels behind them
    that no other path runs (2D GBATC pair, block_quant, rglru_scan,
    rwkv6_scan) against their plain versions at those shapes, at the
-   reference's sweeps and in bf16;
+   reference's sweeps and in bf16, and each for the same bits twice; the
+   fp32 2D projection also for rows 100-5003 and the field's last rows,
+   and rwkv6_scan for batch 0-1, as in the full call;
 7. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
@@ -114,6 +120,10 @@ BQ_SWEEP = [((64, 256), 64), ((3, 7, 128), 32), ((1024, 64), 64), ((5, 600), 300
 RGLRU_SWEEP = [(1, 64, 32), (2, 128, 256), (1, 100, 130)]
 RWKV_SWEEP = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 100, 2, 64), (1, 128, 4, 64),
               (2, 37, 3, 20)]
+# rows of the fp32 2D projection's sub-range checks at GBATC_2D: a range
+# that starts inside a 64-row tile and ends in a ragged one, and the last
+# rows of the field as one ragged tile
+PROJECT_2D_SUBRANGES = [(100, 5003), (GBATC_2D[0] - 37, GBATC_2D[0])]
 RGLRU_LIMIT = 1e-5  # max abs diff at unit-scale inputs
 RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
 BF16_ULP = 2.0 ** -7  # one bf16 rounding of the output, relative
@@ -164,6 +174,8 @@ PTXAS_NAMES = {
             m.group(3))), (
         r"project_f64_dmmaILi(\d+)ELi(\d+)ELi(\d+)E",
         lambda m: "f64/project/dmma/nfw{}/tm{}/stages{}".format(*m.groups())), (
+        r"project_f32_3xtf32ILi(\d+)ELi(\d+)ELi(\d+)E",
+        lambda m: "f32/project/3xtf32/nfw{}/tm{}/stages{}".format(*m.groups())), (
         r"correct_f32_ringILi(\d)ELi(\d+)ELi(\d+)E",
         lambda m: "f32/{}/ring/nch{}/minb{}".format(
             ("project", "correct", "select", "masked")[int(m.group(1))],
@@ -187,9 +199,10 @@ PTXAS_NAMES = {
 
 
 def sass_loops(build) -> dict:
-    """For each kernel instantiation of PTXAS_NAMES, the instructions and
-    FFMAs of the innermost loop that holds the most FFMAs (``cuobjdump
-    -sass`` of the built library); empty where cuobjdump is missing."""
+    """For each kernel instantiation of PTXAS_NAMES, the instructions, FFMAs
+    and tensor-core MMAs (HMMA, DMMA) of the innermost loop that holds the
+    most of those two (``cuobjdump -sass`` of the built library); empty
+    where cuobjdump is missing."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     loops = {}
     for stem, names in PTXAS_NAMES.items():
@@ -214,10 +227,12 @@ def sass_loops(build) -> dict:
                     continue  # not innermost
                 body = [o for a, o in ins if lo <= a <= hi]
                 ffma = sum(o.startswith("FFMA") for o in body)
-                if ffma and (best is None or ffma > best[1]):
-                    best = (len(body), ffma)
+                mma = sum(o.startswith(("HMMA", "DMMA")) for o in body)
+                if ffma + mma and (best is None or ffma + mma > best[1] + best[2]):
+                    best = (len(body), ffma, mma)
             if best:
-                loops[hit[1](hit[0])] = {"loop_instructions": best[0], "ffma": best[1]}
+                loops[hit[1](hit[0])] = {"loop_instructions": best[0],
+                                         "ffma": best[1], "mma": best[2]}
     return loops
 
 
@@ -592,8 +607,12 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
     e_c = compare(torch, gk.gbatc_correct(x, c, mask, u),
                   kref.gbatc_correct_ref(x, c, mask, u), c, f32)
     same_twice(torch, "gbatc_project", lambda: gk.gbatc_project(x, u))
+    same_rows(torch, "gbatc_project", gk.gbatc_project(x, u),
+              [(slice(a, b), gk.gbatc_project(x[a:b].contiguous(), u))
+               for a, b in PROJECT_2D_SUBRANGES])
     same_twice(torch, "gbatc_correct", lambda: gk.gbatc_correct(x, c, mask, u))
     gbatc_extra = {"shapes_checked": GBATC_2D_SWEEP, "dtypes_checked": ["float32", "float64"],
+                   "subranges_checked": PROJECT_2D_SUBRANGES,
                    "tolerance": "max abs diff <= 1e-5 (fp32); <= 1e-12 x row l2 norm (fp64)"}
     rows.append(kernel_row(
         torch, "gbatc_project", "gbatc_kernels.cu",
@@ -677,6 +696,12 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
     args = rw_inputs(b, t, h, n, f32)
     rw_err = max(rw_err, rw_check(args, "timed shape"))
     same_twice(torch, "rwkv6_scan", lambda: wk.rwkv6_scan(*args))
+    full = wk.rwkv6_scan(*args)
+    part = wk.rwkv6_scan(*(a if i == 4 else a[:2].contiguous()  # u has no batch
+                           for i, a in enumerate(args)))
+    for what, f, p in zip(("out", "S_T"), full, part):
+        same_rows(torch, f"rwkv6_scan ({what})", f, [(slice(0, 2), p)])
+    del full, part
     tokens = b * t * h
     rows.append(kernel_row(
         torch, "rwkv6_scan", "rwkv6_scan.cu", "src/repro/kernels/rwkv6_scan.py:111",
@@ -684,7 +709,7 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         "float32", RWKV_PATH, 5 * tokens * n * 4 + 2 * b * h * n * n * 4 + h * n * 4,
         5 * tokens * n * n, launches, rw_err, plain_launches=3, initial_state="random (B,H,N,N)",
         shapes_checked=RWKV_SWEEP, dtypes_checked=["float32", "bfloat16"],
-        extra_cases=["w = 1e-30", "w = 1.5 (clamped to 1)"],
+        extra_cases=["w = 1e-30", "w = 1.5 (clamped to 1)"], subranges_checked=["batch 0-1"],
         tolerance="max abs diff <= 2e-4 x max(1, max|plain|) (+ one bf16 ulp of it in bf16)"))
     del args
 
@@ -938,6 +963,7 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
                  "expected once")
     if not (rep2.per_species_nrmse <= 1e-2 * (1 + 1e-3)).all():
         fail(f"{name}: second compress (1e-2) missed its bound")
+    backends = select_backends_agree(gb.pipeline, name, (target, 1e-2))
 
     info = {
         "phase": name, "family": cfg.family, "shape": list(data.shape),
@@ -962,8 +988,54 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
         "launches_decompress": decompress_counts,
         "launches_second_compress": second_counts,
         "peak_device_gb": peak_gb,
+        "select_backends": backends,
     }
     return info, blob
+
+
+def select_backends_agree(pipe, name: str, bounds) -> dict:
+    """The engine's device select backend (the default on CUDA: fp64 torch
+    ops, the gain cumsum a parallel scan) against its host backend (numpy,
+    the oracle's sequential cumsum) on the path's own prepared state, at
+    each bound: coeff_q, the CSR index (offsets and flat) and basis of every
+    species, and the corrected reconstruction, must be equal byte for byte.
+    Reports the blocks whose cut m_eff differs (the kept count of a block);
+    any difference fails the run."""
+    import numpy as np
+
+    from repro_torch.core import gae
+
+    entries = list(pipe._prepared.values())
+    if len(entries) != 1:
+        fail(f"{name}: expected one prepared guarantee state, found {len(entries)}")
+    prepared = entries[0][0]
+    device_engine = pipe._gengine
+    if device_engine.select_backend != "device":
+        fail(f"{name}: the engine's select backend is {device_engine.select_backend!r}")
+    host_engine = gae.GuaranteeEngine(device_engine.device, select_backend="host")
+    d = prepared.shape[2]
+    differ, unequal = [], []
+    for bound in bounds:
+        tau = bound * np.sqrt(d)  # as the pipeline's compress: range 1
+        rec_d, arts_d = device_engine.select(prepared, tau)
+        rec_h, arts_h = host_engine.select(prepared, tau)
+        n = 0
+        for sp, (a, b) in enumerate(zip(arts_d, arts_h, strict=True)):
+            n += int((np.diff(a.index_offsets) != np.diff(b.index_offsets)).sum())
+            for field in ("coeff_q", "index_offsets", "index_flat", "basis"):
+                x, y = getattr(a, field), getattr(b, field)
+                if not (x.dtype == y.dtype and x.shape == y.shape
+                        and x.tobytes() == y.tobytes()):
+                    unequal.append(f"{field} of species {sp} at {bound:g}")
+        if rec_d.tobytes() != rec_h.tobytes():
+            unequal.append(f"corrected reconstruction at {bound:g}")
+        differ.append(n)
+    info = {"bounds": list(bounds), "blocks_m_eff_differ": differ,
+            "artifacts_equal": not unequal}
+    if unequal or any(differ):
+        fail(f"{name}: device and host select backends differ: {differ} blocks' "
+             f"m_eff at {list(bounds)}; unequal: {unequal[:8]}")
+    return info
 
 
 def phase_main_path(torch, args, data) -> dict:

@@ -19,7 +19,7 @@
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
 //
-// Three kernels serve these modes.
+// Four kernels serve these modes.
 //
 // fp64 project (project_f64_dmma): at the main path's (58, 20480, 80) the
 // work is 760 MB read, 760 MB written and 15.2 GFLOP, so bytes bound it
@@ -51,6 +51,48 @@
 // * D <= 80 uses 64-row tiles and 3 stages (176 KB of shared memory at
 //   D = 80; a fourth stage measured slower); 80 < D <= 128 uses 32-row
 //   tiles and 3 stages (227 KB at D = 128).
+//
+// fp32 project (project_f32_3xtf32; it replaces the Pallas gbatc_project,
+// src/repro/kernels/gbatc_project.py:105, and the fp32 gbatc_project_batched,
+// :207): at the 2D shape (1187840, 80) the work is 380 MB read, 380 MB
+// written (0.227 ms at 3.35 TB/s) and 7.6 G FMAs (0.227 ms at the 67
+// TFLOP/s FFMA peak). Bytes and FFMAs have equal bounds, and FFMA loops run
+// well below their peak here (see correct_f32_ring), so no FFMA design
+// reaches half the bound: the products leave the CUDA cores. Design, on the
+// skeleton of project_f64_dmma:
+//
+// * Products are TF32 mma.sync.m16n8k8 (fp32 accumulate) in the 3xTF32
+//   form. Each operand is split as x = hi + lo, hi = cvt.rna.tf32(x), lo =
+//   cvt.rna.tf32(x - hi); a_lo . b_hi and a_hi . b_lo go into a correction
+//   accumulator of their own, a_hi . b_hi into the main one, and the two
+//   are added once, after the k loop. What is dropped (a_lo . b_lo, and lo's
+//   own rounding) is about 2^-22 of a product, so the result keeps an fp32
+//   level of error; single-pass TF32 (about 3 digits) would not. The three
+//   products are 46 GFLOP at (1187840, 80), 0.09 ms at the tensor cores'
+//   495 TFLOP/s, under the byte stream.
+// * The basis is split once, at load, and kept in shared memory as hi and
+//   lo planes in fragment order, zero padded to k % 16 and n % 8, so every
+//   B load is one conflict-free 16-byte load a lane. A is split as each
+//   fragment is loaded: a k pair of 16 is two m16n8k8 steps, and a lane
+//   loads 4 consecutive k of each of its two rows as one 16-byte load (the
+//   k order inside a step is permuted alike in A and B). Tile rows are
+//   padded to 16 mod 32 floats (none at D = 80), so the two rows a quarter
+//   warp loads fall on distinct banks.
+// * The grid, the ring of 64-row tiles, the basis reloaded only where a
+//   CTA's range crosses a species, and the epilogue from registers are
+//   project_f64_dmma's. Where a tile is contiguous in shared memory too (ld
+//   == D, as at D = 80), one thread moves it with one bulk copy (the TMA
+//   engine, completion on an mbarrier a stage); elsewhere the threads copy
+//   it with cp.async (16-byte copies, 4-byte ones where D % 4 != 0 or an
+//   operand is not 16-byte aligned). The bulk copy streams faster and takes
+//   the copies off the warps. Two stages and two CTAs of 8 warps an SM at
+//   D <= 80 (92 KB of shared memory each; a third stage measured slower);
+//   32-row tiles, three stages and one CTA at D <= 128.
+// * Within a k pair, each of the six products is issued for all n
+//   fragments back to back, so no MMA waits on the one before it.
+// * k pairs run ascending and each output's three products in one order,
+//   so a row's bits do not depend on its tile position. No TF32 anywhere
+//   else: cuBLAS and cuDNN stay in full fp32 (device.py::strict_fp32).
 //
 // fp32 correct and select (correct_f32_ring; they replace the Pallas
 // gbatc_correct_batched, src/repro/kernels/gbatc_project.py:240, and
@@ -98,17 +140,19 @@
 //   of shared memory for select, 67 KB for correct), one at D <= 128 (164
 //   KB for select).
 //
-// The fp32 projection, the masked mode and the fp64 modes other than the
-// projection (gbatc_tile_kernel): at D = 80 each output element costs 80
-// FMAs against 8 (fp32) or 16 (fp64) bytes moved, which sits near the ridge
-// of the fp32 CUDA-core roofline, so the kernels must neither re-read
-// inputs nor stall on them. Design:
+// The masked mode and the fp64 correct and select modes
+// (gbatc_tile_kernel; the masked mode replaces the Pallas gbatc_correct,
+// src/repro/kernels/gbatc_project.py:140, and reaches over half its byte
+// bound): at D = 80 each output element costs 80 FMAs against 8 (fp32) or
+// 16 (fp64) bytes moved, which sits near the ridge of the fp32 CUDA-core
+// roofline, so the kernel must neither re-read inputs nor stall on them.
+// Design:
 //
 // * One CTA owns one species and a run of row tiles of 64 blocks; the
 //   species' basis stays in shared memory for the CTA's life (transposed on
-//   load for the two U^T products, so the inner loop reads it
-//   conflict-free). Runs are short (the wrapper asks for 8 tiles), so the
-//   grid is many waves deep and no SM idles through a long tail.
+//   load for the U^T product, so the inner loop reads it conflict-free).
+//   Runs are short (the wrapper asks for 8 tiles), so the grid is many
+//   waves deep and no SM idles through a long tail.
 // * Each row tile is staged once through shared memory. Where D is a
 //   multiple of 4 and the operands are 16-byte aligned, a thread starts all
 //   its 16-byte global loads of a batch before the first shared-memory
@@ -120,7 +164,7 @@
 //   shared loads over four k at a time. CMAX, the columns per thread, is 5
 //   for D <= 80 and 8 up to D = 128.
 // * The result goes back through the same shared tile so the epilogue
-//   (+ x) reads and writes device memory coalesced.
+//   (x +) reads and writes device memory coalesced.
 // * Registers are capped at 128 a thread (two CTAs per SM), so one CTA's
 //   staging overlaps the other's FMAs.
 // * The select mode reads its per-row cut m once per row and forms
@@ -145,7 +189,6 @@ constexpr int RM = TILE_ROWS / TY;       // rows per thread
 constexpr int KU = 4;                    // k unroll = shared row padding
 constexpr int MAX_D = 128;
 
-constexpr int MODE_PROJECT = 0;
 constexpr int MODE_CORRECT = 1;
 constexpr int MODE_SELECT = 2;
 constexpr int MODE_MASKED = 3;
@@ -182,9 +225,9 @@ __device__ __forceinline__ void load_ku(const T* p, T (&out)[KU]) {
 
 template <typename T, int MODE, int CMAX>
 __global__ void __launch_bounds__(THREADS, 2)
-gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coefficients
+gbatc_tile_kernel(const T* __restrict__ a,       // coefficients
                   const T* __restrict__ basis,   // (S, D, D)
-                  const T* __restrict__ x,       // correct/select: x_rec; project: unused
+                  const T* __restrict__ x,       // x_rec
                   const int* __restrict__ rank,  // select only, (S, NB, D)
                   const int* __restrict__ m,     // select only, (S, NB)
                   const T* __restrict__ mk,      // masked only, (S, NB, D)
@@ -211,11 +254,11 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
     for (int i = tid; i < ld * ld + TILE_ROWS * ld; i += THREADS) u_s[i] = T(0);
     __syncthreads();
   }
-  // B[k][j] of acc = A @ B: U itself for the projection, U^T for the others
+  // B[k][j] = U[j][k] of acc = A @ B = C @ U^T
   const T* u_g = basis + (size_t)s * d * d;
   for (int i = tid; i < d * d; i += THREADS) {
     const int row = i / d, col = i - row * d;
-    u_s[(MODE == MODE_PROJECT) ? row * ld + col : col * ld + row] = u_g[i];
+    u_s[col * ld + row] = u_g[i];
   }
 
   const long long n_tiles = (nb + TILE_ROWS - 1) / TILE_ROWS;
@@ -333,30 +376,25 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
       }
     __syncthreads();
 
-    // ---- epilogue: out = (x +) tile, coalesced ---------------------------
+    // ---- epilogue: out = x + tile, coalesced -----------------------------
     if (vec_ok) {
       const int nvec = n_el / N;
-      const P* x_v =
-          MODE != MODE_PROJECT ? reinterpret_cast<const P*>(x + base) : nullptr;
+      const P* x_v = reinterpret_cast<const P*>(x + base);
       P* o_v = reinterpret_cast<P*>(out + base);
       for (int v0 = 0; v0 * THREADS < nvec; v0 += BATCH) {
         P xv[BATCH];
-        if (MODE != MODE_PROJECT) {
 #pragma unroll
-          for (int v = 0; v < BATCH; ++v) {
-            const int idx = tid + (v0 + v) * THREADS;
-            if (idx < nvec) xv[v] = x_v[idx];
-          }
+        for (int v = 0; v < BATCH; ++v) {
+          const int idx = tid + (v0 + v) * THREADS;
+          if (idx < nvec) xv[v] = x_v[idx];
         }
 #pragma unroll
         for (int v = 0; v < BATCH; ++v) {
           const int idx = tid + (v0 + v) * THREADS;
           if (idx < nvec) {
             P w = reinterpret_cast<const P*>(a_s)[idx];
-            if (MODE != MODE_PROJECT) {
 #pragma unroll
-              for (int c = 0; c < N; ++c) w.v[c] = xv[v].v[c] + w.v[c];
-            }
+            for (int c = 0; c < N; ++c) w.v[c] = xv[v].v[c] + w.v[c];
             o_v[idx] = w;
           }
         }
@@ -364,9 +402,7 @@ gbatc_tile_kernel(const T* __restrict__ a,       // project: residual; else coef
     } else {
       for (int i = tid; i < n_el; i += THREADS) {
         const int row = i / d, col = i - row * d;
-        T v = a_s[row * ld + col];
-        if (MODE != MODE_PROJECT) v = x[base + i] + v;
-        out[base + i] = v;
+        out[base + i] = x[base + i] + a_s[row * ld + col];
       }
     }
   }
@@ -387,12 +423,42 @@ __device__ __forceinline__ void cp_async8(void* dst, const void* src) {
                    smem_u32(dst)),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// one bulk copy (the TMA engine) of `bytes` contiguous bytes to shared
+// memory, reported to the mbarrier `bar` as transaction bytes
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar)));
+}
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
+      "[%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
+      "r"(smem_u32(bar)) : "memory");
+}
+// wait for the phase of `bar` with this parity to complete
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n.reg .pred p;\nWAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
 // c += a . b over one m16n8k8 step in fp64. Per lane (g = lane / 4,
@@ -535,6 +601,209 @@ project_f64_dmma(const double* __restrict__ r, const double* __restrict__ basis,
   cp_async_wait<0>();
 }
 
+// ---- fp32 projection on the tensor cores: 3xTF32 -------------------------
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+// x = hi + lo to about 2^-22 of x, both tf32
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// c += a . b over one m16n8k8 step, tf32 operands, fp32 accumulate; the
+// fragments are laid out as dmma's
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// padded shared row length of an A tile: D rounded up to the k pair of 16,
+// and 16 mod 32 floats, so the two rows a quarter warp loads at once (16
+// bytes a lane) fall on distinct banks
+inline int tf32_ld(int d) {
+  const int ld = (d + 15) / 16 * 16;
+  return ld % 32 == 16 ? ld : ld + 16;
+}
+
+// A k pair covers 16 k as two m16n8k8 steps. Lane (g, q) loads A[row][16 p
+// + 4 q .. + 3] of rows g and g + 8 as one 16-byte load each: the first
+// step takes k = 16 p + 4 q (its fragment's k = q) and 16 p + 4 q + 1 (k =
+// q + 4), the second 16 p + 4 q + 2 and + 3. B is stored in the same order.
+template <int NFW, int TM, int STAGES>
+__global__ void __launch_bounds__(TM / 16 * 64, TM == 64 ? 2 : 1)
+project_f32_3xtf32(const float* __restrict__ r, const float* __restrict__ basis,
+                   float* __restrict__ out, int s_count, long long nb, int d,
+                   int ld, int vec) {
+  constexpr int WM = TM / 16;         // 16-row warp groups in a tile
+  constexpr int THREADS_T = WM * 64;  // two warps (column halves) a group
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int kp_n = (d + 15) / 16;  // k pairs
+  const int nf_n = (d + 7) / 8;    // n fragments of 8
+  // the basis split into tf32 hi and lo parts, in fragment order: slot
+  // ((p * nf_n + f) * 2 + part) * 32 + lane holds B[16 p + 4 q + 0..3][8 f
+  // + g], so each B load is one conflict-free 16-byte load a lane
+  uint4* b_s = reinterpret_cast<uint4*>(smem_raw);
+  float* a_s = reinterpret_cast<float*>(b_s + kp_n * nf_n * 64);  // (STAGES, TM, ld)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(a_s + STAGES * TM * ld);  // bulk
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, q = lane & 3;
+  const int nf_w = min(NFW, nf_n - wn * NFW);  // this warp's n fragments
+  const long long tps = (nb + TM - 1) / TM;    // tiles a species
+  const long long total = tps * s_count;
+  const long long t_begin = total * blockIdx.x / gridDim.x;
+  const long long t_end = total * (blockIdx.x + 1) / gridDim.x;
+
+  // pad columns d .. ld-1 add exactly 0 (B's pad rows are zero too)
+  const int pad = ld - d;
+  for (int i = tid; i < STAGES * TM * pad; i += THREADS_T)
+    a_s[(i / pad) * ld + d + i % pad] = 0.f;
+
+  // vec == 2 (ld == d): a tile is one contiguous block in both memories
+  // and thread 0 moves it with one bulk copy; otherwise a thread copies
+  // the chunks (row, k) of a tile from (row_first, k_first) on, a fixed
+  // step apart: the same chunks every tile
+  if (vec == 2 && tid == 0) {
+    for (int st = 0; st < STAGES; ++st) mbar_init(bars + st);
+    fence_proxy_async();
+  }
+  __syncthreads();
+  const int w = vec ? 4 : 1;  // floats a chunk
+  const int qc = d / w;       // chunks a row
+  const int row_first = tid / qc, k_first = tid - row_first * qc;
+  const int row_step = THREADS_T / qc, k_step = THREADS_T - row_step * qc;
+  auto issue = [&](long long t, int buf) {
+    const long long s = t / tps, row0 = (t - s * tps) * TM;
+    const int rows = (int)min((long long)TM, nb - row0);
+    const float* src = r + ((size_t)s * nb + row0) * d;
+    float* dst = a_s + buf * TM * ld;
+    if (vec == 2) {
+      if (tid == 0) {
+        fence_proxy_async();  // the buffer's last reads come before the copy
+        bulk_copy(dst, src, rows * d * (int)sizeof(float), bars + buf);
+      }
+      return;
+    }
+    for (int row = row_first, k = k_first; row < rows;) {
+      if (vec) cp_async16(dst + row * ld + k * 4, src + (size_t)row * d + k * 4);
+      else cp_async4(dst + row * ld + k, src + (size_t)row * d + k);
+      row += row_step;
+      k += k_step;
+      if (k >= qc) k -= qc, ++row;
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (t_begin + st < t_end) issue(t_begin + st, st);
+    cp_async_commit();
+  }
+
+  long long cur_s = -1;
+  for (long long t = t_begin; t < t_end; ++t) {
+    const int i = (int)(t - t_begin);
+    if (vec == 2) mbar_wait(bars + i % STAGES, (i / STAGES) & 1);  // tile t landed
+    else cp_async_wait<STAGES - 2>();  // tile t landed (this thread's copies)
+    __syncthreads();                   // ... everyone's; tile t-1 is done with
+    if (t + STAGES - 1 < t_end)
+      issue(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+
+    const long long s = t / tps;
+    if (s != cur_s) {  // the range crossed into a new species: split its basis
+      const float* u = basis + (size_t)s * d * d;
+      for (int idx = tid; idx < kp_n * nf_n * 32; idx += THREADS_T) {
+        const int ln = idx & 31, pf = idx >> 5;
+        const int k0 = (pf / nf_n) * 16 + (ln & 3) * 4;
+        const int n = (pf % nf_n) * 8 + (ln >> 2);
+        uint32_t hi[4], lo[4];
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int k = k0 + m;
+          split_tf32((k < d && n < d) ? u[k * d + n] : 0.f, hi[m], lo[m]);
+        }
+        b_s[pf * 64 + ln] = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        b_s[pf * 64 + 32 + ln] = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+      }
+      __syncthreads();
+      cur_s = s;
+    }
+    if (nf_w <= 0) continue;  // warp-uniform: D too small for this half
+
+    const long long row0 = (t - s * tps) * TM;
+    const int rows = (int)min((long long)TM, nb - row0);
+    const float* a0 = a_s + (i % STAGES) * TM * ld + (wm * 16 + g) * ld + 4 * q;
+    const uint4* bp = b_s + wn * NFW * 64 + lane;
+    // a_hi . b_hi into acc; a_lo . b_hi and a_hi . b_lo into cor, added once
+    // after the k loop (a_lo . b_lo, about 2^-22 of a product, is dropped)
+    float acc[NFW][4], cor[NFW][4];
+#pragma unroll
+    for (int j = 0; j < NFW; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] = cor[j][e] = 0.f;
+    for (int p = 0; p < kp_n; ++p) {
+      const float4 x0 = *reinterpret_cast<const float4*>(a0 + p * 16);
+      const float4 x1 = *reinterpret_cast<const float4*>(a0 + 8 * ld + p * 16);
+      uint32_t ah[2][4], al[2][4];
+      split_tf32(x0.x, ah[0][0], al[0][0]);
+      split_tf32(x1.x, ah[0][1], al[0][1]);
+      split_tf32(x0.y, ah[0][2], al[0][2]);
+      split_tf32(x1.y, ah[0][3], al[0][3]);
+      split_tf32(x0.z, ah[1][0], al[1][0]);
+      split_tf32(x1.z, ah[1][1], al[1][1]);
+      split_tf32(x0.w, ah[1][2], al[1][2]);
+      split_tf32(x1.w, ah[1][3], al[1][3]);
+      const uint4* bk = bp + p * nf_n * 64;
+      // a product's MMAs for all n fragments back to back: no MMA waits on
+      // the one before it
+      uint4 bh[NFW], bl[NFW];
+#pragma unroll
+      for (int j = 0; j < NFW; ++j)
+        if (j < nf_w) bh[j] = bk[j * 64], bl[j] = bk[j * 64 + 32];
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) if (j < nf_w) mma_tf32(cor[j], al[0], bh[j].x, bh[j].y);
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) if (j < nf_w) mma_tf32(acc[j], ah[0], bh[j].x, bh[j].y);
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) if (j < nf_w) mma_tf32(cor[j], ah[0], bl[j].x, bl[j].y);
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) if (j < nf_w) mma_tf32(acc[j], ah[1], bh[j].z, bh[j].w);
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) if (j < nf_w) mma_tf32(cor[j], al[1], bh[j].z, bh[j].w);
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) if (j < nf_w) mma_tf32(cor[j], ah[1], bl[j].z, bl[j].w);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 16 + h * 8 + g;
+      if (row >= rows) continue;
+      float* o = out + ((size_t)s * nb + row0 + row) * d;
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) {
+        const int col = (wn * NFW + j) * 8 + 2 * q;
+        if (j >= nf_w || col >= d) continue;
+        const float y0 = acc[j][2 * h] + cor[j][2 * h];
+        const float y1 = acc[j][2 * h + 1] + cor[j][2 * h + 1];
+        if (vec) {
+          *reinterpret_cast<float2*>(o + col) = make_float2(y0, y1);
+        } else {
+          o[col] = y0;
+          if (col + 1 < d) o[col + 1] = y1;
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 // ---- fp32 correct and select: persistent cp.async ring, FFMA register tile
 
 constexpr int RING_RM = 4;                  // rows a thread
@@ -542,11 +811,6 @@ constexpr int RING_NRY = 16;                // row lanes: rows ry + 16 i
 constexpr int RING_TM = RING_RM * RING_NRY;  // 64-row tiles
 constexpr int RING_STAGES = 2;              // tiles of c in the ring
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
 
 __device__ __forceinline__ void ld4(const float* p, float (&v)[4]) {
   const float4 t = *reinterpret_cast<const float4*>(p);
@@ -886,6 +1150,45 @@ int launch_project_f64(const double* r, const double* u, double* c, int s,
   return launch_dmma<8, 32, 3>(r, u, c, s, nb, d, stream);
 }
 
+template <int NFW, int TM, int STAGES>
+int launch_3xtf32(const float* r, const float* u, float* c, int s, long long nb,
+                  int d, void* stream) {
+  constexpr int threads = TM / 16 * 64;
+  const int ld = tf32_ld(d);
+  const size_t smem = (size_t)((d + 15) / 16) * ((d + 7) / 8) * 64 * 16 +
+                      (size_t)STAGES * TM * ld * sizeof(float) +
+                      STAGES * sizeof(uint64_t);
+  auto kernel = project_f32_3xtf32<NFW, TM, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)s * ((nb + TM - 1) / TM);
+  const long long slots = (long long)sms * per_sm;
+  const long long grid = tiles < slots ? tiles : slots;
+  int vec = d % 4 == 0 && aligned16(r) && aligned16(c);
+  if (vec && ld == d) vec = 2;  // tiles are contiguous in shared memory too
+  kernel<<<(unsigned)grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, u, c, s, nb, d, ld, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_project_f32(const float* r, const float* u, float* c, int s,
+                       long long nb, int d, int tiles_per_cta, void* stream) {
+  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+    return (int)cudaErrorInvalidValue;
+  if (s == 0 || nb == 0) return (int)cudaSuccess;
+  if (d <= 80) return launch_3xtf32<5, 64, 2>(r, u, c, s, nb, d, stream);
+  return launch_3xtf32<8, 32, 3>(r, u, c, s, nb, d, stream);
+}
+
 template <typename T, int MODE, int CMAX>
 int launch_as(const T* a, const T* basis, const T* x, const int* rank,
               const int* m, const T* mk, T* out, int s, long long nb, int d,
@@ -932,8 +1235,9 @@ const char* gbatc_error_string(int code) {
 int gbatc_project_batched_f32(const float* r, const float* u, float* c, int s,
                               long long nb, int d, int tiles_per_cta,
                               void* stream) {
-  return launch<float, MODE_PROJECT>(r, u, nullptr, nullptr, nullptr, nullptr,
-                                     c, s, nb, d, tiles_per_cta, stream);
+  // persistent 3xTF32 kernel, as the fp64 projection: tiles_per_cta is only
+  // checked
+  return launch_project_f32(r, u, c, s, nb, d, tiles_per_cta, stream);
 }
 int gbatc_project_batched_f64(const double* r, const double* u, double* c,
                               int s, long long nb, int d, int tiles_per_cta,

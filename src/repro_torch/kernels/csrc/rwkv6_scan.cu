@@ -16,29 +16,63 @@
 // What is ported is the function. The TPU kernel's chunked matrix form
 // (pairwise exponentials of cumulative log-decays, so the MXU does the
 // work) is a TPU adaptation and is not carried over: here the state is
-// walked one step at a time in fp32, as the recurrence is written.
+// walked in fp32, two steps at a time, as the recurrence is written.
 //
-// Bound on this card: at RWKV-6 7B's shapes the bytes (r, k, v, w read
-// once, out written once) and the ~5 N^2 flops per token and head take
-// about the same time, so neither may be wasted. Design: one CTA per (b,
-// h) of NP >= N threads (16, 32 or 64); thread j holds column j of S in
-// registers for the whole sequence. Runs of RUN steps of r, k and w are
-// staged in shared memory (thread j loads element j of each, so every
-// warp-wide load is contiguous; thread j keeps its own v_t[j] in
-// registers); the loads of the next run are in flight while the current
-// run is walked, and the out_t[j] sum is split over four partial sums so
-// its chain does not serialise the step. Nothing is padded in device
-// memory: threads j >= N stage zeros, and a ragged last run is bounded.
-// Launchers return the cudaError_t of the launch.
+// Bound on this card: at RWKV-6 7B's shapes (8, 1024, 64, 64) the bytes (r,
+// k, v, w read once, out written once) take 0.205 ms at 3.35 TB/s, and the
+// arithmetic about as long: written step by step, every (i, j, t) costs a
+// multiply (k_i v_j) and two FMAs (the output sum, the state update), 6.4
+// G instructions a call. One CTA per (b, h) gives only 512 CTAs, so the
+// card holds few warps and the kernel is held by how fully they issue.
+// Design:
+//
+// * The bonus term is factored out: sum_i r_i u_i k_i v_j = v_j b_t with
+//   b_t = sum_i r_t[i] u[i] k_t[i], one scalar a step, computed once while
+//   the run is prepared; u is not read in the inner loop.
+// * Steps go in pairs (t, t+1) from the state S before t:
+//     out_t    = sum_i r0_i S_ij + v0_j b0
+//     out_t+1  = sum_i (r1_i w0_i) S_ij + v0_j c + v1_j b1
+//     S_ij    <- (w0_i w1_i) S_ij + (w1_i k0_i) v0_j + k1_i v1_j
+//   with c = sum_i r1_i k0_i. The per-row products r1 w0, w1 k0 and w0 w1
+//   and the scalars b0, c, b1 are made once a pair while the run is
+//   prepared, so the inner loop costs five FP instructions an element a
+//   pair (2.5 a step, against 3 stepwise) and five 16-byte shared loads a
+//   4-row chunk a pair (against six). Every product is of decays in [1e-37,
+//   1], so nothing overflows; what underflows is below the result's ulp.
+// * Rows are split over lanes: the G = 4 lanes of a column group (lanes
+//   gi * 8 + c of a warp) each hold N / 4 rows of CPL = 2 adjacent columns
+//   of S in registers (32 a lane at N = 64), so one CTA of 128 threads
+//   serves a (b, h) and the card holds about 16 warps an SM, twice as many
+//   as with a column a thread. The partial sums of an output are added
+//   with two __shfl_xor_sync. A lane's rows are 4-row chunks gi, gi + 4,
+//   ... so the four 16-byte shared loads a warp makes at once fall on
+//   distinct banks, and each load feeds both columns.
+// * Runs of RUN = 16 steps of r, k, w and v stream through a ring of three
+//   shared buffers filled with cp.async (16-byte copies where N and the
+//   pointers allow, 4-byte ones otherwise; bf16 rows that allow neither
+//   are loaded plainly). One barrier a run: after it, run n + 2 is issued
+//   into the buffer run n - 1 left, the warps prepare run n + 1 (w clamped,
+//   bf16 converted to fp32, the pair products and scalars, a pair a warp),
+//   and run n is walked. A ragged last run is bounded (its missing step is
+//   w = 1, r = k = v = 0); nothing is padded in device memory (rows j >= N
+//   are zero in shared memory only).
+// * The state stays fp32 for bf16 inputs; s0 = nullptr means zero.
+//   Launchers return the cudaError_t of the launch.
 
 #include <climits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int RUN = 8;  // steps staged per round
 constexpr int MAX_N = 64;
+constexpr int G = 4;       // lanes sharing a column group (rows split)
+constexpr int CPL = 2;     // adjacent columns a lane holds
+constexpr int CW = 32 / G;  // column groups a warp
+constexpr int RUN = 16;    // steps a run
+constexpr int STAGES = 3;  // runs in the ring
+constexpr int NARR = 4;    // r, k, w, v
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -48,109 +82,289 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
-
-// element j of r, k, v, w for `steps` steps from `off` (zero past them)
-template <typename T>
-__device__ __forceinline__ void load_run(
-    const T* __restrict__ r, const T* __restrict__ k, const T* __restrict__ v,
-    const T* __restrict__ w, size_t off, size_t stride, int steps,
-    float (&rr)[RUN], float (&kk)[RUN], float (&vv)[RUN], float (&ww)[RUN]) {
-#pragma unroll
-  for (int c = 0; c < RUN; ++c) {
-    const bool in = c < steps;
-    const size_t o = off + c * stride;
-    rr[c] = in ? to_f(r[o]) : 0.0f;
-    kk[c] = in ? to_f(k[o]) : 0.0f;
-    vv[c] = in ? to_f(v[o]) : 0.0f;
-    ww[c] = in ? to_f(w[o]) : 0.0f;
-  }
+__device__ __forceinline__ float clamp_w(float w) {
+  return fminf(fmaxf(w, 1e-37f), 1.0f);
 }
 
-// one row i of one step for column j
-__device__ __forceinline__ void row(float r, float k, float w, float u,
-                                    float vj, float& s, float& acc) {
-  const float kv = k * vj;
-  acc = fmaf(r, fmaf(u, kv, s), acc);
-  s = fmaf(w, s, kv);
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2 or 4 consecutive staged floats (16-byte aligned for 4), one load
+__device__ __forceinline__ void load_cols(const float* p, float (&x)[2]) {
+  const float2 t = *reinterpret_cast<const float2*>(p);
+  x[0] = t.x, x[1] = t.y;
+}
+__device__ __forceinline__ void load_cols(const float* p, float (&x)[4]) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  x[0] = t.x, x[1] = t.y, x[2] = t.z, x[3] = t.w;
+}
+
+template <int NP>
+__host__ __device__ constexpr int threads_of() {
+  return NP / CPL * G;
+}
+
+// shared memory: fp32 runs (STAGES, NARR, RUN, NP), the scalars of each
+// step pair (2, RUN / 2, 4), and for
+// bf16 the raw runs the copies land in (STAGES, NARR, RUN, NP)
+template <typename T, int NP>
+constexpr size_t smem_of() {
+  return (size_t)STAGES * NARR * RUN * NP * sizeof(float) +
+         4 * RUN * sizeof(float) +
+         (sizeof(T) == 4 ? 0 : (size_t)STAGES * NARR * RUN * NP * sizeof(T));
 }
 
 template <typename T, int NP>
-__global__ void __launch_bounds__(NP)
+__global__ void __launch_bounds__(NP / CPL * G, NP == 64 ? 4 : 1)
 rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ w,
              const T* __restrict__ u, const float* __restrict__ s0,
              T* __restrict__ out, float* __restrict__ s_last, int t_len,
-             int h_len, int n) {
-  __shared__ __align__(16) float r_s[RUN][NP];
-  __shared__ __align__(16) float k_s[RUN][NP];
-  __shared__ __align__(16) float w_s[RUN][NP];
-  __shared__ __align__(16) float u_s[NP];
+             int h_len, int n, int vec) {
+  constexpr int THREADS = threads_of<NP>();
+  constexpr int WARPS = THREADS / 32 > 0 ? THREADS / 32 : 1;
+  constexpr int RPL = NP / G;          // rows a lane
+  constexpr int UQ = (NP + 31) / 32;   // u values a lane (b_t)
+  constexpr int ARR = RUN * NP;        // one array of one run
+  constexpr bool F32 = sizeof(T) == 4;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* fb = reinterpret_cast<float*>(smem_raw);  // (STAGES, NARR, RUN, NP)
+  float* b_s = fb + STAGES * NARR * ARR;            // (2, RUN / 2, 4)
+  T* raw = F32 ? reinterpret_cast<T*>(fb) : reinterpret_cast<T*>(b_s + 4 * RUN);
 
-  const int j = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gi = lane / CW;                    // row group
+  const int j0 = (warp * CW + lane % CW) * CPL;  // first of this lane's columns
   const long long bh = blockIdx.x;
   const int hi = (int)(bh % h_len);
   const long long bi = bh / h_len;
-  const bool live = j < n;
-  u_s[j] = live ? to_f(u[(size_t)hi * n + j]) : 0.0f;
-
   const size_t nn = (size_t)n * n;
-  float S[NP];  // S[i] is S[i, j]
-#pragma unroll
-  for (int i = 0; i < NP; ++i)
-    S[i] = (s0 != nullptr && live && i < n) ? s0[bh * nn + (size_t)i * n + j]
-                                            : 0.0f;
-
   const size_t stride = (size_t)h_len * n;  // from step t to step t + 1
-  const size_t off0 = (size_t)bi * t_len * stride + (size_t)hi * n + j;
-  float pr[RUN], pk[RUN], pv[RUN], pw[RUN];
-  load_run(r, k, v, w, off0, stride, live ? min(t_len, RUN) : 0, pr, pk, pv,
-           pw);
+  const size_t off0 = (size_t)bi * t_len * stride + (size_t)hi * n;
+  const int nruns = (t_len + RUN - 1) / RUN;
 
-  for (int t0 = 0; t0 < t_len; t0 += RUN) {
-    __syncthreads();  // every thread is done with the previous run
-    float vv[RUN];
+  // row of chunk position q, element e of this lane
+  auto row_of = [&](int q, int e) { return (q * G + gi) * 4 + e; };
+
+  float S[CPL][RPL];
 #pragma unroll
-    for (int c = 0; c < RUN; ++c) {
-      r_s[c][j] = pr[c];
-      k_s[c][j] = pk[c];
-      w_s[c][j] = fminf(fmaxf(pw[c], 1e-37f), 1.0f);
-      vv[c] = pv[c];
-    }
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int q = 0; q < RPL / 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row_of(q, e), j = j0 + c;
+        S[c][q * 4 + e] = (s0 != nullptr && i < n && j < n)
+                              ? s0[bh * nn + (size_t)i * n + j] : 0.0f;
+      }
+  float ub[UQ];
+#pragma unroll
+  for (int q = 0; q < UQ; ++q) {
+    const int i = lane + 32 * q;
+    ub[q] = i < n ? to_f(u[(size_t)hi * n + i]) : 0.0f;
+  }
+
+  // rows n .. NP-1 of every run are zero (the copies never write them)
+  if (F32 && n < NP) {
+    for (int x = tid; x < STAGES * NARR * ARR; x += THREADS) fb[x] = 0.0f;
     __syncthreads();
-    const int steps = min(RUN, t_len - t0);
-    const int next = t_len - t0 - RUN;
-    if (next > 0)
-      load_run(r, k, v, w, off0 + (size_t)(t0 + RUN) * stride, stride,
-               live ? min(next, RUN) : 0, pr, pk, pv, pw);
+  }
 
+  // copies of run `run` into stage st: the chunk (array a, step c, chunk
+  // ch of the step's row) of flat index tid, then every THREADS-th, found
+  // by stepping (the divisions are made once a run)
+  auto issue = [&](int run, int st) {
+    const int t0 = run * RUN, steps = min(RUN, t_len - t0);
+    if (steps <= 0) return;
+    T* dst = raw + (size_t)st * NARR * ARR;
+    const int per = vec ? 16 / (int)sizeof(T) : 1;  // elements a copy
+    const int q = n / per;                          // copies a step row
+    int a = tid / (steps * q);
+    int c = (tid - a * steps * q) / q;
+    int ch = tid - (a * steps + c) * q;
+    const int dc = THREADS / q, dch = THREADS - dc * q;
+    while (a < NARR) {
+      const T* src = (a == 0 ? r : a == 1 ? k : a == 2 ? w : v) + off0 +
+                     (size_t)(t0 + c) * stride + ch * per;
+      T* d = dst + a * ARR + c * NP + ch * per;
+      if (vec) cp_async16(d, src);  // n * sizeof(T) % 16 == 0, aligned
+      else if (F32) cp_async4(d, src);
+      else *d = *src;
+      ch += dch;
+      c += dc;
+      if (ch >= q) ch -= q, ++c;
+      while (c >= steps) c -= steps, ++a;
+    }
+  };
+
+  // run `run` in stage st, once it is whole in shared memory, prepared for
+  // the step-pair form (a pair a warp): for the pair (t, t+1) = (c0, c1),
+  // w clamped and bf16 converted, then in place r[c1] = r1 w0, k[c0] = w1
+  // k0, w[c0] = w0 w1, and the scalars b0 = sum r0 u k0, c = sum r1 k0, b1
+  // = sum r1 u k1. A ragged run's missing last step is w = 1, r = k = v = 0.
+  auto prep = [&](int run, int st) {
+    const int steps = min(RUN, t_len - run * RUN);
+    float* f = fb + (size_t)st * NARR * ARR;
+    const T* rw = raw + (size_t)st * NARR * ARR;
+    for (int pr = warp; 2 * pr < steps; pr += WARPS) {
+      const int c0 = 2 * pr, c1 = c0 + 1;
+      const bool has1 = c1 < steps;
+      float b0 = 0.0f, b1 = 0.0f, cr = 0.0f;
 #pragma unroll
-    for (int c = 0; c < RUN; ++c) {
-      if (c < steps) {
-        const float vj = vv[c];
-        float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc3 = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NP; i += 4) {
-          const float4 rq = *reinterpret_cast<const float4*>(&r_s[c][i]);
-          const float4 kq = *reinterpret_cast<const float4*>(&k_s[c][i]);
-          const float4 wq = *reinterpret_cast<const float4*>(&w_s[c][i]);
-          const float4 uq = *reinterpret_cast<const float4*>(&u_s[i]);
-          row(rq.x, kq.x, wq.x, uq.x, vj, S[i], acc0);
-          row(rq.y, kq.y, wq.y, uq.y, vj, S[i + 1], acc1);
-          row(rq.z, kq.z, wq.z, uq.z, vj, S[i + 2], acc2);
-          row(rq.w, kq.w, wq.w, uq.w, vj, S[i + 3], acc3);
+      for (int q = 0; q < UQ; ++q) {
+        const int i = lane + 32 * q;
+        if (i < NP) {
+          const int o0 = c0 * NP + i, o1 = c1 * NP + i;
+          const bool in0 = F32 || i < n, in1 = has1 && (F32 || i < n);
+          const float r0 = in0 ? (F32 ? f[o0] : to_f(rw[o0])) : 0.0f;
+          const float k0 = in0 ? (F32 ? f[ARR + o0] : to_f(rw[ARR + o0])) : 0.0f;
+          const float w0 = clamp_w(in0 ? (F32 ? f[2 * ARR + o0] : to_f(rw[2 * ARR + o0])) : 0.0f);
+          const float r1 = in1 ? (F32 ? f[o1] : to_f(rw[o1])) : 0.0f;
+          const float k1 = in1 ? (F32 ? f[ARR + o1] : to_f(rw[ARR + o1])) : 0.0f;
+          const float w1 = has1 ? clamp_w(in1 ? (F32 ? f[2 * ARR + o1] : to_f(rw[2 * ARR + o1])) : 0.0f) : 1.0f;
+          b0 = fmaf(r0 * ub[q], k0, b0);
+          b1 = fmaf(r1 * ub[q], k1, b1);
+          cr = fmaf(r1, k0, cr);
+          f[o0] = r0;
+          f[o1] = r1 * w0;
+          f[ARR + o0] = w1 * k0;
+          f[ARR + o1] = k1;
+          f[2 * ARR + o0] = w0 * w1;
+          if (!F32) f[3 * ARR + o0] = i < n ? to_f(rw[3 * ARR + o0]) : 0.0f;
+          if (!F32 || !has1) f[3 * ARR + o1] = in1 ? to_f(rw[3 * ARR + o1]) : 0.0f;
         }
-        if (live)
-          store(out + off0 + (size_t)(t0 + c) * stride,
-                (acc0 + acc1) + (acc2 + acc3));
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) {
+        b0 += __shfl_xor_sync(0xffffffffu, b0, m);
+        cr += __shfl_xor_sync(0xffffffffu, cr, m);
+        b1 += __shfl_xor_sync(0xffffffffu, b1, m);
+      }
+      if (lane == 0)
+        reinterpret_cast<float4*>(b_s)[(run & 1) * (RUN / 2) + pr] =
+            make_float4(b0, cr, b1, 0.0f);
+    }
+  };
+
+  issue(0, 0);
+  cp_async_commit();
+  if (nruns > 1) issue(1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();  // run 0 (this thread's copies)
+  __syncthreads();
+  if (nruns > 0) prep(0, 0);
+
+  for (int run = 0; run < nruns; ++run) {
+    cp_async_wait<0>();  // run + 1 (this thread's copies)
+    __syncthreads();     // run + 1 whole; run prepared; run - 1 walked
+    if (run + 2 < nruns) issue(run + 2, (run + 2) % STAGES);
+    cp_async_commit();
+    if (run + 1 < nruns) prep(run + 1, (run + 1) % STAGES);
+
+    const int t0 = run * RUN, steps = min(RUN, t_len - t0);
+    const float* base = fb + (size_t)(run % STAGES) * NARR * ARR;
+    const float4* bs = reinterpret_cast<const float4*>(b_s) + (run & 1) * (RUN / 2);
+    // a pair of steps: out_t = sum_i r0 S + v0 b0, out_t+1 = sum_i (r1 w0) S
+    // + v0 c + v1 b1, S = (w0 w1) S + (w1 k0) v0 + k1 v1: five FP
+    // instructions an element a pair
+#pragma unroll 2
+    for (int c0 = 0; c0 < steps; c0 += 2) {
+      const float* rs = base + c0 * NP;  // step c0; step c1 is NP further
+      float v0[CPL], v1[CPL];
+      load_cols(rs + 3 * ARR + j0, v0);
+      load_cols(rs + 3 * ARR + NP + j0, v1);
+      float a0[CPL][2], a1[CPL][2];
+#pragma unroll
+      for (int cc = 0; cc < CPL; ++cc) a0[cc][0] = a0[cc][1] = a1[cc][0] = a1[cc][1] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < RPL / 4; ++q) {
+        const int i0 = row_of(q, 0);
+        float r0[4], r1w0[4], w1k0[4], k1[4], w01[4];
+        load_cols(rs + i0, r0);
+        load_cols(rs + NP + i0, r1w0);
+        load_cols(rs + ARR + i0, w1k0);
+        load_cols(rs + ARR + NP + i0, k1);
+        load_cols(rs + 2 * ARR + i0, w01);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int cc = 0; cc < CPL; ++cc) {
+            float& x = S[cc][q * 4 + e];
+            a0[cc][e & 1] = fmaf(r0[e], x, a0[cc][e & 1]);
+            a1[cc][e & 1] = fmaf(r1w0[e], x, a1[cc][e & 1]);
+            const float kv = fmaf(w1k0[e], v0[cc], k1[e] * v1[cc]);
+            x = fmaf(w01[e], x, kv);
+          }
+      }
+      const float4 bc = bs[c0 / 2];  // b0, c, b1
+      const size_t o = off0 + (size_t)(t0 + c0) * stride + j0;
+      const bool has1 = c0 + 1 < steps;
+#pragma unroll
+      for (int cc = 0; cc < CPL; ++cc) {
+        float y0 = a0[cc][0] + a0[cc][1], y1 = a1[cc][0] + a1[cc][1];
+#pragma unroll
+        for (int m = CW; m < 32; m <<= 1) {
+          y0 += __shfl_xor_sync(0xffffffffu, y0, m);
+          y1 += __shfl_xor_sync(0xffffffffu, y1, m);
+        }
+        y0 = fmaf(v0[cc], bc.x, y0);
+        y1 = fmaf(v1[cc], bc.z, fmaf(v0[cc], bc.y, y1));
+        if (cc % G == gi && j0 + cc < n) {
+          store(out + o + cc, y0);
+          if (has1) store(out + o + stride + cc, y1);
+        }
       }
     }
   }
+  cp_async_wait<0>();
 
-  if (live) {
 #pragma unroll
-    for (int i = 0; i < NP; ++i)
-      if (i < n) s_last[bh * nn + (size_t)i * n + j] = S[i];
-  }
+  for (int c = 0; c < CPL; ++c)
+#pragma unroll
+    for (int q = 0; q < RPL / 4; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = row_of(q, e), j = j0 + c;
+        if (i < n && j < n) s_last[bh * nn + (size_t)i * n + j] = S[c][q * 4 + e];
+      }
+}
+
+inline bool aligned16(const void* p) {
+  return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <typename T, int NP>
+int launch_np(const T* r, const T* k, const T* v, const T* w, const T* u,
+              const float* s0, T* out, float* s_last, unsigned grid,
+              int t_len, int h_len, int n, cudaStream_t s) {
+  constexpr size_t smem = smem_of<T, NP>();
+  auto kernel = rwkv6_kernel<T, NP>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int vec = (n * sizeof(T)) % 16 == 0 && aligned16(r) && aligned16(k) &&
+                  aligned16(v) && aligned16(w);
+  kernel<<<grid, threads_of<NP>(), smem, s>>>(r, k, v, w, u, s0, out, s_last,
+                                               t_len, h_len, n, vec);
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
@@ -165,15 +379,10 @@ int launch(const T* r, const T* k, const T* v, const T* w, const T* u,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned g = (unsigned)grid;
   if (n <= 16)
-    rwkv6_kernel<T, 16><<<g, 16, 0, s>>>(r, k, v, w, u, s0, out, s_last, t_len,
-                                          h_len, n);
-  else if (n <= 32)
-    rwkv6_kernel<T, 32><<<g, 32, 0, s>>>(r, k, v, w, u, s0, out, s_last, t_len,
-                                          h_len, n);
-  else
-    rwkv6_kernel<T, 64><<<g, 64, 0, s>>>(r, k, v, w, u, s0, out, s_last, t_len,
-                                          h_len, n);
-  return (int)cudaGetLastError();
+    return launch_np<T, 16>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
+  if (n <= 32)
+    return launch_np<T, 32>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
+  return launch_np<T, 64>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
 }
 
 }  // namespace

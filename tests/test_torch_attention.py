@@ -295,7 +295,14 @@ def test_reference_blob_decodes_in_port(reference_report, data):
     assert ContainerReader(blob)["meta"][:1] == bytes([2])
     field = t_codec.decompress(blob, device="cpu")
     assert field.shape == data.shape and field.dtype == np.float32
-    assert (_nrmse(data, field) <= BOUND * (1 + 1e-3)).all()
+    nrmse = _nrmse(data, field)
+    # the worst per-species excess over the bound (negative: none), shown
+    # with ``pytest -s``
+    print(f"attention, reference blob decoded by the port: max NRMSE "
+          f"{float(nrmse.max())!r}, excess over the target "
+          f"{nrmse.max() / BOUND - 1:+.3e}, largest change from the "
+          f"reference's own decode {np.abs(nrmse - rep.per_species_nrmse).max():.3e}")
+    assert (nrmse <= BOUND * (1 + 1e-3)).all()
     np.testing.assert_allclose(field, rep.recon, rtol=0,
                                atol=1e-4 * np.abs(rep.recon).max())
 

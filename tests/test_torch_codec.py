@@ -125,6 +125,12 @@ def test_reference_blob_decodes_in_port(reference_blob, data):
     field = t_codec.decompress(blob, device="cpu")
     assert field.shape == data.shape and field.dtype == np.float32
     nrmse = np.array([metrics.nrmse(data[s], field[s]) for s in range(S)])
+    # the worst per-species excess over the target (negative: none), shown
+    # with ``pytest -s``
+    print(f"conv, reference blob decoded by the port: max NRMSE "
+          f"{float(nrmse.max())!r}, excess over the target "
+          f"{nrmse.max() / TARGET - 1:+.3e}, largest change from the "
+          f"reference's own decode {np.abs(nrmse - rep.per_species_nrmse).max():.3e}")
     assert (nrmse <= TARGET * (1 + 1e-3)).all(), nrmse
     # and close to what the reference itself reconstructs from it
     np.testing.assert_allclose(field, rep.recon, rtol=0,
