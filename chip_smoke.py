@@ -16,7 +16,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    -sass``);
 3. ``kernels``  each kernel against its plain PyTorch version on the card at
    the main paths' shapes (GBATC: S=58, NB=20480, D=80; flash attention:
-   (4096, 2, 232, 16) fp32 non-causal) and at ragged and reference shapes,
+   (4096, 2, 232, 16) fp32 non-causal; the replay also at partial_path's
+   selective shapes) and at ragged and reference shapes,
    with its time, the plain version's, the one-call library yardstick's
    and the card's bound for the same work; the fp64 projection and flash
    attention also give the same bits twice and the same bits for a
@@ -48,7 +49,18 @@ Phases (each prints one JSON line; any failure exits non-zero):
    reference's sweeps and in bf16, and each for the same bits twice; the
    fp32 2D projection also for rows 100-5003 and the field's last rows,
    and rwkv6_scan for batch 0-1, as in the full call;
-7. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+7. ``partial_path``  on the blobs, artifact and decoded fields of the two
+   codec paths (no new fit): selective decodes of the conv blob
+   (``decompress(blob, species=..., time_range=...)``) bitwise against the
+   slice of its full decode, cold and warm, with their bytes parsed and
+   exactly one replay launch each; the conv artifact written at container
+   v1-v4 and read back bitwise, v1 in full, the staged
+   ``decompress_reference`` bitwise the fused decode; ``verify_blob`` over
+   a few hundred seeded bit flips (all must be detected), one corrupt
+   species and one corrupt latent shard raised in raise mode and
+   quarantined by salvage (bitwise elsewhere); one selective decode of the
+   attention blob through flash attention;
+8. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -82,6 +94,9 @@ FP64_REL_LIMIT = 1e-12  # max abs difference relative to the row's l2 norm
 # row ranges of the fp64 projection's sub-range checks: each starts inside
 # a 64-row tile, so its rows meet other tile and fragment positions
 PROJECT_SUBRANGES = [(100, 5003), (20417, 20480), (1, 2)]
+# the replay's shapes on partial_path's selective decodes: (species
+# selected, the window's block rows at 5120 a block group)
+PARTIAL_CORRECT_SHAPES = [(3, 10240), (1, 20480), (58, 5120), (1, 5120)]
 
 # flash attention: the attention family's shape per fused-decode chunk
 # (4096 blocks, 2 heads, 58 species x 4 frames = 232 tokens, head dim 16)
@@ -430,7 +445,8 @@ def phase_kernels(torch, launches: int) -> list[dict]:
     rows = []
     n = S * NB * D
 
-    def row(name, line, dtype, fn, plain, lib, rows_for_norm, nbytes, flops):
+    def row(name, line, dtype, fn, plain, lib, rows_for_norm, nbytes, flops,
+            **extra):
         got, want = fn(), plain()
         err = compare(torch, got, want, rows_for_norm, dtype)
         del got, want
@@ -440,7 +456,15 @@ def phase_kernels(torch, launches: int) -> list[dict]:
             str(dtype).split(".")[-1], (S, NB, D), nbytes, flops, launches,
             max(err, ragged_err[name, dtype]), ragged_shapes_checked=RAGGED,
             tolerance=("max abs diff <= 1e-12 x row l2 norm"
-                       if dtype == torch.float64 else "max abs diff <= 1e-5")))
+                       if dtype == torch.float64 else "max abs diff <= 1e-5"),
+            **extra))
+
+    for i, (s, nb) in enumerate(PARTIAL_CORRECT_SHAPES):
+        x, c, u, _, _ = make_inputs(torch, s, nb, D, torch.float32, 150 + i)
+        note("gbatc_correct_batched", torch.float32, compare(
+            torch, gk.gbatc_correct_batched(x, c, u),
+            kref.gbatc_correct_batched_ref(x, c, u), c, torch.float32))
+    del x, c, u
 
     x, c, u, rank, m = make_inputs(torch, S, NB, D, torch.float64, 1)
     same_twice(torch, "gbatc_project_batched (fp64)",
@@ -474,7 +498,8 @@ def phase_kernels(torch, launches: int) -> list[dict]:
         lambda: gk.gbatc_correct_batched(x, c, u),
         lambda: kref.gbatc_correct_batched_ref(x, c, u),
         lambda: torch.baddbmm(x, c, ut), c,
-        (3 * n + S * D * D) * 4, 2 * n * D)
+        (3 * n + S * D * D) * 4, 2 * n * D,
+        partial_shapes_checked=PARTIAL_CORRECT_SHAPES)
     del x, c, u, rank, m, ut
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "launches_timed": launches,
@@ -890,9 +915,10 @@ def generate(args):
 def drive(torch, data, cfg, args, name: str, widths: dict,
           ae_steps: int) -> tuple:
     """Fit + compress at 1e-3, decompress from the bytes, a second bound on
-    the same fit, with every gate of the path; returns (info, blob). Launch
-    counts are reset just before each of the three calls and read just
-    after it."""
+    the same fit, with every gate of the path; returns (info, blob,
+    artifact, field): the path line, the 1e-3 blob, its artifact and its
+    decoded field. Launch counts are reset just before each of the three
+    calls and read just after it."""
     import numpy as np
 
     from repro_torch import codec
@@ -990,7 +1016,7 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
         "peak_device_gb": peak_gb,
         "select_backends": backends,
     }
-    return info, blob
+    return info, blob, rep.artifact, field
 
 
 def select_backends_agree(pipe, name: str, bounds) -> dict:
@@ -1044,11 +1070,11 @@ def phase_main_path(torch, args, data) -> dict:
     cfg = PipelineConfig(latent=36, conv_channels=(32, 64), use_correction=True,
                          ae_steps=args.ae_steps, corr_steps=args.corr_steps,
                          seed=args.seed)
-    info, _ = drive(torch, data, cfg, args, "main_path", {
+    info, blob, artifact, field = drive(torch, data, cfg, args, "main_path", {
         "species": 58, "block": [4, 5, 4], "latent": 36,
         "conv_channels": [32, 64], "correction": [232, 464, 232]}, args.ae_steps)
     emit(info)
-    return info
+    return info, blob, artifact, field
 
 
 def phase_attention_path(torch, args, data) -> dict:
@@ -1058,7 +1084,7 @@ def phase_attention_path(torch, args, data) -> dict:
     cfg = PipelineConfig(family="attention", arch=(32, 2, 1, 64), latent=36,
                          use_correction=True, ae_steps=args.attn_ae_steps,
                          corr_steps=args.corr_steps, seed=args.seed)
-    info, blob = drive(torch, data, cfg, args, "attention_path", {
+    info, blob, _, field = drive(torch, data, cfg, args, "attention_path", {
         "species": 58, "block": [4, 5, 4], "latent": 36,
         "arch": {"d_model": 32, "n_heads": 2, "depth": 1, "mlp_hidden": 64},
         "tokens": 232, "head_dim": 16, "correction": [232, 464, 232]},
@@ -1072,13 +1098,293 @@ def phase_attention_path(torch, args, data) -> dict:
         fail("flash_attention was never launched during decompress")
     info["family_tag"] = tag
     emit(info)
+    return info, blob, field
+
+
+# partial_path: the conv blob's selections (species, frame window); None
+# is every species or every frame. Then PARTIAL_RANDOM seeded random pairs
+# of at most PARTIAL_RANDOM_SPECIES species, so that a cold decode's host
+# entropy work stays a fraction of a full decode's.
+PARTIAL_SELECTIONS = [([0, 29, 57], (4, 12)), (5, None), (-1, None),
+                      (None, (0, 4)), ([3], (13, 16))]
+PARTIAL_RANDOM, PARTIAL_RANDOM_SPECIES = 8, 8
+FLIPS_PER_REGION = 2  # seeded single-bit flips per region of the blob
+GBATC_KERNELS = ("gbatc_project_batched", "gbatc_select_accumulate",
+                 "gbatc_correct_batched", "gbatc_project", "gbatc_correct")
+
+
+def sliced(field, species, window):
+    """``field[species, t0:t1]`` as a selective decode returns it (an int
+    species squeezes the species axis)."""
+    import numpy as np
+
+    t0, t1 = window if window is not None else (0, field.shape[1])
+    if species is None:
+        out = field[:, t0:t1]
+    elif isinstance(species, int):
+        out = field[species, t0:t1]
+    else:
+        out = field[list(species)][:, t0:t1]
+    return np.ascontiguousarray(out)
+
+
+def counted(torch, fn) -> tuple:
+    """Run ``fn`` with the launch counts reset just before and read just
+    after; returns (result, seconds, counts)."""
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, all_counts()
+
+
+def raised(fn, what: str):
+    """The ContainerFormatError ``fn`` must raise; fails the run when it
+    returns instead (any other exception propagates and fails it too)."""
+    from repro_torch.core.container import ContainerFormatError
+
+    try:
+        fn()
+    except ContainerFormatError as e:
+        return e
+    fail(f"partial_path: {what} decoded without raising ContainerFormatError")
+
+
+def phase_partial_path(torch, conv: tuple, attention: tuple) -> dict:
+    """Selective decode, old container versions and integrity/salvage of
+    the port on the card, on the two codec paths' blobs (no new fit):
+    ``conv`` is (blob, artifact, field), ``attention`` (blob, field). Every
+    decode below runs with the launch counts reset just before it and read
+    just after; their sums per kernel go into each kernel row's
+    ``launches_by_path``."""
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.codec import format as wire
+    from repro_torch.codec import runtime
+    from repro_torch.core.container import ContainerReader, ContainerWriter
+    from repro_torch.testing.faults import FaultInjector, blob_regions
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_start = time.perf_counter()
+    blob, artifact, field = conv
+    s_all, t_all = field.shape[:2]
+    totals: dict = {}
+
+    def tally(part: str, counts: dict) -> None:
+        acc = totals.setdefault(part, dict.fromkeys(counts, 0))
+        for k, n in counts.items():
+            acc[k] += n
+
+    def one_replay(counts: dict, what: str, flash: bool = False) -> None:
+        """Exactly one replay launch, no other GBATC kernel; flash at least
+        once on an attention blob and never on a conv blob."""
+        others = {k: n for k, n in counts.items()
+                  if k not in ("gbatc_correct_batched", "flash_attention") and n}
+        if counts["gbatc_correct_batched"] != 1 or others or \
+                (counts["flash_attention"] >= 1) != flash:
+            fail(f"partial_path: {what} launched {counts}; expected one "
+                 f"gbatc_correct_batched{' and flash_attention' if flash else ''} "
+                 "and no other kernel")
+
+    def bitwise(got, want, what: str) -> None:
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                got.tobytes() != want.tobytes():
+            diff = (float(np.nanmax(np.abs(got - want)))
+                    if got.shape == want.shape else None)
+            fail(f"partial_path: {what} is not bitwise the full decode's slice "
+                 f"(got {got.dtype}{got.shape}, want {want.dtype}{want.shape}, "
+                 f"max abs {diff})")
+
+    # -- 1. selective decodes of the conv blob, cold then warm ------------
+    rng = np.random.default_rng(17)
+    selections = list(PARTIAL_SELECTIONS)
+    for _ in range(PARTIAL_RANDOM):
+        k = int(rng.integers(1, PARTIAL_RANDOM_SPECIES + 1))
+        sel = sorted(int(i) for i in rng.choice(s_all, size=k, replace=False))
+        t0 = int(rng.integers(0, t_all))
+        selections.append((sel, (t0, int(rng.integers(t0 + 1, t_all + 1)))))
+    pd = codec.PartialDecoder(blob)
+    decodes = []
+    for sel, win in selections:
+        want = sliced(field, sel, win)
+        codec.clear_decode_cache()
+        rec = {"species": sel, "time_range": win}
+        for mode in ("cold", "warm"):
+            out, secs, counts = counted(torch, lambda: codec.decompress(
+                blob, species=sel, time_range=win))
+            what = f"decompress(species={sel}, time_range={win}) {mode}"
+            bitwise(out, want, what)
+            one_replay(counts, what)
+            tally("selective", counts)
+            rec[f"{mode}_s"] = secs
+        rec["bytes_parsed"] = pd.bytes_parsed(sel, win)
+        rec["latent_bytes_parsed"] = pd.latent_bytes_parsed(win)
+        decodes.append(rec)
+    one_group = pd.latent_bytes_parsed((0, 4))
+    full_latent = pd.latent_bytes_parsed()
+    if not one_group < full_latent:
+        fail(f"partial_path: a one-block-group window parses {one_group} latent "
+             f"bytes, the full decode {full_latent}")
+    if pd.bytes_parsed() != len(blob):
+        fail("partial_path: bytes_parsed() of the full selection != len(blob)")
+
+    # -- row independence, measured: the window (4, 12) decoded at its own
+    # rows from 0 (each row in another place of the same launch shapes)
+    # against the full decode's rows; the selective path above runs the
+    # full decode's geometry and is gated bitwise, this is a diagnostic
+    head = runtime._cached_head(blob)
+    lat = runtime._latents32(head.latents.full(), head.latent_bin)
+    geom = head.cfg.geometry
+    per_group = (head.shape[2] // geom.ph) * (head.shape[3] // geom.pw)
+    b0, b1 = per_group, 3 * per_group  # frames 4-12
+    whole = runtime._fused_vecs(head.runtime, head.dec_state, head.corr_state, lat)
+    shifted = runtime._fused_vecs(head.runtime, head.dec_state, head.corr_state,
+                                  lat[b0:b1])
+    aligned = runtime._fused_vecs(head.runtime, head.dec_state, head.corr_state,
+                                  lat[b0:b1], rows=(b0, head.nb))
+    rows_info = {
+        "window_rows": [b0, b1], "nb": head.nb,
+        "shifted_equal": bool(torch.equal(shifted, whole[:, b0:b1])),
+        "shifted_max_abs": float((shifted - whole[:, b0:b1]).abs().max()),
+        "aligned_equal": bool(torch.equal(aligned, whole[:, b0:b1])),
+    }
+    if not rows_info["aligned_equal"]:
+        fail("partial_path: a window in the full decode's geometry differs "
+             "from the full decode's rows")
+    del whole, shifted, aligned, lat
+
+    # -- 2. the conv artifact at container v1-v4 ---------------------------
+    versions = {}
+    for version in (1, 2, 3, 4):
+        t0 = time.perf_counter()
+        old = codec.encode(artifact, version=version)
+        enc_s = time.perf_counter() - t0
+        if ContainerReader(old).version != version:
+            fail(f"partial_path: encode(version={version}) wrote "
+                 f"v{ContainerReader(old).version}")
+        out, secs, counts = counted(torch, lambda: codec.decompress(
+            old, species=[0, s_all - 1]))
+        bitwise(out, sliced(field, [0, s_all - 1], None),
+                f"v{version} decompress(species=[0, {s_all - 1}])")
+        one_replay(counts, f"v{version} selective decode")
+        tally("old_versions", counts)
+        versions[version] = {"blob_bytes": len(old), "encode_s": enc_s,
+                             "selective_s": secs}
+        if version == 1:
+            out, secs, counts = counted(torch, lambda: codec.decompress(old))
+            bitwise(out, field, "v1 full decompress")
+            one_replay(counts, "v1 full decompress")
+            tally("old_versions", counts)
+            versions[1]["full_decompress_s"] = secs
+        if version == 3:
+            r = ContainerReader(blob)
+            w = ContainerWriter(version=3)
+            for name in r.names:
+                if name != "integrity":
+                    w.add(name, r[name][1:] if name == "meta" else r[name])
+            if w.to_bytes() != old:
+                fail("partial_path: the v5 blob without its digests and family "
+                     "tag is not the v3 blob")
+        del old
+    out, ref_s, counts = counted(torch, lambda: codec.decompress_reference(blob))
+    bitwise(out, field, "decompress_reference(blob)")
+    one_replay(counts, "decompress_reference")
+    tally("old_versions", counts)
+
+    # -- 3. integrity: verification, bit flips, raise mode, salvage --------
+    t0 = time.perf_counter()
+    if codec.verify_blob(blob) != 5:
+        fail("partial_path: verify_blob(blob) != 5")
+    verify_s = time.perf_counter() - t0
+    regions = blob_regions(blob)
+    inj = FaultInjector(seed=5)
+    flips = detected = 0
+    t0 = time.perf_counter()
+    for reg in regions:
+        for _ in range(FLIPS_PER_REGION):
+            bad, fault = inj.flip_bit(blob, reg)
+            flips += 1
+            raised(lambda: codec.verify_blob(bad), f"verify_blob after {fault}")
+            detected += 1
+    flips_s = time.perf_counter() - t0
+
+    def region(label):
+        return next(r for r in regions if r.label == label)
+
+    sel, win = [6, 7, 8], (0, 8)
+    bad_species, _ = inj.flip_bit(blob, region("guarantee:s7:coeff"))
+    bad_shard, _ = inj.flip_bit(blob, region("latent:shard1"))
+    both, _ = inj.flip_bit(bad_species, region("latent:shard1"))
+    raise_mode = {}
+    for what, bad, want in (("species 7", bad_species, ("guarantee", 7)),
+                            ("latent shard 1", bad_shard, ("latent", 1))):
+        e = raised(lambda: codec.decompress(bad, species=sel, time_range=win),
+                   f"a flip in {what}")
+        if (e.stream, e.unit) != want:
+            fail(f"partial_path: a flip in {what} raised naming "
+                 f"({e.stream}, {e.unit}), expected {want}")
+        raise_mode[what] = {"stream": e.stream, "unit": e.unit, "offset": e.offset}
+    (salv, report), salvage_s, counts = counted(torch, lambda: codec.decompress(
+        both, species=sel, time_range=win, on_error="salvage"))
+    one_replay(counts, "salvage")
+    tally("salvage", counts)
+    clean = sliced(field, sel, win)
+    d = ContainerReader(blob)
+    ldir = wire.LatentShardDirectory(d["latent"])
+    r0, r1 = ldir.shard_row_extent(1)
+    damaged = [(r0 // per_group * geom.bt, r1 // per_group * geom.bt)]
+    nan = np.zeros(salv.shape, bool)
+    nan[1] = True  # species 7
+    for lo, hi in damaged:
+        nan[:, lo - win[0] : hi - win[0]] = True
+    if report.quarantined != [7] or \
+            [r.damaged_frames for i, r in sorted(report.species.items()) if i != 7] \
+            != [damaged, damaged]:
+        fail(f"partial_path: salvage reported quarantined {report.quarantined}, "
+             f"{ {i: r.status for i, r in report.species.items()} }")
+    if not np.isnan(salv[nan]).all() or salv[~nan].tobytes() != clean[~nan].tobytes():
+        fail("partial_path: salvage is not NaN exactly in quarantine and bitwise "
+             "the clean decode elsewhere")
+    if runtime._head_key(both, torch.device("cuda", torch.cuda.current_device())) \
+            in runtime._CACHE.heads:
+        fail("partial_path: salvage left a head in the decode cache")
+
+    # -- 4. one selective decode of the attention blob ---------------------
+    a_blob, a_field = attention
+    a_sel, a_win = [1, s_all // 2 + 1, s_all - 1], (4, 12)
+    codec.clear_decode_cache()
+    out, a_s, counts = counted(torch, lambda: codec.decompress(
+        a_blob, species=a_sel, time_range=a_win))
+    bitwise(out, sliced(a_field, a_sel, a_win), "attention selective decode")
+    one_replay(counts, "attention selective decode", flash=True)
+    tally("attention", counts)
+
+    info = {
+        "phase": "partial_path", "shape": list(field.shape),
+        "selective": decodes,
+        "latent_bytes_parsed": {"one_block_group": one_group, "full": full_latent},
+        "row_independence": rows_info,
+        "versions": versions, "decompress_reference_s": ref_s,
+        "verify_blob_s": verify_s, "regions": len(regions),
+        "flips": flips, "flips_detected": detected, "flips_s": flips_s,
+        "raise_mode": raise_mode,
+        "salvage": {"species": sel, "time_range": list(win), "seconds": salvage_s,
+                    "quarantined": report.quarantined, "damaged_frames": damaged,
+                    "failures": [(f.stream, f.unit, f.offset)
+                                 for f in report.failures]},
+        "attention": {"species": a_sel, "time_range": list(a_win), "cold_s": a_s},
+        "launches": totals, "seconds": time.perf_counter() - t_start,
+    }
+    emit(info)
     return info
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="env,build,kernels,main_path,attention_path,ops_path")
+                    default="env,build,kernels,main_path,attention_path,ops_path,"
+                            "partial_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -1123,16 +1429,24 @@ def run(torch, args, phases) -> None:
         ops_rows = phase_ops_kernels(torch, launches)
         # the order of PERF.md's table of TPU kernels
         rows = batched + ops_rows[:2] + [flash] + ops_rows[2:]
-    paths = {}
+    paths, outputs = {}, {}
+    if "partial_path" in phases and not {"main_path", "attention_path"} <= set(phases):
+        fail("partial_path needs the main_path and attention_path phases")
     if "main_path" in phases or "attention_path" in phases:
         data, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
         if "main_path" in phases:
-            paths["main_path"] = phase_main_path(torch, args, data)
+            paths["main_path"], *outputs["main_path"] = phase_main_path(
+                torch, args, data)
         if "attention_path" in phases:
-            paths["attention_path"] = phase_attention_path(torch, args, data)
+            paths["attention_path"], *outputs["attention_path"] = \
+                phase_attention_path(torch, args, data)
         del data
     ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
+    partial = (phase_partial_path(torch, outputs["main_path"],
+                                  outputs["attention_path"])
+               if "partial_path" in phases else None)
+    outputs.clear()
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]],
@@ -1141,10 +1455,14 @@ def run(torch, args, phases) -> None:
         if ops_calls:
             by_path["ops_path"] = {op: c["launches"][r["name"]]
                                    for op, c in ops_calls.items()}
+        if partial:
+            by_path["partial_path"] = {part: c[r["name"]]
+                                       for part, c in partial["launches"].items()}
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
-                                         "attention_path", "ops_path"))
+                                         "attention_path", "ops_path",
+                                         "partial_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -4,8 +4,9 @@
 **self-describing container blob**; module-level :func:`decompress`
 reconstructs the field from the blob alone — no fitted pipeline, no
 original data, no config object. The wire format is the reference
-package's container v5, byte for byte: a blob written by either package
-parses under the other. Streams:
+package's container, byte for byte, at every version (v1-v5): a blob
+written by either package parses under the other. Streams of v5, the
+default:
 
 ==============  ====================================================
 ``meta``        one-byte encoder-family tag, geometry, encoder
@@ -21,16 +22,30 @@ parses under the other. Streams:
 ``integrity``   CRC32 digests over everything else, self-checked first
 ==============  ====================================================
 
-The port reads and writes v5 only; v1-v4, selective decode, salvage
-decode and the file pair ``write``/``read`` are still to be ported.
+Older versions: v4 is v5 without the family tag (conv only); v3 is v4
+without the ``integrity`` stream; v2 carries the latent stream as ONE
+sequential Huffman chain; v1 carries one nested ``guarantee{s}``
+container per species in place of the combined stream. ``encode(artifact,
+version=...)`` writes each, :func:`decompress` reads each.
+
+Beyond the full decode: ``decompress(blob, species=..., time_range=...)``
+and :class:`PartialDecoder` decode a slice randomly-accessed, bitwise the
+slice of the full decode; :func:`verify_blob` digest-checks every byte of
+a v4+ blob; ``decompress(blob, on_error="salvage")`` /
+:func:`salvage_decompress` quarantine corrupt units and return a
+:class:`DecodeReport`; :func:`write` / :func:`read` publish and read files
+atomically; :func:`decompress_reference` / :func:`reconstruct_reference`
+keep the reference's staged decode orchestration as the fused path's
+bit-identity oracle.
 
 Layers, mirroring the reference by path: :mod:`.families` (encoder-family
 registry; conv only yet), :mod:`.format` (wire schemas), :mod:`.params`
 (parameter-tree packing), :mod:`.artifact` (:class:`CompressedArtifact`),
-:mod:`.encode` (artifact -> streams), :mod:`.latents` (sharded latent
-store), :mod:`.cache` (byte-budgeted LRU tiers), :mod:`.runtime` (cached
-decode runtimes, head parsing, fused decode), :mod:`.decode` (full-field
-decode entry points).
+:mod:`.encode` (artifact -> streams, file pair), :mod:`.latents` (chain
+and sharded latent stores), :mod:`.cache` (byte-budgeted LRU tiers),
+:mod:`.runtime` (cached decode runtimes, head parsing, fused decode),
+:mod:`.decode` (full-field decode entry points), :mod:`.partial`
+(selective decode), :mod:`.integrity` (verification and salvage).
 
 Every decode entry point takes ``device=None``, which means the GPU and
 raises without CUDA; ``device="cpu"`` runs the plain PyTorch versions.
@@ -40,10 +55,13 @@ from repro_torch.codec import families
 from repro_torch.codec.artifact import CompressedArtifact
 from repro_torch.codec.decode import (
     decode_artifact,
+    decode_artifact_reference,
     decompress,
+    decompress_reference,
     reconstruct,
+    reconstruct_reference,
 )
-from repro_torch.codec.encode import encode
+from repro_torch.codec.encode import encode, read, write
 from repro_torch.codec.format import (
     DEFAULT_SHARD_TGROUPS,
     GuaranteeDirectory,
@@ -52,11 +70,19 @@ from repro_torch.codec.format import (
     pack_latent_stream,
     stream_breakdown,
 )
+from repro_torch.codec.integrity import (
+    DecodeReport,
+    IntegrityFailure,
+    SpeciesReport,
+    salvage_decompress,
+    verify_blob,
+)
 from repro_torch.codec.params import (
     pack_artifact_params,
     pack_params,
     unpack_params,
 )
+from repro_torch.codec.partial import PartialDecoder
 from repro_torch.codec.runtime import (
     _fused_vecs,
     _runtime,
@@ -84,21 +110,32 @@ __all__ = [
     "CompressedArtifact",
     "families",
     "ContainerFormatError",
+    "DecodeReport",
     "GuaranteeDirectory",
+    "IntegrityFailure",
     "LatentShardDirectory",
+    "PartialDecoder",
+    "SpeciesReport",
     "DEFAULT_SHARD_TGROUPS",
     "cache_stats",
     "clear_decode_cache",
     "configure_decode_cache",
     "encode",
+    "read",
+    "salvage_decompress",
+    "verify_blob",
+    "write",
     "pack_guarantee_stream",
     "pack_latent_stream",
     "pack_params",
     "unpack_params",
     "pack_artifact_params",
     "decode_artifact",
+    "decode_artifact_reference",
     "decompress",
+    "decompress_reference",
     "reconstruct",
+    "reconstruct_reference",
     "make_fused_decode",
     "stream_breakdown",
 ]

@@ -45,9 +45,12 @@ class CompressedArtifact:
     norm_range: np.ndarray  # (S,)
     shape: tuple[int, int, int, int]
     cfg: Any
-    # memoized wire streams (immutable once built): pre-packed (decoder,
-    # correction) parameter streams shared across a sweep's artifacts, and
-    # the full serialized container
+    # memoized wire streams (immutable once built): the Huffman'd latent
+    # payload, pre-packed (decoder, correction) parameter streams shared
+    # across a sweep's artifacts, and the full serialized container
+    _latent_blob: Optional[bytes] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
     _param_streams: Optional[tuple] = dataclasses.field(
         default=None, repr=False, compare=False
     )
@@ -57,13 +60,27 @@ class CompressedArtifact:
     # shared latent wire memo: a target_nrmse sweep emits many artifacts
     # off one fitted model with bit-identical latents, so the pipeline
     # hands every artifact of a sweep key the same dict and the entropy
-    # pack is paid once per shard layout, not per blob
+    # pack (single chain or sharded) is paid once per layout, not per blob
     _latent_memo: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False
     )
 
+    def latent_blob(self) -> bytes:
+        """Single sequential Huffman chain (the v1/v2 ``latent`` stream)."""
+        if self._latent_blob is None:
+            memo = self._latent_memo
+            hit = memo.get("chain") if memo is not None else None
+            if hit is None:
+                from repro_torch.core import entropy
+
+                hit = entropy.huffman_encode(self.latent_q)
+                if memo is not None:
+                    memo["chain"] = hit
+            self._latent_blob = hit
+        return self._latent_blob
+
     def sharded_latent_stream(self, shard_rows: int) -> bytes:
-        """Time-sharded segmented stream (the ``latent`` stream),
+        """Time-sharded segmented stream (the v3+ ``latent`` stream),
         memoized per shard size across a sweep's artifacts."""
         memo = self._latent_memo
         # the packer clamps shard_rows to the row count, so clamp the key

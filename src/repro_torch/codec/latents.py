@@ -1,18 +1,69 @@
-"""Latent store: block-row access over the time-sharded latent stream.
+"""Latent stores: uniform block-row access over per-version latent layouts.
 
-Container v3+ carries independent per-shard Huffman chains under a shared
-codebook, decoded lazily — a block-row window touches only its covering
-shards — which is what makes a window query O(window) in latent entropy
-work. (The single-chain store of containers v1/v2 is not ported yet.)
+Container v1/v2 carry ONE sequential Huffman chain (any row requires the
+full walk, so it decodes whole at head parse); v3+ carries independent
+per-shard chains under a shared codebook, decoded lazily — a block-row
+window touches only its covering shards — which is what makes a window
+query O(window) in latent entropy work.
 """
 
 from __future__ import annotations
+
+import struct
 
 import numpy as np
 
 from repro_torch.codec import format as wire
 from repro_torch.core import entropy
 from repro_torch.core.container import ContainerFormatError
+
+
+class _ChainLatents:
+    """v1/v2 ``latent`` stream: ONE sequential Huffman chain.
+
+    Decoded whole at head parse (any row requires the full chain walk, and
+    eager decode keeps the historical corruption-error surface); row access
+    is then a slice.
+    """
+
+    def __init__(self, stream: bytes, nb: int, n_lat: int,
+                 table_cache: entropy.DecodeTableCache, huffman=None):
+        try:
+            if huffman is None:
+                q = entropy.huffman_decode(stream, table_cache=table_cache)
+            else:
+                q = huffman(stream)
+        except (ValueError, struct.error) as e:
+            # struct.error: a truncated Huffman header (not a ValueError)
+            raise ContainerFormatError(
+                f"corrupt latent stream: {e}", stream="latent"
+            ) from e
+        if q.size != nb * n_lat:
+            raise ContainerFormatError(
+                f"latent stream decodes to {q.size} symbols, "
+                f"expected {nb * n_lat}",
+                stream="latent",
+            )
+        self._q = q.reshape(nb, n_lat)
+        self._nbytes = len(stream)
+
+    def full(self) -> np.ndarray:
+        return self._q
+
+    def rows(self, b0: int, b1: int) -> np.ndarray:
+        return self._q[b0:b1]
+
+    def salvage_rows(self, b0: int, b1: int):
+        # a chain store only exists if the whole chain decoded at
+        # construction; there is no per-unit quarantine below v3
+        return self._q[b0:b1], []
+
+    def bytes_parsed(self, b0: int, b1: int) -> int:
+        # a sequential chain walks whole regardless of the window
+        return self._nbytes
+
+    def entropy_bytes(self, b0: int, b1: int) -> int:
+        return self._nbytes
 
 
 class _ShardedLatents:

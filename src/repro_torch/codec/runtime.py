@@ -12,10 +12,11 @@ Two caches make repeated decoding cheap without any codec instance state:
   already-decoded latent shard / guarantee stream. Distinct blobs can never
   alias — the key compares by content, not object id.
 
-The port reads container v5 only; a well-formed blob of another version
-raises :class:`ContainerFormatError` saying so. The latent stream is the
-time-sharded store: independent per-shard chains under a shared codebook,
-decoded lazily and only for the block rows a query touches.
+The latent stream is abstracted as a *store*: container v1/v2 carry one
+sequential Huffman chain (decoded whole, as any row needs the full walk),
+v3+ carries independent per-shard chains under a shared codebook, decoded
+lazily and only for the block rows a query touches. Every container
+version the reference writes (v1-v5) reads here.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from repro_torch.codec import cache as tier_cache
 from repro_torch.codec import families
 from repro_torch.codec import format as wire
 from repro_torch.codec.families import make_fused_decode  # noqa: F401  (re-exported for the public codec API)
-from repro_torch.codec.latents import _ShardedLatents
+from repro_torch.codec.latents import _ChainLatents, _ShardedLatents
 from repro_torch.codec.params import unpack_params
 from repro_torch.core import correction, entropy, gae
 from repro_torch.core import container as container_format
@@ -138,7 +139,8 @@ class _DecodedHead:
     latent_bin: float
     norm_min: np.ndarray
     norm_range: np.ndarray
-    latents: _ShardedLatents
+    latents: Any  # _ChainLatents | _ShardedLatents
+    latent_stream: Optional[bytes]  # v1/v2 single chain (None for v3+)
     # reference-layout numpy parameter trees, as unpacked from the wire
     ae_params: Any
     corr_params: Any
@@ -147,7 +149,7 @@ class _DecodedHead:
     corr_state: Optional[dict]
     runtime: _DecodeRuntime
     version: int = container_format.FORMAT_VERSION_FAMILY
-    # parsed + self-verified integrity digests: head
+    # parsed + self-verified v4+ integrity digests (None below v4): head
     # regions were digest-checked during the head parse; lazily read units
     # (latent shards, species guarantee extents, the guarantee directory)
     # digest-check on first access through this handle
@@ -202,27 +204,30 @@ def _memo_art_put(head: _DecodedHead, sidx: int, art) -> None:
         head.arts_memo[sidx] = art
 
 
-def _decode_head(blob: bytes, *, device: DeviceLike = None) -> _DecodedHead:
+def _decode_head(blob: bytes, *, device: DeviceLike = None, huffman=None,
+                 check_integrity: bool = True) -> _DecodedHead:
     """Parse/validate the container head: meta, stream set, latents,
     network parameters — everything except the guarantee streams, so the
     fused NN decode can be dispatched while those entropy-decode.
+    ``huffman`` overrides the latent decoder (reference path).
 
-    The integrity stream is parsed (and self-verified) first, then every
-    region this parse consumes is digest-checked *before* its bytes are
-    interpreted: the outer header/table, the meta stream, the latent
-    stream's head region, and the decoder/correction parameter streams.
-    Lazily read units (latent shards, guarantee directory and species
-    extents) digest-check on first access."""
+    On a v4+ container the integrity stream is parsed (and self-verified)
+    first, then every region this parse consumes is digest-checked
+    *before* its bytes are interpreted: the outer header/table, the meta
+    stream, the latent stream's head region, and the decoder/correction
+    parameter streams. Lazily read units (latent shards, guarantee
+    directory and species extents) digest-check on first access.
+    ``check_integrity=False`` skips all digest work (salvage uses it to
+    decode structurally when the integrity stream itself is corrupt);
+    v1–v3 containers carry no digests."""
     dev = resolve_device(device)
     r = ContainerReader(blob)
-    if r.version != container_format.FORMAT_VERSION_FAMILY:
-        raise ContainerFormatError(
-            f"container v{r.version}: the port does not read this version "
-            f"yet (only v{container_format.FORMAT_VERSION_FAMILY})"
-        )
-    integ = wire.IntegrityDirectory(r["integrity"])
-    integ.verify_outer(r._blob, r.header_bytes)
-    integ.verify_stream("meta", r["meta"])
+    integ = None
+    if (check_integrity
+            and r.version >= container_format.FORMAT_VERSION_INTEGRITY):
+        integ = wire.IntegrityDirectory(r["integrity"])
+        integ.verify_outer(r._blob, r.header_bytes)
+        integ.verify_stream("meta", r["meta"])
     cfg, shape, latent_bin, norm_min, norm_range = wire._unpack_meta(
         r["meta"], version=r.version
     )
@@ -262,17 +267,25 @@ def _decode_head(blob: bytes, *, device: DeviceLike = None) -> _DecodedHead:
     # the runtime cache is the single construction site for the decode
     # models — encode side and decode side cannot drift apart
     rt = _runtime(cfg, s, cfg.use_correction, dev)
-    latent_stream = r["latent"]
-    # the head region digest-checks against its *stored* length before
-    # any framing field is interpreted
-    integ.verify_latent_head(latent_stream)
-    latents = _ShardedLatents(
-        wire.LatentShardDirectory(latent_stream), nb, cfg.latent,
-        rt.table_cache, integrity=integ,
-    )
+    latent_stream: Optional[bytes] = r["latent"]
+    if r.version >= container_format.FORMAT_VERSION_SHARDED:
+        if integ is not None:
+            # the head region digest-checks against its *stored* length
+            # before any framing field is interpreted
+            integ.verify_latent_head(latent_stream)
+        latents = _ShardedLatents(
+            wire.LatentShardDirectory(latent_stream), nb, cfg.latent,
+            rt.table_cache, reference=huffman is not None, integrity=integ,
+        )
+        latent_stream = None  # not the single-chain wire form
+    else:
+        latents = _ChainLatents(
+            latent_stream, nb, cfg.latent, rt.table_cache, huffman=huffman
+        )
 
     def _params(name: str, defs):
-        integ.verify_stream(name, r[name])
+        if integ is not None:
+            integ.verify_stream(name, r[name])
         try:
             return unpack_params(r[name], defs, cfg.param_dtype_bytes)
         except ContainerFormatError as e:
@@ -287,7 +300,8 @@ def _decode_head(blob: bytes, *, device: DeviceLike = None) -> _DecodedHead:
     return _DecodedHead(
         reader=r, blob=bytes(blob), cfg=cfg, shape=shape, nb=nb,
         latent_bin=latent_bin, norm_min=norm_min, norm_range=norm_range,
-        latents=latents, ae_params=ae_params, corr_params=corr_params,
+        latents=latents, latent_stream=latent_stream,
+        ae_params=ae_params, corr_params=corr_params,
         dec_state=_as_state(ae_params, dev),
         corr_state=_as_state(corr_params, dev),
         runtime=rt, version=r.version, integrity=integ,
@@ -416,11 +430,12 @@ def clear_decode_cache() -> None:
 
 
 def _evict_head(blob: bytes, device: DeviceLike = None) -> None:
-    """Drop ONE blob's cached head. Decodes call this when corruption
-    surfaces *after* the head parse (a bad latent shard or guarantee
-    stream discovered lazily): the head must not stay serveable as if the
-    blob were clean. Cascades to the head's shard and guarantee tier
-    entries."""
+    """Drop ONE blob's cached head. Raise-mode decodes call this when
+    corruption surfaces *after* the head parse (a bad latent shard or
+    guarantee stream discovered lazily): the head must not stay serveable
+    as if the blob were clean, and salvage must never be answered from —
+    or write into — the clean-head cache. Cascades to the head's shard
+    and guarantee tier entries."""
     _CACHE.heads.discard(_head_key(blob, resolve_device(device)))
 
 
@@ -428,9 +443,9 @@ def _evict_head(blob: bytes, device: DeviceLike = None) -> None:
 # guarantee stream decode (either layout), per species
 # ---------------------------------------------------------------------------
 def _gdir(head: _DecodedHead) -> wire.GuaranteeDirectory:
-    """Parse (once) the combined guarantee stream's directory.
+    """Parse (once) the combined guarantee stream's directory (v2+).
 
-    The directory region digest-checks (against its stored length)
+    On v4+ the directory region digest-checks (against its stored length)
     before any record is interpreted. Concurrent callers serialize on the
     head lock so the directory parses exactly once."""
     with head.lock:
@@ -457,29 +472,55 @@ def _gdir(head: _DecodedHead) -> wire.GuaranteeDirectory:
         return head.gdir
 
 
-def _species_guarantee(
-    head: _DecodedHead, sidx: int, *, coeff_q=None
-) -> gae.GuaranteeArtifact:
-    """Parse + validate ONE species' guarantee artifact.
-
-    Touches only that species' byte extent of the combined stream, so a
-    corrupt sibling cannot poison it; errors carry the species index
-    (structured: ``stream``/``unit``). The extent digest-checks before any
-    of it is parsed. ``coeff_q`` injects pre-decoded coefficient symbols
-    from the batched lockstep walk."""
-    sname = "guarantee"
-    try:
+def _coeff_streams(head: _DecodedHead, indices) -> "Optional[list[bytes]]":
+    """Selected species' coefficient payloads, sliced without parsing any
+    sibling payload; ``None`` when the per-species framing cannot be
+    pre-parsed (the per-species path then surfaces the canonical error)."""
+    if head.version >= container_format.FORMAT_VERSION_SELECTIVE:
         gdir = _gdir(head)
-        if head.integrity is not None:
-            head.integrity.verify_species(
-                sidx, head.reader["guarantee"], gdir.species_spans(sidx)
+        return [gdir.coeff_stream(sidx) for sidx in indices]
+    try:
+        return [
+            ContainerReader(head.reader[f"guarantee{sidx}"])["coeff"]
+            for sidx in indices
+        ]
+    except (ContainerFormatError, KeyError):
+        return None
+
+
+def _species_guarantee(
+    head: _DecodedHead, sidx: int, *, huffman=None, coeff_q=None
+) -> gae.GuaranteeArtifact:
+    """Parse + validate ONE species' guarantee artifact (either layout).
+
+    Touches only that species' streams, so a corrupt sibling cannot poison
+    it; errors carry the species index (structured: ``stream``/``unit``).
+    On v4+ the species' guarantee byte extent digest-checks before any of
+    it is parsed. ``coeff_q`` injects pre-decoded coefficient symbols
+    from the batched lockstep walk."""
+    cache = head.runtime.table_cache
+    selective = head.version >= container_format.FORMAT_VERSION_SELECTIVE
+    sname = "guarantee" if selective else f"guarantee{sidx}"
+    try:
+        if selective:
+            gdir = _gdir(head)
+            if head.integrity is not None:
+                head.integrity.verify_species(
+                    sidx, head.reader["guarantee"], gdir.species_spans(sidx)
+                )
+            tau, coeff_bin, d, n_store, coeff, index, basis = \
+                gdir.species_parts(sidx)
+            g = gae.GuaranteeArtifact.from_parts(
+                tau, coeff_bin, d, n_store, coeff, index, basis,
+                table_cache=cache, huffman=huffman, coeff_q=coeff_q,
             )
-        tau, coeff_bin, d, n_store, coeff, index, basis = \
-            gdir.species_parts(sidx)
-        g = gae.GuaranteeArtifact.from_parts(
-            tau, coeff_bin, d, n_store, coeff, index, basis,
-            table_cache=head.runtime.table_cache, coeff_q=coeff_q,
-        )
+        else:
+            if coeff_q is not None:
+                huffman = lambda _blob, _out=coeff_q: _out  # noqa: E731
+            g = gae.GuaranteeArtifact.from_bytes(
+                head.reader[sname],
+                table_cache=cache, huffman=huffman,
+            )
     except ContainerFormatError as e:
         if e.unit == sidx and e.stream == sname:
             raise  # already canonically framed (a failed species digest)
@@ -503,46 +544,56 @@ def _species_guarantee(
     return g
 
 
-def _decode_species_guarantees(head: _DecodedHead, indices: "list[int]"
-                               ) -> list:
+def _decode_species_guarantees(
+    head: _DecodedHead, indices: "list[int]", *, huffman=None
+) -> list:
     """Entropy-decode the guarantee streams of ``indices`` only.
 
     The selected coefficient streams decode in one lockstep chunk-parallel
     chain walk (:func:`entropy.huffman_decode_many`) with codebook tables
     served from the runtime cache; per-species parsing/validation then
     consumes the pre-decoded symbols. Successful artifacts land in the
-    guarantee cache tier keyed under the head's token. When the batch walk
-    cannot read a stream, every species re-parses individually so the
-    canonical per-species ContainerFormatError surfaces."""
+    guarantee cache tier keyed under the head's token (cached heads serve
+    repeated queries without re-walking; a custom ``huffman`` bypasses
+    the shared tier entirely). When the batch walk cannot read a stream,
+    every species re-parses individually so the canonical per-species
+    ContainerFormatError surfaces (and healthy siblings are still
+    decodable)."""
+    shared = huffman is None
     got: dict = {}
-    for s in indices:
-        art = _memo_art_get(head, s)
-        if art is not None:
-            got[s] = art
+    if shared:
+        for s in indices:
+            art = _memo_art_get(head, s)
+            if art is not None:
+                got[s] = art
     todo = [s for s in indices if s not in got]
     if todo:
         coeffs: "Optional[list]" = None
-        if len(todo) > 1:
-            gdir = _gdir(head)
-            try:
-                coeffs = entropy.huffman_decode_many(
-                    [gdir.coeff_stream(sidx) for sidx in todo],
-                    table_cache=head.runtime.table_cache,
-                )
-            except (ValueError, struct.error):
-                coeffs = None  # per-species path raises canonically
+        if shared and len(todo) > 1:
+            streams = _coeff_streams(head, todo)
+            if streams is not None:
+                try:
+                    coeffs = entropy.huffman_decode_many(
+                        streams, table_cache=head.runtime.table_cache
+                    )
+                except (ValueError, struct.error):
+                    coeffs = None  # per-species path raises canonically
         for k, sidx in enumerate(todo):
             art = _species_guarantee(
-                head, sidx, coeff_q=None if coeffs is None else coeffs[k],
+                head, sidx, huffman=huffman,
+                coeff_q=None if coeffs is None else coeffs[k],
             )
             got[sidx] = art  # local ref: immune to immediate eviction
-            _memo_art_put(head, sidx, art)
+            if shared:
+                _memo_art_put(head, sidx, art)
     return [got[s] for s in indices]
 
 
-def _decode_guarantees(head: _DecodedHead) -> list:
+def _decode_guarantees(head: _DecodedHead, *, huffman=None) -> list:
     """Entropy-decode every species' guarantee stream (full decode)."""
-    return _decode_species_guarantees(head, list(range(head.shape[0])))
+    return _decode_species_guarantees(
+        head, list(range(head.shape[0])), huffman=huffman
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -570,30 +621,47 @@ def _as_state(params, device) -> Optional[dict]:
 
 
 def _fused_vecs(rt: _DecodeRuntime, dec_params, corr_params,
-                lat32: np.ndarray) -> torch.Tensor:
+                lat32: np.ndarray, *, rows: Optional[tuple] = None
+                ) -> torch.Tensor:
     """Run the fused NN decode over fixed-size block chunks.
 
-    Returns the (S, NB, D) vectors as a tensor on the runtime's device;
+    Returns the (S, n, D) vectors as a tensor on the runtime's device;
     launches are asynchronous, so callers can overlap host work with the
-    whole chunk sequence. Chunking is row-wise, and the tail chunk is
-    padded to the fixed shape, so the encode side and the decode side run
-    the same kernels on the same shapes whatever the field's length.
-    Parameters may be reference-layout numpy trees or flat state dicts.
+    whole chunk sequence. A field of at most ``_FUSED_CHUNK`` blocks runs
+    as one launch at its own length; a longer one in chunks of that size,
+    the tail chunk padded to the fixed shape, so the encode side and the
+    decode side run the same kernels on the same shapes whatever the
+    field's length. Parameters may be reference-layout numpy trees or flat
+    state dicts.
+
+    ``rows=(b0, nb)`` says ``lat32`` holds block rows ``[b0, b0 + n)`` of
+    an ``nb``-row field. They then run in the full decode's dispatch
+    geometry: the same launch shapes, each row at the position the full
+    decode gives it, the rest of each launch filled with copies of the
+    window's edge rows. A library may pick another algorithm for another
+    batch size (on the CPU a one-row decode differs from the same row
+    decoded among others in the last bits), so this is what makes a
+    window's rows bitwise the full decode's. The filler rows cost device
+    work only, never latent decoding.
     """
     dev = rt.device
     dec_state = _as_state(dec_params, dev)
     corr_state = _as_state(corr_params, dev)
     lat = torch.from_numpy(np.ascontiguousarray(lat32, dtype=np.float32)).to(dev)
     n = lat.shape[0]
+    b0, nb = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
+    b1 = b0 + n
+    if not 0 <= b0 < b1 <= nb:
+        raise ValueError(f"rows [{b0}, {b1}) do not lie in a {nb}-row field")
+    chunk = min(nb, _FUSED_CHUNK)
+    lo, hi = b0 // chunk * chunk, -(-b1 // chunk) * chunk
+    if (lo, hi) != (b0, b1):
+        lat = torch.cat([lat[:1].expand(b0 - lo, -1), lat,
+                         lat[-1:].expand(hi - b1, -1)])
     with torch.no_grad(), strict_fp32():
-        if n <= _FUSED_CHUNK:
-            return rt.fused(dec_state, corr_state, lat)
-        outs = []
-        for i in range(0, n, _FUSED_CHUNK):
-            chunk = lat[i : i + _FUSED_CHUNK]
-            pad = _FUSED_CHUNK - chunk.shape[0]
-            if pad:
-                chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1)])
-            out = rt.fused(dec_state, corr_state, chunk)
-            outs.append(out[:, : out.shape[1] - pad] if pad else out)
-        return torch.cat(outs, dim=1)  # (S, NB, D) along blocks
+        outs = [rt.fused(dec_state, corr_state, lat[i : i + chunk])
+                for i in range(0, hi - lo, chunk)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    if (lo, hi) != (b0, b1):
+        out = out[:, b0 - lo : b1 - lo].contiguous()
+    return out  # (S, n, D) along blocks

@@ -38,8 +38,7 @@ same device.
 
 ``device=None`` means the GPU and raises without CUDA; ``device="cpu"``
 runs everything, the kernels' plain versions included, on the CPU. Not
-ported yet: ``fit_stream`` (out-of-core ingest), the mesh-sharded paths and
-the file pair ``write``/``read``.
+ported yet: ``fit_stream`` (out-of-core ingest) and the mesh-sharded paths.
 """
 
 from __future__ import annotations
@@ -501,9 +500,38 @@ class GBATCCodec:
         rep = self._pipe.compress(target_nrmse=target_nrmse, **kw)
         return rep.artifact.to_bytes(), rep
 
-    def decompress(self, blob: bytes) -> np.ndarray:
-        """Decode a container blob on this codec's device (stateless; see
-        :func:`repro_torch.codec.decompress`)."""
+    def write(self, path, data: Optional[np.ndarray] = None,
+              target_nrmse: float = 1e-3, **kw) -> bytes:
+        """Compress and atomically publish the container at ``path``
+        (tmp + fsync + rename — a crash can never leave a half-blob).
+        Pass ``data`` to (re)fit first. Returns the written bytes."""
+        from repro_torch.codec.encode import write as write_file
+
+        blob = self.compress(data, target_nrmse=target_nrmse, **kw)
+        write_file(path, blob)
+        return blob
+
+    @staticmethod
+    def read(path, *, verify: bool = True) -> bytes:
+        """Read (and by default digest-verify) a container file; see
+        :func:`repro_torch.codec.read`."""
+        from repro_torch.codec.encode import read as read_file
+
+        return read_file(path, verify=verify)
+
+    def decompress(self, blob: bytes, *, species=None, time_range=None,
+                   on_error: str = "raise", device: DeviceLike = None):
+        """Decode a container blob (stateless; see
+        :func:`repro_torch.codec.decompress`) on ``device``, by default
+        this codec's.
+
+        ``species``/``time_range`` select a slice to decode
+        randomly-accessed, bitwise equal to slicing the full decode;
+        ``on_error="salvage"`` quarantines corruption and returns
+        ``(field, DecodeReport)``."""
         from repro_torch.codec.decode import decompress
 
-        return decompress(blob, device=self.device)
+        return decompress(
+            blob, species=species, time_range=time_range, on_error=on_error,
+            device=self.device if device is None else device,
+        )

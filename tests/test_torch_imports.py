@@ -80,6 +80,8 @@ assert "repro_torch.models.block_attention" in names
 assert "repro_torch.kernels.flash_attention" in names
 for mod in ("block_quant", "rglru_scan", "rwkv6_scan"):
     assert f"repro_torch.kernels.{mod}" in names, mod
+for mod in ("codec.partial", "codec.integrity", "testing.faults"):
+    assert f"repro_torch.{mod}" in names, mod
 for op in ("flash_attention_op", "rwkv6_scan_op", "rglru_scan_op",
            "block_quant_op", "gbatc_project_op", "gbatc_correct_op"):
     assert callable(getattr(ops, op)), op
@@ -108,7 +110,8 @@ def test_importing_builds_nothing():
 @pytest.mark.parametrize("entry", ["codec", "pipeline", "engine", "decompress", "ops",
                                    "attention_codec", "flash_ops", "flash_attention_op",
                                    "rwkv6_scan_op", "rglru_scan_op", "block_quant_op",
-                                   "gbatc_project_op", "gbatc_correct_op"])
+                                   "gbatc_project_op", "gbatc_correct_op",
+                                   "partial_decoder", "salvage", "decompress_reference"])
 def test_device_none_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -124,6 +127,9 @@ def test_device_none_without_cuda_raises(entry):
         "pipeline": lambda: GBATCPipeline(PipelineConfig(), n_species=4),
         "engine": lambda: gae.GuaranteeEngine(),
         "decompress": lambda: codec.decompress(b"GBTC"),
+        "partial_decoder": lambda: codec.PartialDecoder(b"GBTC"),
+        "salvage": lambda: codec.salvage_decompress(b"GBTC"),
+        "decompress_reference": lambda: codec.decompress_reference(b"GBTC"),
         "ops": lambda: ops.gbatc_correct_batched(
             np.zeros((1, 2, 4), np.float32), np.zeros((1, 2, 4), np.float32),
             np.zeros((1, 4, 4), np.float32)),
