@@ -60,7 +60,24 @@ Phases (each prints one JSON line; any failure exits non-zero):
    species and one corrupt latent shard raised in raise mode and
    quarantined by salvage (bitwise elsewhere); one selective decode of the
    attention blob through flash attention;
-8. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+8. ``serve_path``  the decode service (``repro_torch.serve.DecodeService``)
+   on the two codec paths' blobs (no new fit): a seeded mix of 64
+   selective requests (4 duplicates, one unknown blob, one malformed)
+   from 8 client threads, every answer bitwise the slice of its blob's
+   full decode, exactly the planted requests failing, fewer fused
+   dispatches than requests, and no kernel but the replay (and flash for
+   the attention blob); the same mix served serially through
+   ``PartialDecoder`` for comparison, both cold and both warm; one tick
+   holding a corrupt species, its batch-mates and a salvage request; and
+   the gap a fused decode shows when cuDNN's TF32 is on (what
+   ``strict_fp32`` prevents);
+9. ``stream_path``  ``GBATCCodec.fit_stream`` over the main field in
+   chunks of 4 frames, one injected I/O fault in each ingest pass, then
+   the 1e-3 compress: the blob must be main_path's byte for byte, with
+   one projection and one select launch; then the QoI (net production
+   rates, ``repro_torch.core.qoi``) of the field and of its decode on the
+   card against the same map on the host;
+10. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -902,14 +919,20 @@ def reset_counts() -> None:
         w.reset_launches()
 
 
+def s3d_config(args):
+    from repro_torch.data import s3d
+
+    return s3d.S3DConfig(n_species=58, n_time=args.frames, height=args.height,
+                         width=args.width, seed=args.seed)
+
+
 def generate(args):
+    """The codec paths' field and its temperature (the QoI's input)."""
     from repro_torch.data import s3d
 
     t0 = time.perf_counter()
-    data = s3d.generate(s3d.S3DConfig(
-        n_species=58, n_time=args.frames, height=args.height, width=args.width,
-        seed=args.seed))["species"]
-    return data, time.perf_counter() - t0
+    ds = s3d.generate(s3d_config(args))
+    return ds["species"], ds["temperature"], time.perf_counter() - t0
 
 
 def drive(torch, data, cfg, args, name: str, widths: dict,
@@ -1064,12 +1087,17 @@ def select_backends_agree(pipe, name: str, bounds) -> dict:
     return info
 
 
-def phase_main_path(torch, args, data) -> dict:
+def main_config(args):
+    """main_path's PipelineConfig (stream_path fits the same one)."""
     from repro_torch.core.pipeline import PipelineConfig
 
-    cfg = PipelineConfig(latent=36, conv_channels=(32, 64), use_correction=True,
-                         ae_steps=args.ae_steps, corr_steps=args.corr_steps,
-                         seed=args.seed)
+    return PipelineConfig(latent=36, conv_channels=(32, 64), use_correction=True,
+                          ae_steps=args.ae_steps, corr_steps=args.corr_steps,
+                          seed=args.seed)
+
+
+def phase_main_path(torch, args, data) -> dict:
+    cfg = main_config(args)
     info, blob, artifact, field = drive(torch, data, cfg, args, "main_path", {
         "species": 58, "block": [4, 5, 4], "latent": 36,
         "conv_channels": [32, 64], "correction": [232, 464, 232]}, args.ae_steps)
@@ -1380,11 +1408,384 @@ def phase_partial_path(torch, conv: tuple, attention: tuple) -> dict:
     return info
 
 
+# serve_path: SERVE_CLIENTS threads submit SERVE_PER_CLIENT requests each.
+# A request takes 1-4 of the 58 species, or all of them one time in
+# SERVE_ALL_SPECIES; a window of 1-16 frames or the whole field; the
+# attention blob one time in SERVE_ATTENTION. Planted among them:
+# SERVE_DUPLICATES exact duplicates, one unknown blob id, one malformed
+# request (species=99).
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_MAX_BATCH = 8, 8, 32
+SERVE_ALL_SPECIES, SERVE_ATTENTION, SERVE_DUPLICATES = 16, 8, 4
+# a serving box holding the two hot blobs keeps every species' decoded
+# guarantee artifacts (about 0.5 GB for a 1e-3 blob of 58 x 20480 blocks)
+SERVE_GUARANTEE_CACHE = 2 << 30
+# the QoI on the card against the same map on the host: per species, as a
+# share of that species' largest |rate|; the bound tests/test_torch_baselines.py
+# holds the port's map to against the reference's
+QOI_RTOL = 5e-5
+
+
+def serve_requests(rng, s_all: int, t_all: int) -> list:
+    """The seeded request mix: (blob_id, species, time_range) in client
+    order (client i has entries [i*SERVE_PER_CLIENT, (i+1)*...))."""
+    n = SERVE_CLIENTS * SERVE_PER_CLIENT
+    reqs = []
+    for _ in range(n):
+        blob_id = "attention" if rng.integers(0, SERVE_ATTENTION) == 0 else "conv"
+        if rng.integers(0, SERVE_ALL_SPECIES) == 0:
+            species = None
+        else:
+            k = int(rng.integers(1, 5))
+            species = sorted(int(i) for i in rng.choice(s_all, size=k, replace=False))
+            if k == 1 and rng.integers(0, 2):
+                species = species[0]  # an int squeezes the species axis
+        if rng.integers(0, 4) == 0:
+            window = None
+        else:
+            length = int(rng.integers(1, t_all + 1))
+            t0 = int(rng.integers(0, t_all - length + 1))
+            window = (t0, t0 + length)
+        reqs.append((blob_id, species, window))
+    slots = [int(i) for i in rng.permutation(n)[: SERVE_DUPLICATES + 2]]
+    for slot in slots[:SERVE_DUPLICATES]:
+        src = int(rng.integers(0, n))
+        while src in slots:
+            src = int(rng.integers(0, n))
+        reqs[slot] = reqs[src]
+    reqs[slots[-2]] = ("missing", 0, None)
+    reqs[slots[-1]] = ("conv", 99, None)
+    return reqs
+
+
+def phase_serve_path(torch, args, conv: tuple, attention: tuple) -> dict:
+    """The decode service on the card, on the two codec paths' 1e-3 blobs
+    and decoded fields (no new fit): ``conv`` is (blob, artifact, field),
+    ``attention`` (blob, field). Five counted runs, each with the launch
+    counts reset just before it and read just after: the request mix
+    served serially through PartialDecoder and then by the service from
+    8 client threads, both cold and then both warm (every answer of each
+    gated bitwise, the service's stats gated), then one tick with a
+    corrupt species. Also measures the gap strict_fp32 guards against."""
+    import threading
+    from concurrent.futures import Future
+
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.codec import cache as tiers
+    from repro_torch.codec import runtime
+    from repro_torch.core.container import ContainerFormatError
+    from repro_torch.device import strict_fp32
+    from repro_torch.serve import DecodeService
+    from repro_torch.serve.decode_service import _Pending
+    from repro_torch.testing.faults import FaultInjector, blob_regions
+
+    t_start = time.perf_counter()
+    blob, _, field = conv
+    a_blob, a_field = attention
+    blobs = {"conv": blob, "attention": a_blob}
+    fields = {"conv": field, "attention": a_field}
+    s_all, t_all = field.shape[:2]
+    reqs = serve_requests(np.random.default_rng([args.seed, 18]), s_all, t_all)
+    planted = {i for i, (b, sp, _) in enumerate(reqs) if b == "missing" or sp == 99}
+    codec.configure_decode_cache(guarantee_bytes=SERVE_GUARANTEE_CACHE)
+
+    def check_answer(i, got, what):
+        b, sp, win = reqs[i]
+        if i in planted:
+            want = KeyError if b == "missing" else ValueError
+            if not isinstance(got, want):
+                fail(f"serve_path: {what}: planted request {reqs[i]} gave "
+                     f"{type(got).__name__}, expected {want.__name__}")
+            return
+        if isinstance(got, BaseException):
+            fail(f"serve_path: {what}: request {reqs[i]} raised {got!r}")
+        want = sliced(fields[b], sp, win)
+        if got.shape != want.shape or got.dtype != want.dtype or \
+                got.tobytes() != want.tobytes():
+            fail(f"serve_path: {what}: request {reqs[i]} is not bitwise the "
+                 f"slice of the {b} blob's full decode")
+
+    def only_replay(counts, what):
+        others = {k: n for k, n in counts.items()
+                  if k not in ("gbatc_correct_batched", "flash_attention") and n}
+        if others or counts["gbatc_correct_batched"] < 1:
+            fail(f"serve_path: {what} launched {counts}; expected only "
+                 "gbatc_correct_batched (and flash_attention)")
+
+    def serial():
+        decoders, out = {}, []
+        for b, sp, win in reqs:
+            try:
+                if b not in blobs:
+                    raise KeyError(f"unknown blob_id {b!r}")
+                if b not in decoders:
+                    decoders[b] = codec.PartialDecoder(blobs[b])
+                out.append(decoders[b].decode(sp, win))
+            except (KeyError, ValueError) as e:
+                out.append(e)
+        return out
+
+    def served():
+        """The mix from SERVE_CLIENTS client threads, each submitting its
+        requests and then waiting for them; returns (answers, stats)."""
+        results = [None] * len(reqs)
+        svc = DecodeService(max_batch=SERVE_MAX_BATCH)
+        for b, bb in blobs.items():
+            svc.register(b, bb)
+
+        def client(c):
+            mine = range(c * SERVE_PER_CLIENT, (c + 1) * SERVE_PER_CLIENT)
+            futs = {i: svc.submit(*reqs[i]) for i in mine}
+            for i, fut in futs.items():
+                try:
+                    results[i] = fut.result(timeout=600)
+                except Exception as e:  # checked in the main thread
+                    results[i] = e
+
+        with svc:
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(SERVE_CLIENTS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+        return results, svc.stats
+
+    runs = {}
+    for mode in ("cold", "warm"):
+        # cold: after clear_decode_cache(); warm: the cache then holds every
+        # parsed head, latent shard and guarantee artifact the mix touched
+        for way, fn in (("serial", serial), ("service", served)):
+            if mode == "cold":
+                codec.clear_decode_cache()
+            out, secs, counts = counted(torch, fn)
+            answers, st = out if way == "service" else (out, None)
+            for i, got in enumerate(answers):
+                check_answer(i, got, f"{way} {mode}")
+            del answers, out
+            only_replay(counts, f"the {way} run ({mode})")
+            runs[f"{way}_{mode}"] = {
+                "seconds": secs, "requests_per_s": len(reqs) / secs,
+                "replay_launches": counts["gbatc_correct_batched"],
+                "flash_launches": counts["flash_attention"],
+                **(st.as_dict() if st else {}), "counts": counts}
+            if st is None:
+                continue
+            # the gates of the service
+            if st.requests != len(reqs) or st.completed + st.errors != st.requests:
+                fail(f"serve_path: stats {st.as_dict()} do not add up to "
+                     f"{len(reqs)} requests")
+            if st.errors != len(planted):
+                fail(f"serve_path: {st.errors} requests failed, {len(planted)} "
+                     "were planted")
+            if not st.dispatches < st.requests:
+                fail(f"serve_path: {st.dispatches} dispatches for {st.requests} "
+                     "requests")
+            if not counts["flash_attention"]:
+                fail("serve_path: the attention blob's requests launched no "
+                     "flash_attention")
+
+    # -- 3. one tick with a corrupt species --------------------------------
+    regions = {r.label: r for r in blob_regions(blob)}
+    bad, _ = FaultInjector(seed=5).flip_bit(blob, regions["guarantee:s7:coeff"])
+    win = (4, 12)
+    tick = [_Pending("bad", [7], win, "raise", Future()),
+            _Pending("bad", [6], win, "raise", Future()),
+            _Pending("bad", [8, 9], win, "raise", Future()),
+            _Pending("bad", [6, 7, 8], win, "salvage", Future())]
+    bad_svc = DecodeService()
+    bad_svc.register("bad", bad)
+    _, tick_s, tick_counts = counted(torch, lambda: bad_svc._tick(tick))
+    e = tick[0].future.exception(0)
+    if not isinstance(e, ContainerFormatError) or (e.stream, e.unit) != ("guarantee", 7):
+        fail(f"serve_path: the species-7 request gave {e!r}, expected "
+             "ContainerFormatError naming (guarantee, 7)")
+    for req, sp in ((tick[1], [6]), (tick[2], [8, 9])):
+        got, want = req.future.result(0), sliced(field, sp, win)
+        if got.tobytes() != want.tobytes() or got.shape != want.shape:
+            fail(f"serve_path: batch-mate {sp} of the corrupt species is not bitwise")
+    salv, report = tick[3].future.result(0)
+    clean = sliced(field, [6, 7, 8], win)
+    if report.quarantined != [7] or not np.isnan(salv[1]).all() or \
+            salv[[0, 2]].tobytes() != clean[[0, 2]].tobytes():
+        fail(f"serve_path: salvage quarantined {report.quarantined}; expected NaN "
+             "exactly on species 7 and the clean decode elsewhere")
+    bst = bad_svc.stats
+    if bst.fallbacks < 1 or bst.errors != 1 or bst.completed != 3 or bst.salvaged != 1:
+        fail(f"serve_path: corrupt tick stats {bst.as_dict()}")
+    for k in ("gbatc_project_batched", "gbatc_select_accumulate"):
+        if tick_counts[k]:
+            fail(f"serve_path: the corrupt tick launched {k}")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    if runtime._head_key(bad, dev) in runtime._CACHE.heads:
+        fail("serve_path: the corrupt blob's head stayed in the decode cache")
+
+    # -- what strict_fp32 guards: one fused chunk under the flags a thread
+    # saw when another left strict_fp32 first (cuDNN TF32 on, autotuning
+    # and determinism off) against the strict chunk
+    head = runtime._cached_head(blob)
+    rows = min(runtime._FUSED_CHUNK, head.nb)
+    lat = torch.from_numpy(runtime._latents32(
+        head.latents.rows(0, rows), head.latent_bin)).to(head.runtime.device)
+    with torch.no_grad(), strict_fp32():
+        strict = head.runtime.fused(head.dec_state, head.corr_state, lat)
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.allow_tf32, cudnn.benchmark, cudnn.deterministic)
+    cudnn.allow_tf32, cudnn.benchmark, cudnn.deterministic = True, False, False
+    try:
+        with torch.no_grad():
+            loose = head.runtime.fused(head.dec_state, head.corr_state, lat)
+    finally:
+        cudnn.allow_tf32, cudnn.benchmark, cudnn.deterministic = saved
+    torch.cuda.synchronize()
+    gap = float((loose - strict).abs().max())
+    tf32_gap = {"rows": rows, "max_abs": gap,
+                "max_abs_over_max": gap / float(strict.abs().max()),
+                "bitwise": bool(torch.equal(loose, strict))}
+    del head, lat, strict, loose
+    codec.configure_decode_cache(guarantee_bytes=tiers.DEFAULT_GUARANTEE_BYTES)
+
+    n_ok = len(reqs) - len(planted)
+    info = {
+        "phase": "serve_path", "requests": len(reqs),
+        "mix": {"clients": SERVE_CLIENTS, "per_client": SERVE_PER_CLIENT,
+                "max_batch": SERVE_MAX_BATCH,
+                "attention": sum(b == "attention" for b, _, _ in reqs),
+                "all_species": sum(sp is None for _, sp, _ in reqs),
+                "whole_field": sum(w is None for _, _, w in reqs),
+                "duplicates": SERVE_DUPLICATES, "planted_failures": len(planted),
+                "guarantee_cache_bytes": SERVE_GUARANTEE_CACHE},
+        **{k: {kk: vv for kk, vv in v.items() if kk != "counts"}
+           for k, v in runs.items()},
+        "answers_bitwise": n_ok,
+        "corrupt_tick": {"seconds": tick_s, **bst.as_dict(),
+                         "raised": [e.stream, e.unit, e.offset],
+                         "quarantined": report.quarantined},
+        "strict_fp32_gap": tf32_gap,
+        "launches": {**{k: v["counts"] for k, v in runs.items()},
+                     "corrupt_tick": tick_counts},
+        "seconds": time.perf_counter() - t_start,
+    }
+    emit(info)
+    return info
+
+
+class PassFaults:
+    """A chunk loader whose ``chunks()`` calls numbered in ``fail_on``
+    (from 0) raise OSError after their second chunk: with the two ingest
+    passes of fit_stream, calls 0 and 2 are one fault in each pass."""
+
+    def __init__(self, inner, fail_on):
+        self._inner, self._fail_on = inner, set(fail_on)
+        self.calls, self.faults = 0, []
+        self.shape = inner.shape
+
+    def chunks(self):
+        call, self.calls = self.calls, self.calls + 1
+        for n, c in enumerate(self._inner.chunks(), 1):
+            yield c
+            if call in self._fail_on and n == 2:
+                self.faults.append(call)
+                raise OSError(f"injected read fault in chunks() call {call}")
+
+
+def phase_stream_path(torch, args, main_info: dict, data, temperature,
+                      field) -> dict:
+    """Streaming ingest on the card: fit_stream over the main field in
+    chunks of 4 frames with one injected OSError in each pass, then the
+    1e-3 compress; the blob must be main_path's, byte for byte. Then the
+    QoI (net production rates) of the field and of its decode on the card
+    against the same map on the host. Launch counts are reset just before
+    the fit and read just after the compress."""
+    import numpy as np
+
+    from repro_torch.core import metrics, qoi
+    from repro_torch.core.pipeline import GBATCCodec
+    from repro_torch.data import s3d
+
+    t_start = time.perf_counter()
+    target = 1e-3
+    loader = PassFaults(s3d.S3DChunkLoader(s3d_config(args), chunk_frames=4),
+                        fail_on={0, 2})
+    sleeps = []
+    torch.cuda.reset_peak_memory_stats()
+
+    def fit_and_compress():
+        t0 = time.perf_counter()
+        gb = GBATCCodec(main_config(args)).fit_stream(loader, _sleep=sleeps.append)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        return gb, fit_s, gb.compress_report(target_nrmse=target)
+
+    (gb, fit_s, (blob, rep)), total_s, counts = counted(torch, fit_and_compress)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    sha = hashlib.sha256(blob).hexdigest()
+    if sha != main_info["blob_sha256"]:
+        fail(f"stream_path: blob sha256 {sha} is not main_path's "
+             f"{main_info['blob_sha256']}")
+    if loader.faults != [0, 2] or sleeps != [0.1, 0.1]:
+        fail(f"stream_path: faults in chunks() calls {loader.faults}, backoffs "
+             f"{sleeps}; expected one fault a pass and [0.1, 0.1]")
+    nrmse = rep.per_species_nrmse
+    if not (nrmse <= target * (1 + 1e-3)).all():
+        fail(f"stream_path: normalized-vector NRMSE {nrmse.max():.4e} > {target}")
+    if counts["gbatc_project_batched"] != 1 or counts["gbatc_select_accumulate"] != 1:
+        fail(f"stream_path: fit_stream + compress launched {counts}; expected one "
+             "projection and one select")
+    timings = json.loads(json.dumps(gb.pipeline.timings))
+    del gb, rep, blob
+
+    # -- the QoI on the card against the host ------------------------------
+    mech = qoi.make_mechanism(data.shape[0])
+    out = {}
+    for name, y in (("field", data), ("decoded", field)):
+        t0 = time.perf_counter()
+        q_dev = qoi.production_rates_np(mech, y, temperature)
+        dev_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        q_host = qoi.production_rates_np(mech, y, temperature, device="cpu")
+        host_s = time.perf_counter() - t0
+        fin = np.isfinite(q_host)
+        if not np.array_equal(fin, np.isfinite(q_dev)):
+            fail(f"stream_path: QoI of the {name}: card and host disagree on "
+                 "which rates are finite")
+        scale = np.where(fin, np.abs(q_host), 0).max(axis=(1, 2, 3))
+        err = np.where(fin, np.abs(q_dev - q_host), 0).max(axis=(1, 2, 3))
+        worst = float((err / np.maximum(scale, 1e-300)).max())
+        if worst > QOI_RTOL:
+            fail(f"stream_path: QoI of the {name} on the card is {worst:.3e} of a "
+                 f"species' largest rate from the host's (limit {QOI_RTOL})")
+        out[name] = {"q": q_dev, "card_s": dev_s, "host_s": host_s,
+                     "max_err_over_species_max": worst,
+                     "non_finite": int((~fin).sum())}
+    q_nrmse = np.array([metrics.nrmse(out["field"]["q"][s], out["decoded"]["q"][s])
+                        for s in range(data.shape[0])])
+    info = {
+        "phase": "stream_path", "shape": list(data.shape), "chunk_frames": 4,
+        "faults_in_chunks_calls": loader.faults, "backoffs_s": sleeps,
+        "fit_s": fit_s, "fit_and_compress_s": total_s,
+        "timings_s": timings,
+        "blob_sha256": sha, "blob_equals_main_path": True,
+        "max_nrmse_normalized": float(nrmse.max()), "target_nrmse": target,
+        "peak_device_gb": peak_gb, "launches": counts,
+        "qoi": {"reactions": int(mech.nu_fwd.shape[1]), "rtol": QOI_RTOL,
+                **{k: {kk: vv for kk, vv in v.items() if kk != "q"}
+                   for k, v in out.items()},
+                "nrmse_decoded": {"max": float(np.nanmax(q_nrmse)),
+                                  "median": float(np.nanmedian(q_nrmse)),
+                                  "per_species": [float(x) for x in q_nrmse]}},
+        "seconds": time.perf_counter() - t_start,
+    }
+    emit(info)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,ops_path,"
-                            "partial_path")
+                            "partial_path,serve_path,stream_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -1430,10 +1831,14 @@ def run(torch, args, phases) -> None:
         # the order of PERF.md's table of TPU kernels
         rows = batched + ops_rows[:2] + [flash] + ops_rows[2:]
     paths, outputs = {}, {}
-    if "partial_path" in phases and not {"main_path", "attention_path"} <= set(phases):
-        fail("partial_path needs the main_path and attention_path phases")
+    for phase in ("partial_path", "serve_path"):
+        if phase in phases and not {"main_path", "attention_path"} <= set(phases):
+            fail(f"{phase} needs the main_path and attention_path phases")
+    if "stream_path" in phases and "main_path" not in phases:
+        fail("stream_path needs the main_path phase")
+    data = temperature = None
     if "main_path" in phases or "attention_path" in phases:
-        data, gen_s = generate(args)
+        data, temperature, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
         if "main_path" in phases:
             paths["main_path"], *outputs["main_path"] = phase_main_path(
@@ -1441,12 +1846,18 @@ def run(torch, args, phases) -> None:
         if "attention_path" in phases:
             paths["attention_path"], *outputs["attention_path"] = \
                 phase_attention_path(torch, args, data)
-        del data
     ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
     partial = (phase_partial_path(torch, outputs["main_path"],
                                   outputs["attention_path"])
                if "partial_path" in phases else None)
+    serve = (phase_serve_path(torch, args, outputs["main_path"],
+                              outputs["attention_path"])
+             if "serve_path" in phases else None)
+    stream = (phase_stream_path(torch, args, paths["main_path"], data, temperature,
+                                outputs["main_path"][2])
+              if "stream_path" in phases else None)
     outputs.clear()
+    del data, temperature
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]],
@@ -1455,14 +1866,19 @@ def run(torch, args, phases) -> None:
         if ops_calls:
             by_path["ops_path"] = {op: c["launches"][r["name"]]
                                    for op, c in ops_calls.items()}
-        if partial:
-            by_path["partial_path"] = {part: c[r["name"]]
-                                       for part, c in partial["launches"].items()}
+        for name, line in (("partial_path", partial), ("serve_path", serve)):
+            if line:
+                by_path[name] = {part: c[r["name"]]
+                                 for part, c in line["launches"].items()}
+        if stream:
+            by_path["stream_path"] = {"fit_stream_and_compress":
+                                      stream["launches"][r["name"]]}
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
                                          "attention_path", "ops_path",
-                                         "partial_path"))
+                                         "partial_path", "serve_path",
+                                         "stream_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

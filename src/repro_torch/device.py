@@ -13,6 +13,7 @@
 from __future__ import annotations
 
 import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -40,19 +41,48 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
+# strict_fp32's process-wide state: how many callers are inside it (any
+# thread), and the flags the first of them found on entry
+_STRICT_LOCK = threading.Lock()
+_strict_depth = 0
+_strict_saved: Optional[tuple] = None
+
+
+def _fp32_flags() -> tuple:
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    return (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+            cudnn.deterministic)
+
+
+def _set_fp32_flags(flags: tuple) -> None:
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
+     cudnn.deterministic) = flags
+
+
 @contextlib.contextmanager
 def strict_fp32():
-    """True-fp32 numerics for the enclosed calls (see module docstring);
-    restores the previous backend flags on exit."""
-    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-    saved = (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
-             cudnn.deterministic)
-    cudnn.allow_tf32 = False
-    matmul.allow_tf32 = False
-    cudnn.benchmark = False
-    cudnn.deterministic = True
+    """True-fp32 numerics for the enclosed calls (see module docstring).
+
+    The four backend flags (cuDNN and matmul TF32, cuDNN autotuning and
+    determinism) are process-wide, so entries are counted across threads
+    under one lock: the first caller to enter saves the flags and sets
+    the strict values, later entries (nested, or from other threads) only
+    count, and the last caller to leave restores what the first one
+    found. A thread inside never sees another thread's exit undo its
+    flags. While any thread is inside, every thread of the process sees
+    the strict flags, including one that never entered."""
+    global _strict_depth, _strict_saved
+    with _STRICT_LOCK:
+        if _strict_depth == 0:
+            _strict_saved = _fp32_flags()
+            _set_fp32_flags((False, False, False, True))
+        _strict_depth += 1
     try:
         yield
     finally:
-        (cudnn.allow_tf32, matmul.allow_tf32, cudnn.benchmark,
-         cudnn.deterministic) = saved
+        with _STRICT_LOCK:
+            _strict_depth -= 1
+            if _strict_depth == 0:
+                _set_fp32_flags(_strict_saved)
+                _strict_saved = None

@@ -33,7 +33,8 @@ def _imported_roots(path):
 
 
 def test_package_layout_mirrors_the_reference():
-    for sub in ("core", "codec", "nn", "train", "kernels", "data", "models"):
+    for sub in ("core", "codec", "nn", "train", "kernels", "data", "models",
+                "serve", "testing"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     for src in ("gbatc_kernels.cu", "flash_attention.cu", "block_quant.cu",
                 "rglru_scan.cu", "rwkv6_scan.cu"):
@@ -80,7 +81,9 @@ assert "repro_torch.models.block_attention" in names
 assert "repro_torch.kernels.flash_attention" in names
 for mod in ("block_quant", "rglru_scan", "rwkv6_scan"):
     assert f"repro_torch.kernels.{mod}" in names, mod
-for mod in ("codec.partial", "codec.integrity", "testing.faults"):
+for mod in ("codec.partial", "codec.integrity", "testing.faults",
+            "serve.decode_service", "train.fault_tolerance", "core.sz",
+            "core.gae_ref", "core.qoi"):
     assert f"repro_torch.{mod}" in names, mod
 for op in ("flash_attention_op", "rwkv6_scan_op", "rglru_scan_op",
            "block_quant_op", "gbatc_project_op", "gbatc_correct_op"):
@@ -111,7 +114,9 @@ def test_importing_builds_nothing():
                                    "attention_codec", "flash_ops", "flash_attention_op",
                                    "rwkv6_scan_op", "rglru_scan_op", "block_quant_op",
                                    "gbatc_project_op", "gbatc_correct_op",
-                                   "partial_decoder", "salvage", "decompress_reference"])
+                                   "partial_decoder", "salvage", "decompress_reference",
+                                   "decode_service", "production_rates",
+                                   "production_rates_np"])
 def test_device_none_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -120,7 +125,9 @@ def test_device_none_without_cuda_raises(entry):
     from repro_torch import codec
     from repro_torch.core import gae
     from repro_torch.core.pipeline import GBATCCodec, GBATCPipeline, PipelineConfig
+    from repro_torch.core import qoi
     from repro_torch.kernels import ops
+    from repro_torch.serve import DecodeService
 
     calls = {
         "codec": lambda: GBATCCodec(PipelineConfig()),
@@ -130,6 +137,13 @@ def test_device_none_without_cuda_raises(entry):
         "partial_decoder": lambda: codec.PartialDecoder(b"GBTC"),
         "salvage": lambda: codec.salvage_decompress(b"GBTC"),
         "decompress_reference": lambda: codec.decompress_reference(b"GBTC"),
+        "decode_service": lambda: DecodeService(),
+        "production_rates": lambda: qoi.production_rates(
+            qoi.make_mechanism(4), np.ones((2, 4), np.float32),
+            np.ones(2, np.float32)),
+        "production_rates_np": lambda: qoi.production_rates_np(
+            qoi.make_mechanism(4), np.ones((4, 1, 2, 2), np.float32),
+            np.ones((1, 2, 2), np.float32)),
         "ops": lambda: ops.gbatc_correct_batched(
             np.zeros((1, 2, 4), np.float32), np.zeros((1, 2, 4), np.float32),
             np.zeros((1, 4, 4), np.float32)),
