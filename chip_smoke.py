@@ -77,7 +77,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    one projection and one select launch; then the QoI (net production
    rates, ``repro_torch.core.qoi``) of the field and of its decode on the
    card against the same map on the host;
-10. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+10. ``mesh_path``  the mesh-sharded fit and compress (``repro_torch.parallel``)
+   on main_path's field and fitted codec, over a mesh of 4 (``host_mesh(4)``
+   on a machine with 4 cards, else ``(cuda:0,) * 4``): main_path's fitted
+   state compressed through ``ShardedGuaranteeEngine`` with 4 and 116
+   chunks (each blob main_path's byte for byte, one projection and one
+   select launch a chunk, peak device memory against the default
+   engine's); ``fit_stream`` on a 1-device mesh (main_path's blob); the
+   data-parallel fit through ``GBATCCodec(mesh=...)`` (replicas bitwise
+   equal, losses falling, the bound met, latents bitwise the one-device
+   encode, decode bitwise); the int8 gradient exchange on ``block_quant``
+   (one launch a shard a step, a sampled bucket bitwise its plain version,
+   the bucket's kernel time against its bound);
+11. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -314,6 +326,24 @@ def time_ms(torch, fn, launches: int, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(torch, fn, launches: int = 200) -> float:
+    """Mean device time of ``launches`` back-to-back launches: a spin
+    kernel first holds the stream while the host queues them all, so a
+    call whose host side outlasts its kernel is timed on the device
+    alone (``time_ms`` then times the host)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)  # ~0.1 s of cycles
+    a.record()
+    for _ in range(launches):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / launches
 
 
 def make_inputs(torch, s, nb, d, dtype, seed):
@@ -939,8 +969,8 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
           ae_steps: int) -> tuple:
     """Fit + compress at 1e-3, decompress from the bytes, a second bound on
     the same fit, with every gate of the path; returns (info, blob,
-    artifact, field): the path line, the 1e-3 blob, its artifact and its
-    decoded field. Launch counts are reset just before each of the three
+    artifact, field, codec): the path line, the 1e-3 blob, its artifact,
+    its decoded field and the fitted codec. Launch counts are reset just before each of the three
     calls and read just after it."""
     import numpy as np
 
@@ -1039,7 +1069,7 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
         "peak_device_gb": peak_gb,
         "select_backends": backends,
     }
-    return info, blob, rep.artifact, field
+    return info, blob, rep.artifact, field, gb
 
 
 def select_backends_agree(pipe, name: str, bounds) -> dict:
@@ -1098,11 +1128,13 @@ def main_config(args):
 
 def phase_main_path(torch, args, data) -> dict:
     cfg = main_config(args)
-    info, blob, artifact, field = drive(torch, data, cfg, args, "main_path", {
+    info, blob, artifact, field, gb = drive(torch, data, cfg, args, "main_path", {
         "species": 58, "block": [4, 5, 4], "latent": 36,
         "conv_channels": [32, 64], "correction": [232, 464, 232]}, args.ae_steps)
     emit(info)
-    return info, blob, artifact, field
+    # mesh_path compresses this fit again; its prepared state goes now
+    gb.pipeline.set_guarantee_engine(gb.pipeline._gengine)
+    return info, blob, artifact, field, gb
 
 
 def phase_attention_path(torch, args, data) -> dict:
@@ -1112,7 +1144,7 @@ def phase_attention_path(torch, args, data) -> dict:
     cfg = PipelineConfig(family="attention", arch=(32, 2, 1, 64), latent=36,
                          use_correction=True, ae_steps=args.attn_ae_steps,
                          corr_steps=args.corr_steps, seed=args.seed)
-    info, blob, _, field = drive(torch, data, cfg, args, "attention_path", {
+    info, blob, _, field, _ = drive(torch, data, cfg, args, "attention_path", {
         "species": 58, "block": [4, 5, 4], "latent": 36,
         "arch": {"d_model": 32, "n_heads": 2, "depth": 1, "mlp_hidden": 64},
         "tokens": 232, "head_dim": 16, "correction": [232, 464, 232]},
@@ -1781,11 +1813,280 @@ def phase_stream_path(torch, args, main_info: dict, data, temperature,
     return info
 
 
+MESH_P = 4  # mesh_path's data-parallel width
+MESH_SHARDS = (4, 116)  # sharded-engine chunk counts: species only; rows split
+
+
+def mesh_of(torch, k: int):
+    """``host_mesh(k)`` on a machine with k cards, else ``(cuda:0,) * k``:
+    every P > 1 branch of the port then runs on one card."""
+    from repro_torch.parallel import Mesh, host_mesh
+
+    if torch.cuda.device_count() >= k:
+        return host_mesh(k), f"host_mesh({k})"
+    return Mesh((torch.device("cuda", 0),) * k), f"(cuda:0,) * {k}"
+
+
+class DPRecorder:
+    """Wraps ``mesh_fit.dp_fit`` while a phase drives the pipeline: records
+    each data-parallel fit's losses and whether its replicas came out
+    bitwise equal (``dp_fit`` itself raises when they do not)."""
+
+    def __init__(self, torch):
+        from repro_torch.parallel import mesh_fit
+
+        self.torch, self.mesh_fit, self.fits = torch, mesh_fit, []
+
+    def __enter__(self):
+        self.real = real = self.mesh_fit.dp_fit
+
+        def recorded(*a, **kw):
+            replicas, losses = real(*a, **kw)
+            self.fits.append({"replicas": len(replicas), "losses": losses,
+                              "replicas_equal": replicas_equal(self.torch, replicas)})
+            return replicas, losses
+
+        self.mesh_fit.dp_fit = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self.mesh_fit.dp_fit = self.real
+        return False
+
+
+def replicas_equal(torch, replicas) -> bool:
+    first = replicas[0]
+    return all(torch.equal(r[name].to(first[name].device), first[name])
+               for r in replicas[1:] for name in r)
+
+
+def falling(losses, what: str) -> dict:
+    """Finite losses whose last tenth's mean is below the first tenth's."""
+    import numpy as np
+
+    tenth = max(1, len(losses) // 10)
+    first, last = float(np.mean(losses[:tenth])), float(np.mean(losses[-tenth:]))
+    if not (np.isfinite(losses).all() and last < first):
+        fail(f"mesh_path: {what}: losses not finite and falling "
+             f"(first tenth {first:.4e}, last tenth {last:.4e})")
+    return {"steps": len(losses), "first_tenth_mean": first,
+            "last_tenth_mean": last, "final": float(losses[-1])}
+
+
+def phase_mesh_path(torch, args, main_info: dict, data, main_codec) -> dict:
+    """The mesh-sharded fit and compress on the card (no new kernel), on
+    main_path's field, fitted codec and blob sha256:
+
+    1. main_path's fitted state compressed at 1e-3 through
+       ``ShardedGuaranteeEngine(n_shards=4)`` and ``(n_shards=116)`` (rows
+       split): each blob main_path's byte for byte, k projection and k select
+       launches; the peak device memory of each against the default
+       engine's on the same decode + prepare + select;
+    2. ``fit_stream`` on a 1-device mesh: main_path's blob;
+    3. the P-wide DP fit through ``GBATCCodec(mesh=...)`` (fp32 exchange):
+       replicas bitwise equal, losses falling, the bound met on every
+       species, latents bitwise the one-device encode, decompress bitwise
+       the report's reconstruction;
+    4. ``MiniBatchTrainer.fit(mesh=..., quantized_exchange=True)`` on the
+       conv AE's loss over main_path's blocks: replicas bitwise equal,
+       losses falling, ``block_quant`` launched P times a step, a sampled
+       bucket's launch bitwise its plain version; the bucket's kernel time
+       against its plain version and bound.
+
+    Launch counts are reset just before each part and read just after."""
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.core import autoencoder, blocking, gae
+    from repro_torch.core.pipeline import GBATCCodec, GBATCPipeline
+    from repro_torch.data import s3d
+    from repro_torch.kernels import block_quant as bk
+    from repro_torch.kernels import ref as kref
+    from repro_torch.parallel import gradient_compression as gc
+    from repro_torch.parallel import host_mesh, mesh_fit, shard_rows
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import train_loop
+
+    t_start = time.perf_counter()
+    target = 1e-3
+    cfg = main_config(args)
+    sha = main_info["blob_sha256"]
+    mesh, mesh_kind = mesh_of(torch, MESH_P)
+    launches, info = {}, {"phase": "mesh_path", "P": MESH_P, "mesh": mesh_kind,
+                          "devices": [str(d) for d in mesh.devices]}
+
+    def peak_over(fn):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out, seconds, counts = counted(torch, fn)
+        return out, seconds, counts, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    # -- 1. the sharded engine on main_path's fitted state -----------------
+    # the engines alone (prepare + select) on the compress's own inputs,
+    # then each sharded engine through the whole compress
+    pipe = main_codec.pipeline
+    pipe.set_guarantee_engine(gae.default_engine())
+    prep = pipe._prepare_guarantee(0.05, False)[0]
+    x, x_rec = prep.x_ref, prep.x_rec32
+    del prep
+    pipe.set_guarantee_engine(gae.default_engine())
+    tau = target * np.sqrt(cfg.geometry.block_size)
+    engines = {}
+    for n in (None,) + MESH_SHARDS:
+        eng = (gae.default_engine() if n is None
+               else mesh_fit.ShardedGuaranteeEngine(mesh=mesh, n_shards=n))
+        _, seconds, _, peak = peak_over(lambda: eng.select(eng.prepare(x, x_rec), tau))
+        engines["default" if n is None else f"n_shards_{n}"] = {
+            "prepare_select_s": seconds, "prepare_select_peak_device_gb": peak}
+    del x, x_rec
+    for n in MESH_SHARDS:
+        pipe.set_guarantee_engine(mesh_fit.ShardedGuaranteeEngine(mesh=mesh, n_shards=n))
+        chunks = len(mesh_fit._chunk_plan(pipe.n_species, pipe._latents.shape[0], n))
+        blob, seconds, counts, peak = peak_over(
+            lambda: main_codec.compress(target_nrmse=target))
+        got = hashlib.sha256(blob).hexdigest()
+        if got != sha:
+            fail(f"mesh_path: n_shards={n} blob sha256 {got} is not main_path's {sha}")
+        for kernel in ("gbatc_project_batched", "gbatc_select_accumulate"):
+            if counts[kernel] != chunks:
+                fail(f"mesh_path: n_shards={n}: {kernel} launched {counts[kernel]} "
+                     f"times, expected one a chunk ({chunks})")
+        launches[f"engine_{n}"] = counts
+        engines[f"n_shards_{n}"].update(
+            chunks=chunks, compress_s=seconds, compress_peak_device_gb=peak,
+            timings_s=json.loads(json.dumps(pipe.timings)),
+            blob_equals_main_path=True)
+    pipe.set_guarantee_engine(gae.default_engine())
+    info["sharded_engine"] = engines
+
+    # -- 2. mesh ingest on a 1-device mesh ---------------------------------
+    loader = s3d.S3DChunkLoader(s3d_config(args), chunk_frames=4)
+    (blob, rep), seconds, counts = counted(torch, lambda: (
+        GBATCCodec(cfg, mesh=host_mesh(1)).fit_stream(loader)
+        .compress_report(target_nrmse=target)))
+    got = hashlib.sha256(blob).hexdigest()
+    if got != sha:
+        fail(f"mesh_path: fit_stream on a 1-device mesh gave blob {got}, "
+             f"not main_path's {sha}")
+    launches["fit_stream_p1"] = counts
+    info["fit_stream_p1"] = {"seconds": seconds, "blob_equals_main_path": True}
+    del blob, rep
+
+    # -- 3. the P-wide DP fit through the pipeline (fp32 exchange) ---------
+    gb = GBATCCodec(cfg, mesh=mesh)
+    with DPRecorder(torch) as rec:
+        _, fit_s, fit_counts = counted(torch, lambda: gb.fit(data))
+    dp = gb.pipeline
+    if [f["replicas"] for f in rec.fits] != [MESH_P, MESH_P]:
+        fail(f"mesh_path: the pipeline ran {len(rec.fits)} data-parallel fits "
+             f"({[f['replicas'] for f in rec.fits]} replicas); expected the AE "
+             f"and the correction at P={MESH_P}")
+    if not all(f["replicas_equal"] for f in rec.fits):
+        fail("mesh_path: the pipeline's DP fit left unequal replicas")
+    fits = {name: falling(f["losses"], f"pipeline {name} fit")
+            for name, f in zip(("ae", "correction"), rec.fits)}
+    shards = dp._block_shards
+    one_device = GBATCPipeline._encode(
+        dp, dp._ae_params, torch.cat([s.to(mesh.devices[0]) for s in shards]))
+    if not np.array_equal(one_device, dp._latents):
+        fail("mesh_path: the sharded encode's latents are not the one-device "
+             "encode's bitwise")
+    (blob, rep), compress_s, compress_counts = counted(
+        torch, lambda: gb.compress_report(target_nrmse=target))
+    nrmse = rep.per_species_nrmse
+    if not (nrmse <= target * (1 + 1e-3)).all():
+        fail(f"mesh_path: DP fit compress missed the bound: {nrmse.max():.4e}")
+    field, decompress_s, decompress_counts = counted(torch, lambda: codec.decompress(blob))
+    if not np.array_equal(field, rep.recon):
+        fail("mesh_path: decompress(blob) of the DP fit is not the encode "
+             "side's reconstruction")
+    launches.update(dp_fit=fit_counts, dp_compress=compress_counts,
+                    dp_decompress=decompress_counts)
+    info["dp_fit"] = {
+        "fit_s": fit_s, "compress_s": compress_s, "decompress_s": decompress_s,
+        "timings_s": json.loads(json.dumps(dp.timings)),
+        "losses": fits, "replicas_bitwise_equal": True,
+        "latents_equal_one_device": True, "decode_bitwise": True,
+        "max_nrmse": float(nrmse.max()), "target_nrmse": target,
+        "compression_ratio": rep.compression_ratio, "blob_bytes": len(blob),
+        "blob_sha256": hashlib.sha256(blob).hexdigest()}
+    del gb, dp, blob, rep, field, shards
+
+    # -- 4. the int8 exchange: the conv AE's loss over main_path's blocks --
+    normed, _, _ = GBATCPipeline._normalize(data)
+    blocks = blocking.to_blocks(normed, cfg.geometry)
+    del normed
+    model = pipe.model
+    trainer = train_loop.MiniBatchTrainer(autoencoder.ae_loss(model),
+                                          opt.adamw_cfg(cfg.lr, cfg.ae_steps))
+    params = autoencoder.init_params(model.cfg, cfg.seed, mesh.devices[0])
+    block_shards = shard_rows(blocks, mesh)
+    sample_at = MESH_P * (cfg.ae_steps // 2)  # a bucket halfway through
+    sampled, calls = {}, [0]
+    real_bq = gc._block_quant
+
+    def sampling(xb, n_bits, block):
+        out = real_bq(xb, n_bits, block)
+        if calls[0] == sample_at:
+            sampled.update(x=xb.clone(), values=out[0].clone(), scales=out[1].clone(),
+                           n_bits=n_bits, block=block)
+        calls[0] += 1
+        return out
+
+    gc._block_quant = sampling
+    try:
+        (_, losses), q_fit_s, q_counts = counted(torch, lambda: trainer.fit(
+            params, (block_shards,), steps=cfg.ae_steps, batch_size=cfg.batch_size,
+            seed=cfg.seed, mesh=mesh, quantized_exchange=True))
+    finally:
+        gc._block_quant = real_bq
+    if not replicas_equal(torch, trainer.last_replicas):
+        fail("mesh_path: the int8-exchange fit left unequal replicas")
+    q_loss = falling(losses, "int8-exchange fit")
+    if q_counts["block_quant"] != MESH_P * cfg.ae_steps:
+        fail(f"mesh_path: block_quant launched {q_counts['block_quant']} times in "
+             f"{cfg.ae_steps} steps at P={MESH_P}; expected one a shard a step")
+    xb = sampled["x"]
+    want, want_sc = kref.block_quant_ref(xb, n_bits=sampled["n_bits"],
+                                         block=sampled["block"])
+    if not (torch.equal(sampled["values"], want)
+            and torch.equal(sampled["scales"], want_sc.reshape(-1))):
+        fail("mesh_path: the sampled gradient bucket's block_quant launch is not "
+             "bitwise its plain version")
+    launches["int8_exchange_fit"] = q_counts
+    n_vals = xb.numel()
+    nbytes = 2 * 4 * n_vals + 4 * xb.shape[0]
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    reps = max(20, args.launches)
+    bucket = {
+        "shape": list(xb.shape), "n_bits": sampled["n_bits"], "sampled_call": sample_at,
+        "bitwise_plain": True,
+        "ms": time_ms(torch, lambda: bk.block_quant(xb, n_bits=8, block=64), reps),
+        "device_ms": device_ms(torch, lambda: bk.block_quant(xb, n_bits=8, block=64)),
+        "plain_ms": time_ms(torch, lambda: kref.block_quant_ref(xb, n_bits=8, block=64),
+                            reps),
+        "plain_device_ms": device_ms(
+            torch, lambda: kref.block_quant_ref(xb, n_bits=8, block=64)),
+        "bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes}
+    info["int8_exchange"] = {
+        "fit_s": q_fit_s, "losses": q_loss,
+        "fp32_exchange_final_loss": fits["ae"]["final"],
+        "replicas_bitwise_equal": True, "block_quant_launches": q_counts["block_quant"],
+        "bucket": bucket,
+        "dp_wire_report": mesh_fit.dp_wire_report(params, MESH_P),
+    }
+    info["launches"] = launches
+    info["seconds"] = time.perf_counter() - t_start
+    emit(info)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,ops_path,"
-                            "partial_path,serve_path,stream_path")
+                            "partial_path,serve_path,stream_path,mesh_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -1834,15 +2135,16 @@ def run(torch, args, phases) -> None:
     for phase in ("partial_path", "serve_path"):
         if phase in phases and not {"main_path", "attention_path"} <= set(phases):
             fail(f"{phase} needs the main_path and attention_path phases")
-    if "stream_path" in phases and "main_path" not in phases:
-        fail("stream_path needs the main_path phase")
-    data = temperature = None
+    for phase in ("stream_path", "mesh_path"):
+        if phase in phases and "main_path" not in phases:
+            fail(f"{phase} needs the main_path phase")
+    data = temperature = main_codec = None
     if "main_path" in phases or "attention_path" in phases:
         data, temperature, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
         if "main_path" in phases:
-            paths["main_path"], *outputs["main_path"] = phase_main_path(
-                torch, args, data)
+            paths["main_path"], *outputs["main_path"], main_codec = \
+                phase_main_path(torch, args, data)
         if "attention_path" in phases:
             paths["attention_path"], *outputs["attention_path"] = \
                 phase_attention_path(torch, args, data)
@@ -1857,6 +2159,9 @@ def run(torch, args, phases) -> None:
                                 outputs["main_path"][2])
               if "stream_path" in phases else None)
     outputs.clear()
+    mesh = (phase_mesh_path(torch, args, paths["main_path"], data, main_codec)
+            if "mesh_path" in phases else None)
+    main_codec = None
     del data, temperature
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
@@ -1873,12 +2178,15 @@ def run(torch, args, phases) -> None:
         if stream:
             by_path["stream_path"] = {"fit_stream_and_compress":
                                       stream["launches"][r["name"]]}
+        if mesh:
+            by_path["mesh_path"] = {part: c[r["name"]]
+                                    for part, c in mesh["launches"].items()}
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
                                          "attention_path", "ops_path",
                                          "partial_path", "serve_path",
-                                         "stream_path"))
+                                         "stream_path", "mesh_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -64,6 +64,11 @@ class CompressedArtifact:
     _latent_memo: Optional[dict] = dataclasses.field(
         default=None, repr=False, compare=False
     )
+    # a mesh fit's latent_q as its shards' row blocks: the sharded stream
+    # packs them as parts, byte-identical to packing latent_q whole
+    _latent_parts: Optional[list] = dataclasses.field(
+        default=None, repr=False, compare=False
+    )
 
     def latent_blob(self) -> bytes:
         """Single sequential Huffman chain (the v1/v2 ``latent`` stream)."""
@@ -91,7 +96,9 @@ class CompressedArtifact:
             return memo[key]
         from repro_torch import codec
 
-        stream = codec.pack_latent_stream(self.latent_q, shard_rows)
+        stream = codec.pack_latent_stream(
+            self.latent_q if self._latent_parts is None else self._latent_parts,
+            shard_rows)
         if memo is not None:
             memo[key] = stream
         return stream

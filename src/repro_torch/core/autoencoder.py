@@ -145,12 +145,14 @@ def fit(
     params: Optional[dict] = None,
     indices=None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> tuple[dict[str, torch.Tensor], np.ndarray]:
     """Train the AE with AdamW on MSE. Returns ``(params, loss_history)``;
     ``params`` starts the run from given parameters instead of a fresh
     seeded init, ``indices`` feeds a ``(steps, batch)`` index matrix
-    instead of the trainer's own draws."""
-    dev = resolve_device(device)
+    instead of the trainer's own draws, ``mesh`` runs the data-parallel fit
+    (:meth:`~repro_torch.train.train_loop.MiniBatchTrainer.fit`)."""
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     if params is None:
         params = init_params(model.cfg, seed, dev)
     trainer = train_loop.MiniBatchTrainer(
@@ -160,4 +162,5 @@ def fit(
     return trainer.fit(
         params, (blocks,), steps=steps, batch_size=batch_size, seed=seed,
         log_every=log_every, indices=indices, device=dev,
+        mesh=mesh,
     )

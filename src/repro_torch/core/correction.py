@@ -111,10 +111,13 @@ def fit(
     params: Optional[dict] = None,
     indices=None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> tuple[dict[str, torch.Tensor], np.ndarray]:
     """Train the correction net on (reconstructed -> original) species
-    vectors. Returns ``(params, loss_history)``."""
-    dev = resolve_device(device)
+    vectors. Returns ``(params, loss_history)``; ``mesh`` runs the
+    data-parallel fit (:meth:`~repro_torch.train.train_loop.
+    MiniBatchTrainer.fit`)."""
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     if params is None:
         params = init_params(net.cfg, seed, dev)
     trainer = train_loop.MiniBatchTrainer(
@@ -124,4 +127,5 @@ def fit(
     return trainer.fit(
         params, (x_rec, x_orig), steps=steps, batch_size=batch_size,
         seed=seed, log_every=log_every, indices=indices, device=dev,
+        mesh=mesh,
     )

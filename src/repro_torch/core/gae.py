@@ -368,16 +368,18 @@ class GuaranteeEngine:
         self.last_prepare_s: dict = {}
 
     # -- batched programs ------------------------------------------------
+    # each runs on the device of its staged operands: the engine's device
+    # here, a chunk's device under a sharded engine's _dispatch
     def _project(self, residual, basis):
-        return ops.gbatc_project_batched(residual, basis, device=self.device)
+        return ops.gbatc_project_batched(residual, basis, device=residual.device)
 
     def _apply(self, x_rec, dense, basis):
         return ops.gbatc_correct_batched(x_rec, dense, basis,
-                                         device=self.device)
+                                         device=x_rec.device)
 
     def _correct(self, x_rec, cqv32, inv_rank, m_eff, basis32):
         return ops.gbatc_select_accumulate(
-            x_rec, cqv32, inv_rank, m_eff, basis32, device=self.device
+            x_rec, cqv32, inv_rank, m_eff, basis32, device=x_rec.device
         )
 
     def _select(self, coeffs, coeffs_sorted, inv_rank, norms2, x_rec,

@@ -38,8 +38,15 @@ same device.
 
 ``device=None`` means the GPU and raises without CUDA; ``device="cpu"``
 runs everything, the kernels' plain versions included, on the CPU.
-``fit_stream`` fits from time chunks on one device; the reference's
-mesh-sharded ingest and fit are not ported yet.
+
+``mesh=`` (a :class:`~repro_torch.parallel.Mesh`) is the reference's
+mesh-sharded orchestration: the block rows are split over the mesh's
+devices, the AE and correction fits run data-parallel over them
+(:mod:`repro_torch.parallel.mesh_fit`), ``fit_stream`` lands its chunks
+in a :class:`~repro_torch.parallel.mesh_fit.ShardedBlockStore`, and
+compress runs through a
+:class:`~repro_torch.parallel.mesh_fit.ShardedGuaranteeEngine`. On a
+1-device mesh the container is the one-device path's byte for byte.
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import convert
+from repro_torch import convert, parallel
 from repro_torch.codec.artifact import CompressedArtifact
 from repro_torch.codec.families import get as _family, structural as _structural
 from repro_torch.core import blocking, correction, gae, metrics
@@ -62,6 +69,17 @@ from repro_torch.train.fault_tolerance import retry_with_backoff
 
 
 _ENCODE_BATCH = 512  # blocks per encoder launch (bounds activation memory)
+
+
+def _mesh_device(device: DeviceLike, mesh) -> torch.device:
+    """The pipeline's device: ``device``, or on a mesh its first device
+    (``device``, if given, must be that one)."""
+    if mesh is None:
+        return resolve_device(device)
+    if device is not None and resolve_device(device) != mesh.devices[0]:
+        raise ValueError(f"device {device} is not the mesh's first device "
+                         f"{mesh.devices[0]}")
+    return mesh.devices[0]
 
 
 def _host_alloc(shape, dtype):
@@ -111,14 +129,16 @@ class GBATCPipeline:
     (:mod:`repro_torch.codec.families`): ``cfg.family`` picks the handle, the
     normalized :class:`~repro_torch.codec.families.StructuralConfig` builds the
     model, and ``family.fit`` trains it — conv by default, so existing
-    configs behave exactly as before.
+    configs behave exactly as before. ``mesh`` shards the fit and compress
+    over its devices (see the module docstring).
     """
 
     def __init__(self, cfg: PipelineConfig, n_species: int,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.cfg = cfg
         self.n_species = n_species
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(device, mesh)
         self.family = _family(cfg.family)
         self.scfg = _structural(cfg)
         self.model = self.family.build_model(self.scfg, n_species, self.device)
@@ -130,7 +150,12 @@ class GBATCPipeline:
             if cfg.use_correction
             else None
         )
-        self._gengine = gae.default_engine(self.device)
+        if mesh is not None:
+            from repro_torch.parallel.mesh_fit import ShardedGuaranteeEngine
+
+            self._gengine = ShardedGuaranteeEngine(mesh=mesh)
+        else:
+            self._gengine = gae.default_engine(self.device)
         #: wall seconds of the stages of the last fit / compress (device
         #: work included: each stage ends on a host fetch)
         self.timings: dict = {}
@@ -139,6 +164,9 @@ class GBATCPipeline:
         self._corr_params: Any = None
         self._latents: Optional[np.ndarray] = None
         self._vecs_orig: Optional[np.ndarray] = None
+        # a mesh fit's block row shards, until the first compress copies
+        # them to the host as _vecs_orig
+        self._block_shards: Optional[list] = None
         self._data: Optional[np.ndarray] = None
         self._shape: Optional[tuple[int, int, int, int]] = None
         self._data_nbytes: int = 0
@@ -178,6 +206,8 @@ class GBATCPipeline:
         normed, mn, rngs = self._normalize(data)
         blocks = blocking.to_blocks(normed, self.cfg.geometry)
         del normed
+        if self.mesh is not None:
+            blocks = parallel.shard_rows(blocks, self.mesh)
         t_blocks = time.perf_counter() - t0
         stats = self._fit_blocks(
             blocks, mn, rngs, shape=tuple(data.shape),
@@ -269,25 +299,39 @@ class GBATCPipeline:
         h, w = spatial
         nb = (t_total // geom.bt) * (h // geom.ph) * (w // geom.pw)
 
-        def pass_blocks():
-            # preallocate and fill per chunk: peak memory stays one block
-            # array plus one chunk, never the transient 2x a concatenation
-            # would cost. Allocated inside the pass so a restart refills
-            # from row 0 of a fresh array.
-            blocks = _host_alloc(
-                (nb, self.n_species, geom.bt, geom.ph, geom.pw), np.float32
-            )
-            row = 0
+        def normed_parts():
             for chunk in loader.chunks():
                 chunk = np.asarray(chunk)
                 normed = (
                     (chunk - mn[:, None, None, None])
                     / rngs[:, None, None, None]
                 ).astype(np.float32)
-                part = blocking.to_blocks(normed, geom)
-                blocks[row : row + part.shape[0]] = part
-                row += part.shape[0]
-            return blocks
+                yield blocking.to_blocks(normed, geom)
+
+        tail = (self.n_species, geom.bt, geom.ph, geom.pw)
+        if self.mesh is not None:
+            from repro_torch.parallel.mesh_fit import ShardedBlockStore
+
+            def pass_blocks():
+                # mesh ingest: each chunk's blocks land straight in the
+                # devices' row shards; the host holds one chunk at a time.
+                # A restart refills a fresh store.
+                store = ShardedBlockStore(nb, tail, self.mesh)
+                for part in normed_parts():
+                    store.append(part)
+                return store.finish()
+        else:
+            def pass_blocks():
+                # preallocate and fill per chunk: peak memory stays one
+                # block array plus one chunk, never the transient 2x a
+                # concatenation would cost. Allocated inside the pass so a
+                # restart refills from row 0 of a fresh array.
+                blocks = _host_alloc((nb, *tail), np.float32)
+                row = 0
+                for part in normed_parts():
+                    blocks[row : row + part.shape[0]] = part
+                    row += part.shape[0]
+                return blocks
 
         blocks = retry_with_backoff(pass_blocks, **retry)
         t_ingest = time.perf_counter() - t0
@@ -299,13 +343,18 @@ class GBATCPipeline:
         self.timings["fit_total"] = time.perf_counter() - t0
         return stats
 
-    def _fit_blocks(self, blocks: np.ndarray, mn: np.ndarray,
+    def _fit_blocks(self, blocks, mn: np.ndarray,
                     rngs: np.ndarray, *, shape, data_nbytes: int,
                     data: Optional[np.ndarray], verbose: bool) -> dict:
-        """Fit body over normalized host blocks (NB, S, bt, ph, pw)."""
+        """Fit body over normalized blocks (NB, S, bt, ph, pw): a host
+        array, or on a mesh a list of the devices' row shards, over which
+        the AE and correction fits run data-parallel."""
         cfg = self.cfg
+        mesh = self.mesh
+        fit_kw = {} if mesh is None else {"mesh": mesh}
         t0 = time.perf_counter()
-        blocks_dev = torch.from_numpy(blocks).to(self.device)
+        blocks_dev = (torch.from_numpy(blocks).to(self.device) if mesh is None
+                      else blocks)
         state, losses = self.family.fit(
             self.model,
             blocks_dev,
@@ -315,6 +364,7 @@ class GBATCPipeline:
             seed=cfg.seed,
             log_every=200 if verbose else 0,
             device=self.device,
+            **fit_kw,
         )
         # parameters leave the trainer in the reference's tree layout (what
         # the wire carries). Honest sub-fp32 storage: round them through the
@@ -335,10 +385,16 @@ class GBATCPipeline:
             vec_rec = (ae_vecs.permute(1, 2, 0)
                        .reshape(-1, self.n_species).contiguous())
             del ae_vecs
-            vec_orig = correction.blocks_to_pointwise(blocks_dev)
+            if mesh is None:
+                vec_orig = correction.blocks_to_pointwise(blocks_dev)
+            else:
+                # pointwise vectors sharded by the same block rows
+                vec_rec = parallel.shard_rows(vec_rec, mesh)
+                vec_orig = [correction.blocks_to_pointwise(b) for b in blocks_dev]
             corr_state, _ = correction.fit(
                 self.corr_net, vec_rec, vec_orig,
                 steps=cfg.corr_steps, seed=cfg.seed + 1, device=self.device,
+                **fit_kw,
             )
             del vec_rec, vec_orig
             corr_params = quantize_params(convert.to_reference(corr_state),
@@ -351,7 +407,11 @@ class GBATCPipeline:
         self._ae_params = params
         self._corr_params = corr_params
         self._latents = latents
-        self._vecs_orig = blocking.blocks_as_vectors(blocks)
+        if mesh is None:
+            self._vecs_orig = blocking.blocks_as_vectors(blocks)
+            self._block_shards = None
+        else:
+            self._vecs_orig, self._block_shards = None, blocks
         self._data = data
         self._shape = tuple(shape)
         self._data_nbytes = int(data_nbytes)
@@ -361,15 +421,35 @@ class GBATCPipeline:
         self._packed_params = None
         return {"final_ae_loss": losses[-1] if len(losses) else float("nan")}
 
-    def _encode(self, params, blocks_dev: torch.Tensor) -> np.ndarray:
-        """Blocks -> latents (NB, latent) on the host, in fixed-size batches."""
-        state = convert.from_reference(params, device=self.device)
-        outs = []
+    def _encode(self, params, blocks) -> np.ndarray:
+        """Blocks -> latents (NB, latent) on the host, in global batches of
+        ``_ENCODE_BATCH`` blocks. ``blocks`` is one device tensor or a list
+        of equal row shards; a batch that crosses a shard boundary is
+        gathered on the device of its first row, so every batch has the
+        shape it has on one device (the latents' bits follow the launch
+        geometry) and the latents are bitwise the one-device encode's."""
+        shards = blocks if isinstance(blocks, list) else [blocks]
+        per = shards[0].shape[0]
+        nb = per * len(shards)
+        states, outs = {}, []
         with torch.no_grad(), strict_fp32():
-            for i in range(0, blocks_dev.shape[0], _ENCODE_BATCH):
-                outs.append(self.model.encode(
-                    blocks_dev[i : i + _ENCODE_BATCH], state))
-        return torch.cat(outs).cpu().numpy()
+            for i in range(0, nb, _ENCODE_BATCH):
+                dev = shards[i // per].device
+                if str(dev) not in states:
+                    states[str(dev)] = convert.from_reference(params, device=dev)
+                x = parallel.gather_rows(shards, i, min(i + _ENCODE_BATCH, nb), dev)
+                outs.append(self.model.encode(x, states[str(dev)]))
+        return torch.cat([o.to(outs[0].device) for o in outs]).cpu().numpy()
+
+    def _orig_vectors(self) -> np.ndarray:
+        """The original block vectors (S, NB, D) on the host. A mesh fit
+        keeps its blocks as the devices' row shards until the first
+        compress copies them here (and frees the shards)."""
+        if self._vecs_orig is None:
+            blocks = torch.cat([b.cpu() for b in self._block_shards]).numpy()
+            self._vecs_orig = blocking.blocks_as_vectors(blocks)
+            self._block_shards = None
+        return self._vecs_orig
 
     # ------------------------------------------------------------------
     def _decode_vecs(self, ae_params, latents: np.ndarray,
@@ -406,7 +486,7 @@ class GBATCPipeline:
         )
         t1 = time.perf_counter()
         prepared = self._gengine.prepare(
-            self._vecs_orig, vecs_rec, reuse=self._last_prepared
+            self._orig_vectors(), vecs_rec, reuse=self._last_prepared
         )
         self._last_prepared = prepared
         self.timings.update(
@@ -479,6 +559,9 @@ class GBATCPipeline:
             cfg=cfg,
             _param_streams=self._packed_param_streams(),
             _latent_memo=latent_memo,
+            # a mesh fit packs its latents as the shards' row blocks
+            _latent_parts=(None if self.mesh is None
+                           else np.split(lat_q, self.mesh.size)),
         )
 
         rec_blocks = blocking.vectors_as_blocks(corrected, geom)
@@ -499,7 +582,7 @@ class GBATCPipeline:
             # normalization makes the range exactly 1, so the normalized
             # block-vector RMS *is* the NRMSE (up to float rounding; the
             # guarantee itself is enforced in normalized units either way)
-            err = corrected - np.asarray(self._vecs_orig)
+            err = corrected - self._orig_vectors()
             per_species = np.sqrt(np.mean(np.square(err), axis=(1, 2)))
         t4 = time.perf_counter()
         self.timings.update(select=t1 - t0, encode=t3 - t2,
@@ -573,19 +656,21 @@ class GBATCCodec:
     Error-bound sweeps against one fitted model reuse the pipeline's cached
     tau-independent guarantee state.
 
-    ``device=None`` means the GPU and raises without CUDA. The class lives
-    with the orchestration layer (it owns a fit), and
+    ``device=None`` means the GPU and raises without CUDA; ``mesh`` runs
+    the fits and compress mesh-sharded, as :class:`GBATCPipeline`. The
+    class lives with the orchestration layer (it owns a fit), and
     ``repro_torch.codec.GBATCCodec`` re-exports it; the decode side of the
     codec package never imports this module.
     """
 
     def __init__(self, cfg: Optional[PipelineConfig] = None,
                  n_species: Optional[int] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh=None):
         self.cfg = cfg if cfg is not None else PipelineConfig()
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = _mesh_device(device, mesh)
         self._pipe: Optional[GBATCPipeline] = (
-            GBATCPipeline(self.cfg, n_species, device=self.device)
+            GBATCPipeline(self.cfg, n_species, device=self.device, mesh=mesh)
             if n_species is not None else None
         )
 
@@ -609,7 +694,7 @@ class GBATCCodec:
             )
         if self._pipe is None or self._pipe.n_species != data.shape[0]:
             self._pipe = GBATCPipeline(self.cfg, n_species=data.shape[0],
-                                       device=self.device)
+                                       device=self.device, mesh=self.mesh)
         self._pipe.fit(data, verbose=verbose)
         return self
 
@@ -633,7 +718,7 @@ class GBATCCodec:
         s = int(loader.shape[0])
         if self._pipe is None or self._pipe.n_species != s:
             self._pipe = GBATCPipeline(self.cfg, n_species=s,
-                                       device=self.device)
+                                       device=self.device, mesh=self.mesh)
         self._pipe.fit_stream(
             loader, verbose=verbose, loader_retries=loader_retries,
             retry_backoff=retry_backoff, _sleep=_sleep,

@@ -269,11 +269,12 @@ def fit(
     params: Optional[dict] = None,
     indices=None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> tuple[dict[str, torch.Tensor], np.ndarray]:
     """Train with AdamW on MSE through the direct attention — the
     :func:`repro_torch.core.autoencoder.fit` contract, so the pipeline's
     family handle calls either alike. Returns ``(params, loss_history)``."""
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.devices[0]
     if params is None:
         params = init_params(model.cfg, seed, dev)
     trainer = train_loop.MiniBatchTrainer(
@@ -283,4 +284,5 @@ def fit(
     return trainer.fit(
         params, (blocks,), steps=steps, batch_size=batch_size, seed=seed,
         log_every=log_every, indices=indices, device=dev,
+        mesh=mesh,
     )

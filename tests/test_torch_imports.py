@@ -34,7 +34,7 @@ def _imported_roots(path):
 
 def test_package_layout_mirrors_the_reference():
     for sub in ("core", "codec", "nn", "train", "kernels", "data", "models",
-                "serve", "testing"):
+                "serve", "testing", "parallel"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     for src in ("gbatc_kernels.cu", "flash_attention.cu", "block_quant.cu",
                 "rglru_scan.cu", "rwkv6_scan.cu"):
@@ -83,7 +83,8 @@ for mod in ("block_quant", "rglru_scan", "rwkv6_scan"):
     assert f"repro_torch.kernels.{mod}" in names, mod
 for mod in ("codec.partial", "codec.integrity", "testing.faults",
             "serve.decode_service", "train.fault_tolerance", "core.sz",
-            "core.gae_ref", "core.qoi"):
+            "core.gae_ref", "core.qoi", "parallel", "parallel.mesh_fit",
+            "parallel.gradient_compression"):
     assert f"repro_torch.{mod}" in names, mod
 for op in ("flash_attention_op", "rwkv6_scan_op", "rglru_scan_op",
            "block_quant_op", "gbatc_project_op", "gbatc_correct_op"):
@@ -116,7 +117,7 @@ def test_importing_builds_nothing():
                                    "gbatc_project_op", "gbatc_correct_op",
                                    "partial_decoder", "salvage", "decompress_reference",
                                    "decode_service", "production_rates",
-                                   "production_rates_np"])
+                                   "production_rates_np", "mesh", "sharded_engine"])
 def test_device_none_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -127,6 +128,7 @@ def test_device_none_without_cuda_raises(entry):
     from repro_torch.core.pipeline import GBATCCodec, GBATCPipeline, PipelineConfig
     from repro_torch.core import qoi
     from repro_torch.kernels import ops
+    from repro_torch.parallel import Mesh, mesh_fit
     from repro_torch.serve import DecodeService
 
     calls = {
@@ -138,6 +140,8 @@ def test_device_none_without_cuda_raises(entry):
         "salvage": lambda: codec.salvage_decompress(b"GBTC"),
         "decompress_reference": lambda: codec.decompress_reference(b"GBTC"),
         "decode_service": lambda: DecodeService(),
+        "mesh": lambda: Mesh((None,)),
+        "sharded_engine": lambda: mesh_fit.ShardedGuaranteeEngine(),
         "production_rates": lambda: qoi.production_rates(
             qoi.make_mechanism(4), np.ones((2, 4), np.float32),
             np.ones(2, np.float32)),
