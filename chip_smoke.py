@@ -89,7 +89,31 @@ Phases (each prints one JSON line; any failure exits non-zero):
    encode, decode bitwise); the int8 gradient exchange on ``block_quant``
    (one launch a shard a step, a sampled bucket bitwise its plain version,
    the bucket's kernel time against its bound);
-11. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+11. ``lm_serve_path``  the language-model serving path
+   (``repro_torch.models``, ``repro_torch.serve.Server``) on the card: (a)
+   Llama-3.2-1B, StableLM-3B, Yi-9B, RWKV-6 7B, RecurrentGemma-2B and
+   Whisper-base in fp32
+   under ``strict_fp32`` at full width and depth from one seed's
+   parameters, batch 2, prompt 2112 (past RecurrentGemma's 2048 window):
+   the kernel route (``use_kernels=True``: flash, ``rwkv6_scan``,
+   ``rglru_scan``) against the portable route (``use_kernels=False``) in
+   prefill logits and four decode steps, within 1e-3 of the largest
+   logit, and prefill(T) + ``decode_step`` against prefill(T+1) within the
+   reference's 2e-2; (b) all ten configs in bf16 through ``Server``,
+   greedy, batch 4, prompt 2304, 16 new tokens, full width (depth cut to
+   8 of 48, 8 of 80 and 2 of 40 layers for the three largest), the same
+   tokens twice, finite logits, ``kv_quant`` once for the two MoE
+   configs; parameter bytes from meta tensors, peak memory, prefill and
+   decode seconds and tokens/s, and a profiler breakdown of one prefill
+   and four decode steps by kernel. Every prefill launches exactly its
+   expected count of each kernel (flash once per attention layer,
+   ``rwkv6_scan`` once per RWKV layer, ``rglru_scan`` once per recurrent
+   block); decode steps and the portable route launch none. The
+   ``kernels`` phase holds the three kernels at this path's shapes
+   (flash at head dims 64, 80, 128 and 256) in fp32 and bf16 against their
+   plain versions, bf16 within one bf16 ulp of each element's value,
+   timed beside SDPA and their bounds;
+12. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -113,7 +137,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # published H100 SXM peaks (NVIDIA data sheet, dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 67e12}  # fp64: tensor-core DMMA rate
+PEAK_FLOPS = {"float32": 67e12, "float64": 67e12,  # fp64: tensor-core DMMA rate
+              "bfloat16": 989e12}
 
 S, NB, D = 58, 20480, 80  # main-path kernel shapes (T=16, 320x320, block 4x5x4)
 RAGGED = [(3, 513, 80), (5, 513, 64), (2, 1, 80), (4, 100, 37), (2, 77, 128),
@@ -2082,11 +2107,495 @@ def phase_mesh_path(torch, args, main_info: dict, data, main_codec) -> dict:
     return info
 
 
+# -- the language-model serving path (lm_serve_path) -------------------------
+# flash attention at the prefill shapes of the LM configs (B, H, Tq, Tk, D,
+# causal, window), heads already expanded, at batch 4 and prompt 2304:
+# Llama-3.2-1B's self-attention (D = 64), StableLM-3B's (D = 80: the DP = 128
+# instantiation with 48 zero-padded dims), Yi-9B's (D = 128; Qwen3-MoE,
+# Qwen2-72B and DBRX run this shape with 32, 64 and 48 heads), Qwen2-VL-7B's
+# (28 heads over the prompt and its 256 patches), RecurrentGemma-2B's local
+# MQA (head dim 256, window 2048), and Whisper-base's encoder, decoder self-
+# and cross-attention
+LM_BATCH, LM_PROMPT, LM_NEW = 4, 2304, 16
+LM_VLM_T = LM_PROMPT + 256  # Qwen2-VL-7B's n_patches
+LM_FLASH_SHAPES = {
+    "llama3_2_1b": (LM_BATCH, 32, LM_PROMPT, LM_PROMPT, 64, True, 0),
+    "stablelm_3b": (LM_BATCH, 32, LM_PROMPT, LM_PROMPT, 80, True, 0),
+    "yi_9b": (LM_BATCH, 32, LM_PROMPT, LM_PROMPT, 128, True, 0),
+    "qwen2_vl_7b": (LM_BATCH, 28, LM_VLM_T, LM_VLM_T, 128, True, 0),
+    "recurrentgemma_2b": (LM_BATCH, 10, LM_PROMPT, LM_PROMPT, 256, True, 2048),
+    "whisper_base.encoder": (LM_BATCH, 8, 1500, 1500, 64, False, 0),
+    "whisper_base.decoder_self": (LM_BATCH, 8, LM_PROMPT, LM_PROMPT, 64, True, 0),
+    "whisper_base.decoder_cross": (LM_BATCH, 8, LM_PROMPT, 1500, 64, False, 0),
+}
+LM_RWKV = (LM_BATCH, LM_PROMPT, 64, 64)  # RWKV-6 7B's 64 heads of 64
+LM_RGLRU = (LM_BATCH, LM_PROMPT, 2560)   # RecurrentGemma-2B's rglru_width
+# bf16 at these shapes: the kernel and its plain version both keep fp32
+# between the bf16 loads and round the output to bf16 once, so an element
+# may differ by one bf16 ulp of its value (at most 2^-7 |plain|) plus twice
+# the fp32 gap (FLASH_LIMIT["float32"]); the ratio of |kernel - plain| to
+# that allowance must stay <= 1 at every element
+LM_BF16_ULP = 2.0 ** -7
+# step 2: kernel route against portable route in fp32, batch 2 and a prompt
+# that crosses RecurrentGemma's 2048 window (ring buffer + window mask);
+# StableLM-3B for partial RoPE at D = 80, Yi-9B for GQA at D = 128
+LM_CHECK_ARCHS = ("llama3_2_1b", "stablelm_3b", "yi_9b", "rwkv6_7b",
+                  "recurrentgemma_2b", "whisper_base")
+LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 2112, 4
+LM_ROUTE_LIMIT = 1e-3  # max |kernel - portable| over max |portable logit|
+LM_CONSISTENCY = 2e-2  # tests/test_models_smoke.py's rtol = atol
+# step 3: bf16 serving at full width; depth cut where the bf16 weights would
+# not fit in about 20 GB
+LM_SERVE_LAYERS = {"qwen3_moe_30b_a3b": 8, "qwen2_72b": 8, "dbrx_132b": 2}
+LM_KV_QUANT = ("qwen3_moe_30b_a3b", "dbrx_132b")
+
+
+def flash_pairs(tq: int, tk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep: the work flash attention needs."""
+    total = 0
+    for q in range(tq):
+        hi = min(tk, q + 1) if causal else tk
+        lo = max(0, q - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def expected_prefill_launches(cfg) -> dict:
+    """Launches of each kernel in one prefill with ``use_kernels``."""
+    out = {"flash_attention": 0, "rwkv6_scan": 0, "rglru_scan": 0}
+    if cfg.family == "ssm":
+        out["rwkv6_scan"] = cfg.n_layers
+    elif cfg.family == "hybrid":
+        periods = cfg.n_layers // 3
+        out["flash_attention"] = periods
+        out["rglru_scan"] = 2 * periods + cfg.n_layers - 3 * periods
+    elif cfg.family == "audio":
+        out["flash_attention"] = cfg.n_encoder_layers + 2 * cfg.n_layers
+    else:
+        out["flash_attention"] = cfg.n_layers
+    return out
+
+
+def counts_are(what: str, want: dict, totals: dict) -> dict:
+    """The launch counts since the last reset are ``want`` (0 elsewhere);
+    adds them to ``totals``."""
+    got = all_counts()
+    full = {k: want.get(k, 0) for k in got}
+    if got != full:
+        fail(f"lm_serve_path: {what} launched {got}, expected {full}")
+    for k, n in got.items():
+        totals[k] += n
+    return got
+
+
+def staging_bytes(cfg, b: int, t: int) -> int:
+    """Bytes the copies around the flash calls of one prefill write: q and
+    the output to and from (B, H, T, D), K and V repeated to H heads (a
+    copy where Hkv < H) and made contiguous."""
+    item, d = cfg.dtype.itemsize, cfg.head_dim
+    rep = 2 if cfg.n_kv_heads < cfg.n_heads else 1
+
+    def call(tq, tk, h):
+        return item * b * h * d * (2 * tq + 2 * rep * tk)
+
+    if cfg.family == "audio":
+        a = cfg.n_audio_ctx
+        return (cfg.n_encoder_layers * call(a, a, cfg.n_heads)
+                + cfg.n_layers * (call(t, t, cfg.n_heads) + call(t, a, cfg.n_heads)))
+    calls = expected_prefill_launches(cfg)["flash_attention"]
+    return calls * call(t, t, cfg.n_heads)
+
+
+def sdpa_backend(torch, q, k, v, **kw) -> str:
+    """Which backend scaled_dot_product_attention picks for these inputs."""
+    choose = getattr(torch, "_fused_sdp_choice", None)
+    if choose is None:
+        return "unknown"
+    try:
+        from torch.nn.attention import SDPBackend
+
+        return SDPBackend(choose(q, k, v, **kw)).name
+    except (ImportError, ValueError, RuntimeError) as e:
+        return f"unknown ({type(e).__name__})"
+
+
+def phase_lm_kernels(torch, launches: int) -> dict:
+    """flash_attention, rwkv6_scan and rglru_scan against their plain
+    versions at lm_serve_path's shapes: fp32 at each kernel's limit, bf16
+    where the model runs bf16, each timed beside its bound, its plain
+    version and (flash) SDPA at the same dtype. Returns {kernel: [entries]}."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref as kref
+    from repro_torch.kernels import rglru_scan as rk
+    from repro_torch.kernels import rwkv6_scan as wk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator(device="cuda").manual_seed(700)
+    t_start = time.perf_counter()
+    out = {"flash_attention": [], "rwkv6_scan": [], "rglru_scan": []}
+
+    def entry(fn, plain, lib, dtype, shape, nbytes, flops, err, **extra):
+        row = kernel_row(torch, "", "", "", fn, plain, lib, dtype, shape, nbytes,
+                         flops, launches, err, **extra)
+        for key in ("name", "route", "source", "replaces", "launches"):
+            row.pop(key)
+        return row
+
+    for name, (b, h, tq, tk, d, causal, window) in LM_FLASH_SHAPES.items():
+        pairs = b * h * flash_pairs(tq, tk, causal, window)
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[-1]
+            q = torch.randn(b, h, tq, d, generator=g, device="cuda").to(dtype)
+            k, v = (torch.randn(b, h, tk, d, generator=g, device="cuda").to(dtype)
+                    for _ in range(2))
+            fn = lambda: fk.flash_attention(q, k, v, causal=causal, window=window)  # noqa: E731
+            plain = lambda: kref.flash_attention_ref(q, k, v, causal=causal,  # noqa: E731
+                                                     window=window)
+            got, want = fn(), plain()
+            if got.dtype != dtype or not torch.isfinite(got).all():
+                fail(f"flash_attention at {name} returned {got.dtype} or non-finite values")
+            diff = (got.float() - want.float()).abs()
+            errs[dn] = float(diff.max())
+            scale = {"plain_max_abs": float(want.float().abs().max()),
+                     "plain_mean_abs": float(want.float().abs().mean())}
+            if dtype == torch.bfloat16:
+                allow = LM_BF16_ULP * want.float().abs() + 2 * FLASH_LIMIT["float32"]
+                scale["bf16_ulp_ratio"] = float((diff / allow).max())
+                del allow
+            if errs[dn] > FLASH_LIMIT[dn] or scale.get("bf16_ulp_ratio", 0.0) > 1.0:
+                fail(f"flash_attention differs from its plain version at {name} "
+                     f"({dn}): {errs[dn]:.3e} (limit {FLASH_LIMIT[dn]}), {scale}")
+            del got, want, diff
+            if d in (80, 256):  # padded dims and the widest instantiation:
+                # same bits twice, and per batch row
+                same_twice(torch, f"flash_attention D={d} {dn}", fn)
+                same_rows(torch, f"flash_attention D={d} {dn}", fn(),
+                          [(slice(1, 3), fk.flash_attention(
+                              q[1:3].contiguous(), k[1:3].contiguous(),
+                              v[1:3].contiguous(), causal=causal, window=window))])
+            # the library yardstick: SDPA at the same dtype; the window as a
+            # boolean mask (SDPA has no window argument)
+            mask = None
+            if window > 0:
+                qi = torch.arange(tq, device="cuda")[:, None]
+                ki = torch.arange(tk, device="cuda")[None, :]
+                mask = (ki <= qi) & (ki > qi - window)
+            sdpa_kw = ({"attn_mask": mask} if mask is not None
+                       else {"is_causal": causal})
+            lib = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw)  # noqa: E731
+            out["flash_attention"].append(entry(
+                fn, plain, lib, dn, (b, h, tq, tk, d), 2 * b * h * (tq + tk) * d * dtype.itemsize,
+                4 * pairs * d, errs[dn], config=name, causal=causal, window=window,
+                live_pairs=pairs, library_backend=sdpa_backend(torch, q, k, v, **sdpa_kw),
+                library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
+                **scale,
+                tolerance=(f"max abs diff <= {FLASH_LIMIT[dn]}" + (
+                    f" and |diff| <= 2^-7 |plain| + {2 * FLASH_LIMIT['float32']}"
+                    " at every element" if dtype == torch.bfloat16 else ""))))
+            del q, k, v, mask
+            torch.cuda.empty_cache()
+
+    b, t, h, n = LM_RWKV
+    r, k, v = (torch.randn(b, t, h, n, generator=g, device="cuda") for _ in range(3))
+    w = torch.sigmoid(3.0 + torch.randn(b, t, h, n, generator=g, device="cuda"))
+    u = 0.5 * torch.randn(h, n, generator=g, device="cuda")
+    s0 = torch.randn(b, h, n, n, generator=g, device="cuda")
+    args = (r, k, v, w, u, s0)
+    got, got_s = wk.rwkv6_scan(*args)
+    want, want_s = kref.rwkv6_scan_ref(*args)
+    err = max(float((got - want).abs().max()), float((got_s - want_s).abs().max()))
+    top = max(1.0, float(want.abs().max()), float(want_s.abs().max()))
+    if not (torch.isfinite(got).all() and err <= RWKV_LIMIT * top):
+        fail(f"rwkv6_scan differs from its plain version at {LM_RWKV}: {err:.3e}")
+    same_twice(torch, "rwkv6_scan (lm shape)", lambda: wk.rwkv6_scan(*args))
+    tokens = b * t * h
+    out["rwkv6_scan"].append(entry(
+        lambda: wk.rwkv6_scan(*args), lambda: kref.rwkv6_scan_ref(*args), None,
+        "float32", LM_RWKV, 5 * tokens * n * 4 + 2 * b * h * n * n * 4 + h * n * 4,
+        5 * tokens * n * n, err, plain_launches=3, config="rwkv6_7b",
+        initial_state="random (B,H,N,N)",
+        tolerance="max abs diff <= 2e-4 x max(1, max|plain|)"))
+    del r, k, v, w, u, s0, args, got, got_s, want, want_s
+
+    b, t, wd = LM_RGLRU
+    a = torch.sigmoid(2.0 + torch.randn(b, t, wd, generator=g, device="cuda"))
+    bb = torch.randn(b, t, wd, generator=g, device="cuda")
+    h0 = torch.randn(b, wd, generator=g, device="cuda")
+    got, got_h = rk.rglru_scan(a, bb, h0)
+    want, want_h = kref.rglru_scan_ref(a, bb, h0)
+    err = max(float((got - want).abs().max()), float((got_h - want_h).abs().max()))
+    if not (torch.isfinite(got).all() and err <= RGLRU_LIMIT):
+        fail(f"rglru_scan differs from its plain version at {LM_RGLRU}: {err:.3e}")
+    nel = b * t * wd
+    out["rglru_scan"].append(entry(
+        lambda: rk.rglru_scan(a, bb, h0), lambda: kref.rglru_scan_ref(a, bb, h0),
+        None, "float32", LM_RGLRU, 3 * nel * 4 + 2 * b * wd * 4, 2 * nel, err,
+        plain_launches=3, config="recurrentgemma_2b",
+        tolerance="max abs diff <= 1e-5 at unit-scale inputs"))
+    del a, bb, h0, got, got_h, want, want_h
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "lm_serve_shapes", "launches_timed": launches,
+          "seconds": time.perf_counter() - t_start,
+          "summary": {name: [{k: e[k] for k in ("shape", "dtype", "max_abs_err",
+                                                 "bf16_ulp_ratio", "plain_max_abs",
+                                                 "plain_mean_abs", "ms", "plain_ms",
+                                                 "library_ms", "bound_ms", "bound_by")
+                              if k in e}
+                             for e in entries] for name, entries in out.items()}})
+    return out
+
+
+def _logit_gap(a, b) -> float:
+    """max |a - b| over max |b|."""
+    return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
+
+
+def lm_route_check(torch, arch: str, totals: dict) -> dict:
+    """Step 2 for one config: fp32 under strict_fp32, full width and depth,
+    one seed's parameters through use_kernels=True and =False."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.device import strict_fp32
+    from repro_torch.models.registry import build_model, make_batch
+
+    cfg = get_config(arch).replace(dtype=torch.float32)
+    kern, port = build_model(cfg), build_model(cfg.replace(use_kernels=False))
+    t0 = time.perf_counter()
+    params = kern.init(seed=0, device="cuda")
+    full = make_batch(cfg, batch=LM_CHECK_BATCH, seq=LM_CHECK_PROMPT + 1,
+                      kind="prefill", seed=11, device="cuda")
+    pre = {k: (v[:, :LM_CHECK_PROMPT] if k == "tokens" else v) for k, v in full.items()}
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    info = {"init_s": init_s}
+    with strict_fp32():
+        reset_counts()
+        t0 = time.perf_counter()
+        lk, ck = kern.prefill(params, pre)
+        torch.cuda.synchronize()
+        info["prefill_kernel_s"] = time.perf_counter() - t0
+        info["prefill_launches"] = counts_are(
+            f"{arch} fp32 prefill", expected_prefill_launches(cfg), totals)
+        reset_counts()
+        t0 = time.perf_counter()
+        lp, cp = port.prefill(params, pre)
+        torch.cuda.synchronize()
+        info["prefill_portable_s"] = time.perf_counter() - t0
+        counts_are(f"{arch} portable prefill", {}, totals)
+        if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+            fail(f"lm_serve_path: {arch} fp32 prefill logits are not finite")
+        gaps = [_logit_gap(lk, lp)]
+        # four decode steps on each route's own cache, fed the same tokens:
+        # the prompt's next token, then the kernel route's greedy picks
+        tok = full["tokens"][:, LM_CHECK_PROMPT:]
+        agree = []
+        reset_counts()
+        for step in range(LM_CHECK_STEPS):
+            dk, ck = kern.decode_step(params, ck, tok)
+            dp, cp = port.decode_step(params, cp, tok)
+            if step == 0:
+                first = dk
+            gaps.append(_logit_gap(dk, dp))
+            agree.append(bool(torch.equal(dk.argmax(-1), dp.argmax(-1))))
+            tok = dk[:, -1:].argmax(-1).to(torch.int32)
+        counts_are(f"{arch} decode steps", {}, totals)
+        reset_counts()
+        lf, _ = kern.prefill(params, full)
+        counts_are(f"{arch} fp32 prefill(T+1)", expected_prefill_launches(cfg), totals)
+        consistency = float((first.float() - lf.float()).abs().max())
+        scale = float(lf.float().abs().max())
+    info.update(route_gap_prefill=gaps[0], route_gap_decode=gaps[1:],
+                route_limit=LM_ROUTE_LIMIT, greedy_agree=agree,
+                max_abs_logit=scale,
+                prefill_decode_max_abs=consistency,
+                prefill_decode_limit=f"atol {LM_CONSISTENCY} + rtol {LM_CONSISTENCY}")
+    if max(gaps) > LM_ROUTE_LIMIT:
+        fail(f"lm_serve_path: {arch} fp32 kernel route differs from the portable "
+             f"route by {max(gaps):.3e} of the largest logit (limit {LM_ROUTE_LIMIT})")
+    if not torch.allclose(first.float(), lf.float(), rtol=LM_CONSISTENCY,
+                          atol=LM_CONSISTENCY):
+        fail(f"lm_serve_path: {arch} prefill(T) + decode_step differs from "
+             f"prefill(T+1) by {consistency:.3e}")
+    del params, ck, cp, lk, lp, lf, first
+    torch.cuda.empty_cache()
+    return info
+
+
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS / cuBLASLt kernels
+
+
+def device_breakdown(torch, fn) -> dict:
+    """``fn()`` once under ``torch.profiler``: its wall seconds (ending in a
+    synchronise), the device time of its kernels by group (the three
+    kernels of the path, cuBLAS GEMMs, everything else), and the device's
+    idle share of the wall time; "not measured" where the profiler saw no
+    device activity. The profiler's own host cost inflates the wall time
+    (and so the idle share) of host-bound work."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    groups = {"flash_attention": 0.0, "rwkv6_scan": 0.0, "rglru_scan": 0.0,
+              "gemm": 0.0, "other": 0.0}
+    n = 0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        name = e.name.lower()
+        key = next((k for k, tag in (("flash_attention", "flash_kernel"),
+                                     ("rwkv6_scan", "rwkv6_kernel"),
+                                     ("rglru_scan", "rglru_kernel")) if tag in name),
+                   "gemm" if any(g in name for g in GEMM_NAMES) else "other")
+        groups[key] += e.time_range.elapsed_us() / 1e6
+        n += 1
+    if not n:
+        return {"wall_s": wall, "device_s": "not measured"}
+    busy = sum(groups.values())
+    return {"wall_s": wall, "device_s": busy, "device_idle_share": max(0.0, 1 - busy / wall),
+            "by_kernel_s": groups, "device_events": n}
+
+
+def lm_serve(torch, arch: str, totals: dict) -> dict:
+    """Step 3 for one config: bf16 Server, greedy, batch 4, prompt 2304, 16
+    new tokens, at full width (depth cut per LM_SERVE_LAYERS)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.serve import Server
+
+    cfg = get_config(arch)
+    full_layers = cfg.n_layers
+    if arch in LM_SERVE_LAYERS:
+        cfg = cfg.replace(n_layers=LM_SERVE_LAYERS[arch])
+    model = build_model(cfg)
+    param_bytes = sum(t.numel() * t.element_size() for t in model.specs().values())
+    want = expected_prefill_launches(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(seed=0, device="cuda")
+    batch = make_batch(cfg, batch=LM_BATCH, seq=LM_PROMPT, kind="prefill", seed=12,
+                       device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    # the peak of the serving runs alone (init draws in fp32 scratch)
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    prompt_total = LM_PROMPT + (cfg.n_patches if cfg.is_vlm else 0)
+    max_len = prompt_total + LM_NEW + 8  # room for the patches too
+    server = Server(model, params, max_len=max_len, device="cuda")
+    # warm-up + gates: prefill logits finite, exact launch counts
+    reset_counts()
+    logits, _ = model.prefill(params, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    counts_are(f"{arch} bf16 prefill", want, totals)
+    if not torch.isfinite(logits).all():
+        fail(f"lm_serve_path: {arch} bf16 prefill logits are not finite")
+    del logits
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, _ = model.prefill(params, batch, max_len=max_len)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    counts_are(f"{arch} bf16 prefill (timed)", want, totals)
+    del logits
+    # where the time goes: one prefill and LM_CHECK_STEPS decode steps
+    # under the profiler (launch counts as everywhere else)
+    reset_counts()
+    prefill_prof = device_breakdown(
+        torch, lambda: model.prefill(params, batch, max_len=max_len))
+    _, cache = model.prefill(params, batch, max_len=max_len)
+    counts_are(f"{arch} bf16 prefills (profiled)", {k: 2 * n for k, n in want.items()},
+               totals)
+    tok = batch["tokens"][:, -1:]
+
+    def steps():
+        c = cache
+        for _ in range(LM_CHECK_STEPS):
+            _, c = model.decode_step(params, c, tok)
+
+    reset_counts()
+    decode_prof = device_breakdown(torch, steps)
+    counts_are(f"{arch} bf16 decode steps (profiled)", {}, totals)
+    del cache
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        tokens = server.generate(batch, LM_NEW)  # ends in a copy to the host
+        runs.append((time.perf_counter() - t0, tokens))
+        counts_are(f"{arch} Server.generate", want, totals)
+    if not (runs[0][1] == runs[1][1]).all():
+        fail(f"lm_serve_path: {arch} greedy tokens differ between two runs")
+    if runs[0][1].shape != (LM_BATCH, LM_NEW) or not (
+            (runs[0][1] >= 0) & (runs[0][1] < cfg.vocab)).all():
+        fail(f"lm_serve_path: {arch} generated {runs[0][1].shape} out of range")
+    gen_s = runs[1][0]
+    decode_s = gen_s - prefill_s
+    prompt_tokens = LM_BATCH * prompt_total
+    info = {
+        "layers": cfg.n_layers, "of_layers": full_layers,
+        "dtype": "bfloat16", "batch": LM_BATCH, "prompt": LM_PROMPT,
+        "new_tokens": LM_NEW, "param_bytes": param_bytes,
+        "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "init_peak_gb": init_peak_gb, "init_s": init_s, "prefill_s": prefill_s,
+        "prefill_tokens_per_s": prompt_tokens / prefill_s,
+        "generate_s": gen_s, "decode_s": decode_s,
+        "decode_tokens_per_s": LM_BATCH * LM_NEW / decode_s,
+        "prefill_launches": want, "server_stats": vars(server.stats),
+        "prefill_profile": prefill_prof,
+        f"decode_profile_{LM_CHECK_STEPS}_steps": decode_prof,
+        "flash_staging_bytes": staging_bytes(cfg, LM_BATCH, prompt_total),
+        "tokens_sha256": hashlib.sha256(runs[0][1].tobytes()).hexdigest(),
+    }
+    if arch in LM_KV_QUANT:
+        qmodel = build_model(cfg.replace(kv_quant=True))
+        reset_counts()
+        t0 = time.perf_counter()
+        qtokens = Server(qmodel, params, max_len=max_len, device="cuda").generate(
+            batch, LM_NEW)
+        info["kv_quant"] = {"generate_s": time.perf_counter() - t0,
+                            "agree_with_dense": float((qtokens == runs[0][1]).mean())}
+        counts_are(f"{arch} kv_quant Server.generate", want, totals)
+        if not ((qtokens >= 0) & (qtokens < cfg.vocab)).all():
+            fail(f"lm_serve_path: {arch} kv_quant tokens out of range")
+    del params, server, batch
+    torch.cuda.empty_cache()
+    return info
+
+
+def phase_lm_serve_path(torch) -> dict:
+    """The language-model serving path (see the module docstring, step 12);
+    returns the phase line, whose ``launches`` give each kernel's count over
+    the routes' prefills and the Server runs."""
+    from repro_torch.configs.base import list_configs
+
+    t_start = time.perf_counter()
+    totals = {k: 0 for k in all_counts()}
+    routes = {arch: lm_route_check(torch, arch, totals) for arch in LM_CHECK_ARCHS}
+    serve = {arch: lm_serve(torch, arch, totals) for arch in list_configs()}
+    info = {"phase": "lm_serve_path", "gpu": gpu_line(),
+            "route_check": {"dtype": "float32", "strict_fp32": True,
+                            "batch": LM_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
+                            "decode_steps": LM_CHECK_STEPS, "configs": routes},
+            "serve": serve, "cut": {"layers": LM_SERVE_LAYERS,
+                                    "batch": LM_BATCH, "prompt": LM_PROMPT},
+            "launches": {"lm_serve": totals},
+            "seconds": time.perf_counter() - t_start}
+    emit(info)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,ops_path,"
-                            "partial_path,serve_path,stream_path,mesh_path")
+                            "partial_path,serve_path,stream_path,mesh_path,lm_serve_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -2131,6 +2640,10 @@ def run(torch, args, phases) -> None:
         ops_rows = phase_ops_kernels(torch, launches)
         # the order of PERF.md's table of TPU kernels
         rows = batched + ops_rows[:2] + [flash] + ops_rows[2:]
+        lm_shapes = phase_lm_kernels(torch, launches)
+        for r in rows:  # lm_serve_path's shapes beside the codec's
+            if r["name"] in lm_shapes:
+                r["lm_serve_shapes"] = lm_shapes[r["name"]]
     paths, outputs = {}, {}
     for phase in ("partial_path", "serve_path"):
         if phase in phases and not {"main_path", "attention_path"} <= set(phases):
@@ -2163,6 +2676,7 @@ def run(torch, args, phases) -> None:
             if "mesh_path" in phases else None)
     main_codec = None
     del data, temperature
+    lm = phase_lm_serve_path(torch) if "lm_serve_path" in phases else None
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]],
@@ -2181,12 +2695,16 @@ def run(torch, args, phases) -> None:
         if mesh:
             by_path["mesh_path"] = {part: c[r["name"]]
                                     for part, c in mesh["launches"].items()}
+        if lm:
+            by_path["lm_serve_path"] = {part: c[r["name"]]
+                                        for part, c in lm["launches"].items()}
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
                                          "attention_path", "ops_path",
                                          "partial_path", "serve_path",
-                                         "stream_path", "mesh_path"))
+                                         "stream_path", "mesh_path",
+                                         "lm_serve_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

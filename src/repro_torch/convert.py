@@ -84,3 +84,48 @@ def to_reference(state: dict) -> dict:
         node[_LEAF_BACK.get(leaf, leaf)] = np.ascontiguousarray(
             _to_reference_layout(arr.astype(np.float32, copy=False)))
     return tree
+
+
+# -- language models ---------------------------------------------------------
+# The LM modules keep the reference's layouts — (in, out) weights used as
+# ``x @ w``, stacked (L, ...) layer axes, (E, in, out) expert banks,
+# ``lora_b`` (5, lm, d), ``conv_w`` (cw, W) — so their parameters cross with
+# no transposes, by path alone. The codec's pair above decides a layout by
+# rank, which cannot tell a stacked (L, in, out) weight or an expert bank
+# from anything else; hence a pair of its own.
+
+
+def _to_tensor(a: np.ndarray, device) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16, as JAX hands it out
+        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
+    return torch.tensor(np.ascontiguousarray(a), device=device)
+
+
+def lm_from_reference(tree: dict, device=None) -> dict[str, torch.Tensor]:
+    """Reference LM parameter tree (numpy or array leaves) -> the port's flat
+    ``{dotted path: tensor}`` dict, same shapes, dtypes and values; ``None``
+    means the GPU (see :mod:`repro_torch.device`)."""
+    from repro_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    return {".".join(path): _to_tensor(np.asarray(value), dev)
+            for path, value in _leaves(tree)}
+
+
+def lm_to_reference(params: dict) -> dict:
+    """The port's flat LM parameters -> the reference's nested tree of numpy
+    arrays (bf16 leaves as ``ml_dtypes.bfloat16``, which needs that package)."""
+    tree: dict = {}
+    for name, value in params.items():
+        *parents, leaf = name.split(".")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        t = value.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+
+            node[leaf] = t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+        else:
+            node[leaf] = t.numpy().copy()
+    return tree

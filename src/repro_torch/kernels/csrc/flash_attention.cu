@@ -31,8 +31,11 @@
 //   V row feeds both rows' FMAs: two independent chains, half the loads per
 //   FMA of one row a thread. With G > 1 a score is the group's partial dot
 //   products summed by an xor butterfly of shuffles, which leaves the same
-//   bits in every thread of the group. DP, D rounded up to 16, 32, 64 or
-//   128, is a template argument; dims past D are zero.
+//   bits in every thread of the group. DP, D rounded up to 16, 32, 64,
+//   128 or 256, is a template argument; dims past D are zero. At DP = 256
+//   (RecurrentGemma's local attention) a row spans G = 16 lanes, a CTA
+//   holds 16 rows and a 48 KB K/V chunk 24 keys: the same design, more
+//   K/V re-reads from L2 per row.
 // * K and V stay resident in shared memory, converted to fp32: the whole
 //   head (28 KB at T = 232, D = 16) is loaded once, with 16-byte cp.async
 //   copies where the layout allows, behind one barrier. Where Tk * DP does
@@ -67,7 +70,7 @@ constexpr int DPT = 16;     // head dims per thread
 constexpr int R = 2;        // query rows per thread
 constexpr int BLOCK_KEYS = 8;  // keys per online-softmax block
 constexpr int KV_BYTES = 48 * 1024;  // shared memory for one K/V chunk
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -291,7 +294,10 @@ int launch(const T* q, const T* k, const T* v, T* o, long long bh, int tq,
   if (d <= 64)
     return launch_as<T, 64>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                             stream);
-  return launch_as<T, 128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+  if (d <= 128)
+    return launch_as<T, 128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                             stream);
+  return launch_as<T, 256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                            stream);
 }
 

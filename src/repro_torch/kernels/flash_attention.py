@@ -2,7 +2,7 @@
 
 Counterpart of the Pallas function ``flash_attention`` in the JAX package's
 ``kernels/flash_attention.py``, with the same public layout: q (B, H, Tq,
-D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, D up to 128. Unlike
+D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, D up to 256. Unlike
 the Pallas wrapper it takes any Tk, causal or not (the kernel masks the
 ragged key tail itself), and it pads nothing in device memory.
 

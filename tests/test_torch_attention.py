@@ -91,9 +91,17 @@ def test_direct_attention_matches(causal, window, q_offset, hkv):
 
 
 def test_chunked_branch_is_not_ported():
-    q = torch.zeros(1, 4097, 1, 8)
-    with pytest.raises(NotImplementedError, match="chunked"):
-        t_common.attention(q, q, q)
+    """Past the direct branch's limit (tq > 4096) the port takes the
+    reference's chunked online-softmax branch, as the reference does, and
+    matches it (tests/test_torch_lm.py holds that branch at small chunks
+    too). The name is older than the port of that branch: the test once
+    asserted that the port refused such lengths."""
+    rng = np.random.default_rng(4097)
+    q, k, v = (rng.normal(size=(1, 4097, 1, 8)).astype(np.float32) for _ in range(3))
+    want = r_common.attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = t_common.attention(torch.from_numpy(q), torch.from_numpy(k),
+                             torch.from_numpy(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
 # -- BlockAttentionAE -------------------------------------------------------

@@ -34,7 +34,7 @@ def _imported_roots(path):
 
 def test_package_layout_mirrors_the_reference():
     for sub in ("core", "codec", "nn", "train", "kernels", "data", "models",
-                "serve", "testing", "parallel"):
+                "serve", "testing", "parallel", "configs", "launch"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     for src in ("gbatc_kernels.cu", "flash_attention.cu", "block_quant.cu",
                 "rglru_scan.cu", "rwkv6_scan.cu"):
@@ -86,6 +86,14 @@ for mod in ("codec.partial", "codec.integrity", "testing.faults",
             "core.gae_ref", "core.qoi", "parallel", "parallel.mesh_fit",
             "parallel.gradient_compression"):
     assert f"repro_torch.{mod}" in names, mod
+for mod in ("configs", "configs.base", "nn.module", "models.common",
+            "models.transformer", "models.rwkv6", "models.rglru", "models.whisper",
+            "models.registry", "serve.kvcache", "serve.serve_loop", "launch",
+            "launch.serve"):
+    assert f"repro_torch.{mod}" in names, mod
+from repro_torch.configs.base import list_configs
+for arch in list_configs():
+    assert f"repro_torch.configs.{arch}" in names, arch
 for op in ("flash_attention_op", "rwkv6_scan_op", "rglru_scan_op",
            "block_quant_op", "gbatc_project_op", "gbatc_correct_op"):
     assert callable(getattr(ops, op)), op
@@ -117,7 +125,9 @@ def test_importing_builds_nothing():
                                    "gbatc_project_op", "gbatc_correct_op",
                                    "partial_decoder", "salvage", "decompress_reference",
                                    "decode_service", "production_rates",
-                                   "production_rates_np", "mesh", "sharded_engine"])
+                                   "production_rates_np", "mesh", "sharded_engine",
+                                   "lm_init", "lm_make_batch", "lm_server",
+                                   "lm_from_reference", "quantized_kv_cache"])
 def test_device_none_without_cuda_raises(entry):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
@@ -129,9 +139,20 @@ def test_device_none_without_cuda_raises(entry):
     from repro_torch.core import qoi
     from repro_torch.kernels import ops
     from repro_torch.parallel import Mesh, mesh_fit
-    from repro_torch.serve import DecodeService
+    from repro_torch import convert
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.serve import DecodeService, Server
+    from repro_torch.serve.kvcache import QuantizedKVCache
 
+    lm_cfg = get_config("llama3_2_1b").smoke()
     calls = {
+        "lm_init": lambda: build_model(lm_cfg).init(0),
+        "lm_make_batch": lambda: make_batch(lm_cfg, batch=1, seq=4, kind="prefill"),
+        "lm_server": lambda: Server(build_model(lm_cfg), {}),
+        "lm_from_reference": lambda: convert.lm_from_reference(
+            {"embed": np.zeros((2, 2), np.float32)}),
+        "quantized_kv_cache": lambda: QuantizedKVCache.create(1, 1, 4, 1, 8),
         "codec": lambda: GBATCCodec(PipelineConfig()),
         "pipeline": lambda: GBATCPipeline(PipelineConfig(), n_species=4),
         "engine": lambda: gae.GuaranteeEngine(),

@@ -209,6 +209,31 @@ def test_flash_ref_matches_pallas(reference_pallas_load, case, dtype):  # noqa: 
                                rtol=tol, atol=tol)
 
 
+# head dim 256 (RecurrentGemma-2B's local attention), causal with a window,
+# Tk a multiple of the reference's block_k (ROADMAP C-ref-2)
+FLASH_D256 = [(1, 2, 128, 128, 256, True, 32, 64, 64),
+              (2, 1, 64, 64, 256, True, 100, 32, 32)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_D256)
+def test_flash_ref_matches_pallas_d256(reference_pallas_load, case, dtype):  # noqa: F811
+    b, h, tq, tk, d, causal, window, bq, bk = case
+    q, k, v = _qkv(b, h, tq, tk, d, seed=d + window)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    want = ref_flash.flash_attention(
+        *(jnp.asarray(a).astype(jdt) for a in (q, k, v)), causal=causal,
+        window=window, block_q=bq, block_k=bk, interpret=True)
+    got = ref.flash_attention_ref(
+        *(torch.from_numpy(a).to(tdt) for a in (q, k, v)), causal=causal,
+        window=window)
+    assert got.dtype == tdt and tuple(got.shape) == (b, h, tq, d)
+    tol = 2e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("b,h,tq,tk,d", [(2, 2, 232, 232, 16), (3, 2, 1, 16, 16),
                                          (1, 2, 100, 37, 64)])
 def test_flash_ragged_tk_matches_reference_oracle(b, h, tq, tk, d):
