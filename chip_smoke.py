@@ -24,7 +24,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    sub-range of their rows (species, blocks or batch) as the full call,
    and so do the fp32 select and correct modes, where select on (c, rank,
    m) must also be bitwise correct on where(rank < m, c, 0), at the main
-   shape and every ragged one;
+   shape and every ragged one; every bf16 flash shape (causal, windows,
+   non-causal, ragged Tk, D = 8 to 256, Tq = 1) within one bf16 ulp of
+   each element's value plus 4e-5 (``bf16_ulp_ratio`` <= 1);
 4. ``main_path``  ``GBATCCodec.compress`` (fit + guarantee + container) and
    ``codec.decompress`` from the bytes alone, conv family, at the paper's
    widths on an S3D surrogate of 58 x 16 x 320 x 320, with the kernels'
@@ -99,7 +101,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``rglru_scan``) against the portable route (``use_kernels=False``) in
    prefill logits and four decode steps, within 1e-3 of the largest
    logit, and prefill(T) + ``decode_step`` against prefill(T+1) within the
-   reference's 2e-2; (b) all ten configs in bf16 through ``Server``,
+   reference's 2e-2; then the same parameters cast to bf16 through both
+   routes, each held against the fp32 portable logits: the kernel route
+   no farther than twice the portable bf16 route, with both gaps, the
+   last-position greedy agreement and both bf16 prefill times reported;
+   (b) all ten configs in bf16 through ``Server``,
    greedy, batch 4, prompt 2304, 16 new tokens, full width (depth cut to
    8 of 48, 8 of 80 and 2 of 40 layers for the three largest), the same
    tokens twice, finite logits, ``kv_quant`` once for the two MoE
@@ -111,8 +117,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    block); decode steps and the portable route launch none. The
    ``kernels`` phase holds the three kernels at this path's shapes
    (flash at head dims 64, 80, 128 and 256) in fp32 and bf16 against their
-   plain versions, bf16 within one bf16 ulp of each element's value,
-   timed beside SDPA and their bounds;
+   plain versions, bf16 within one bf16 ulp of each element's value and
+   faster than its plain version, timed beside SDPA and their bounds;
 12. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
@@ -163,17 +169,29 @@ FLASH_SHAPES = [
     (1, 2, 128, 384, 128, True, 0, ("float32", "bfloat16")),
     (1, 1, 200, 200, 64, True, 0, ("float32", "bfloat16")),
     (2, 2, 64, 64, 32, True, 0, ("float32", "bfloat16")),
-    (1, 2, 256, 256, 64, True, 16, ("float32",)),
-    (1, 2, 256, 256, 64, True, 64, ("float32",)),
-    (1, 2, 256, 256, 64, True, 1000, ("float32",)),
-    (1, 1, 128, 256, 64, False, 0, ("float32",)),
+    (1, 2, 256, 256, 64, True, 16, ("float32", "bfloat16")),
+    (1, 2, 256, 256, 64, True, 64, ("float32", "bfloat16")),
+    (1, 2, 256, 256, 64, True, 1000, ("float32", "bfloat16")),
+    (1, 1, 128, 256, 64, False, 0, ("float32", "bfloat16")),
     (2, 2, 232, 232, 16, False, 0, ("float32", "bfloat16")),
     (3, 2, 1, 16, 16, False, 0, ("float32", "bfloat16")),
-    (1, 2, 100, 37, 8, False, 0, ("float32",)),
-    (2, 1, 70, 300, 128, False, 24, ("float32",)),
+    (1, 2, 100, 37, 8, False, 0, ("float32", "bfloat16")),
+    (2, 1, 70, 300, 128, False, 24, ("float32", "bfloat16")),
 ]
 # the reference's tolerances (tests/test_kernels.py::_tol), max abs diff
 FLASH_LIMIT = {"float32": 2e-5, "bfloat16": 2e-2}
+# and in bf16 at every element: the kernel and its plain version both keep
+# fp32 between the bf16 loads and round the output to bf16 once, so an
+# element may differ by one bf16 ulp of its value (at most 2^-7 |plain|)
+# plus twice the fp32 gap; the ratio of |kernel - plain| to that allowance
+# (bf16_ulp_ratio) must stay <= 1
+BF16_ULP = 2.0 ** -7
+
+
+def bf16_ulp_ratio(diff, want) -> float:
+    """max |kernel - plain| / (2^-7 |plain| + 2 FLASH_LIMIT["float32"])."""
+    return float((diff / (BF16_ULP * want.float().abs()
+                          + 2 * FLASH_LIMIT["float32"])).max())
 
 # the kernels behind kernels/ops.py that no codec path runs, at full-width
 # shapes of configurations the repo supports:
@@ -195,7 +213,6 @@ RWKV_SWEEP = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 100, 2, 64), (1, 128, 4, 64),
 PROJECT_2D_SUBRANGES = [(100, 5003), (GBATC_2D[0] - 37, GBATC_2D[0])]
 RGLRU_LIMIT = 1e-5  # max abs diff at unit-scale inputs
 RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
-BF16_ULP = 2.0 ** -7  # one bf16 rounding of the output, relative
 
 
 def emit(obj) -> None:
@@ -250,9 +267,10 @@ PTXAS_NAMES = {
             ("project", "correct", "select", "masked")[int(m.group(1))],
             *m.groups()[1:]))],
     "flash_attention": [(
-        r"flash_kernelI(f|13__nv_bfloat16)Li(\d+)E",
-        lambda m: "flash/{}/dp{}".format(
-            "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
+        r"flash_kernelIfLi(\d+)E",
+        lambda m: "flash/f32/dp{}".format(m.group(1))), (
+        r"flash_bf16_mmaILi(\d+)E",
+        lambda m: "flash/bf16/mma/dp{}".format(m.group(1)))],
     "block_quant": [(
         r"block_quant_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "block_quant/{}/v{}".format(
@@ -270,8 +288,9 @@ PTXAS_NAMES = {
 def sass_loops(build) -> dict:
     """For each kernel instantiation of PTXAS_NAMES, the instructions, FFMAs
     and tensor-core MMAs (HMMA, DMMA) of the innermost loop that holds the
-    most of those two (``cuobjdump -sass`` of the built library); empty
-    where cuobjdump is missing."""
+    most of those two, or, where no innermost loop holds any (a key loop
+    around its tile copies), of the loop that does (``cuobjdump -sass`` of
+    the built library); empty where cuobjdump is missing."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     loops = {}
     for stem, names in PTXAS_NAMES.items():
@@ -291,14 +310,18 @@ def sass_loops(build) -> dict:
                 r"/\*([0-9a-f]{4,})\*/[^;\n]*\bBRA\b[^;\n]*0x([0-9a-f]+)", func)
                 if int(t, 16) < int(a, 16)]  # backward branches: loops
             best = None
-            for lo, hi in spans:
-                if any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans):
-                    continue  # not innermost
-                body = [o for a, o in ins if lo <= a <= hi]
-                ffma = sum(o.startswith("FFMA") for o in body)
-                mma = sum(o.startswith(("HMMA", "DMMA")) for o in body)
-                if ffma + mma and (best is None or ffma + mma > best[1] + best[2]):
-                    best = (len(body), ffma, mma)
+            for innermost in (True, False):
+                for lo, hi in spans:
+                    if innermost and any(lo <= a and b <= hi and (a, b) != (lo, hi)
+                                         for a, b in spans):
+                        continue
+                    body = [o for a, o in ins if lo <= a <= hi]
+                    ffma = sum(o.startswith("FFMA") for o in body)
+                    mma = sum(o.startswith(("HMMA", "DMMA")) for o in body)
+                    if ffma + mma and (best is None or ffma + mma > best[1] + best[2]):
+                        best = (len(body), ffma, mma)
+                if best:
+                    break
             if best:
                 loops[hit[1](hit[0])] = {"loop_instructions": best[0],
                                          "ffma": best[1], "mma": best[2]}
@@ -605,26 +628,36 @@ def phase_flash(torch, launches: int) -> dict:
             fail(f"flash_attention returned {got.dtype}{tuple(got.shape)}")
         if not torch.isfinite(got).all():
             fail("flash_attention output is not finite")
-        err = float((got.float() - want.float()).abs().max())
-        if err > FLASH_LIMIT[dtype_name]:
+        diff = (got.float() - want.float()).abs()
+        err = float(diff.max())
+        ratio = bf16_ulp_ratio(diff, want) if dtype_name == "bfloat16" else 0.0
+        if err > FLASH_LIMIT[dtype_name] or ratio > 1.0:
             fail(f"flash_attention differs from its plain version by {err:.3e} "
-                 f"({dtype_name}, shape {tuple(q.shape)}/{k.shape[2]}, "
+                 f"(limit {FLASH_LIMIT[dtype_name]}), bf16 ulp ratio {ratio:.3f} "
+                 f"(limit 1; {dtype_name}, shape {tuple(q.shape)}/{k.shape[2]}, "
                  f"causal={causal}, window={window})")
-        return err
+        return err, ratio
 
     errs = {"float32": 0.0, "bfloat16": 0.0}
+    ulp_ratio = 0.0  # the largest over the bf16 entries
+
+    def note(q, k, v, causal, window, name):
+        nonlocal ulp_ratio
+        err, ratio = check(q, k, v, causal, window, name)
+        errs[name] = max(errs[name], err)
+        ulp_ratio = max(ulp_ratio, ratio)
+
     for i, (b, h, tq, tk, d, causal, window, dtypes) in enumerate(FLASH_SHAPES):
         for name in dtypes:
-            q, k, v = qkv(b, h, tq, tk, d, getattr(torch, name), 200 + i)
-            errs[name] = max(errs[name], check(q, k, v, causal, window, name))
+            note(*qkv(b, h, tq, tk, d, getattr(torch, name), 200 + i), causal, window, name)
 
     b, h, t, d = FLASH_PATH
     q, k, v = qkv(b, h, t, t, d, torch.bfloat16, 300)
-    errs["bfloat16"] = max(errs["bfloat16"], check(q, k, v, False, 0, "bfloat16"))
+    note(q, k, v, False, 0, "bfloat16")
     ms_bf16 = time_ms(torch, lambda: fk.flash_attention(q, k, v, causal=False),
                       launches)
     q, k, v = qkv(b, h, t, t, d, torch.float32, 301)
-    err = check(q, k, v, False, 0, "float32")
+    err, _ = check(q, k, v, False, 0, "float32")
     same_twice(torch, "flash_attention", lambda: fk.flash_attention(q, k, v, causal=False))
     # the codec encodes in 512-block batches and decodes in 4096-block ones
     same_rows(torch, "flash_attention", fk.flash_attention(q, k, v, causal=False),
@@ -642,16 +675,19 @@ def phase_flash(torch, launches: int) -> dict:
         lambda: fk.flash_attention(q, k, v, causal=False), plain, sdpa,
         "float32", FLASH_PATH, 4 * n * 4, 4 * b * h * t * t * d, launches,
         max(err, errs["float32"]), causal=False,
-        max_abs_err_bf16=errs["bfloat16"], ms_bf16=ms_bf16,
+        max_abs_err_bf16=errs["bfloat16"], bf16_ulp_ratio=ulp_ratio,
+        ms_bf16=ms_bf16,
         library_max_abs_err=float((sdpa() - plain()).abs().max()),
         shapes_checked=[list(c[:7]) + [list(c[7])] for c in FLASH_SHAPES],
-        tolerance="max abs diff <= 2e-5 (fp32), 2e-2 (bf16)")
+        tolerance=("max abs diff <= 2e-5 (fp32), 2e-2 (bf16); bf16 also |diff| "
+                   f"<= 2^-7 |plain| + {2 * FLASH_LIMIT['float32']} at every element"))
     del q, k, v
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "flash_attention",
           "launches_timed": launches,
           "summary": {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16",
-                                          "ms", "ms_bf16", "plain_ms", "library_ms",
+                                          "bf16_ulp_ratio", "ms", "ms_bf16",
+                                          "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")}})
     return row
 
@@ -2130,12 +2166,8 @@ LM_FLASH_SHAPES = {
 }
 LM_RWKV = (LM_BATCH, LM_PROMPT, 64, 64)  # RWKV-6 7B's 64 heads of 64
 LM_RGLRU = (LM_BATCH, LM_PROMPT, 2560)   # RecurrentGemma-2B's rglru_width
-# bf16 at these shapes: the kernel and its plain version both keep fp32
-# between the bf16 loads and round the output to bf16 once, so an element
-# may differ by one bf16 ulp of its value (at most 2^-7 |plain|) plus twice
-# the fp32 gap (FLASH_LIMIT["float32"]); the ratio of |kernel - plain| to
-# that allowance must stay <= 1 at every element
-LM_BF16_ULP = 2.0 ** -7
+# bf16 at these shapes: within FLASH_LIMIT and bf16_ulp_ratio <= 1, like
+# every bf16 entry of FLASH_SHAPES, and faster than its plain version
 # step 2: kernel route against portable route in fp32, batch 2 and a prompt
 # that crosses RecurrentGemma's 2048 window (ring buffer + window mask);
 # StableLM-3B for partial RoPE at D = 80, Yi-9B for GQA at D = 128
@@ -2262,9 +2294,7 @@ def phase_lm_kernels(torch, launches: int) -> dict:
             scale = {"plain_max_abs": float(want.float().abs().max()),
                      "plain_mean_abs": float(want.float().abs().mean())}
             if dtype == torch.bfloat16:
-                allow = LM_BF16_ULP * want.float().abs() + 2 * FLASH_LIMIT["float32"]
-                scale["bf16_ulp_ratio"] = float((diff / allow).max())
-                del allow
+                scale["bf16_ulp_ratio"] = bf16_ulp_ratio(diff, want)
             if errs[dn] > FLASH_LIMIT[dn] or scale.get("bf16_ulp_ratio", 0.0) > 1.0:
                 fail(f"flash_attention differs from its plain version at {name} "
                      f"({dn}): {errs[dn]:.3e} (limit {FLASH_LIMIT[dn]}), {scale}")
@@ -2286,7 +2316,7 @@ def phase_lm_kernels(torch, launches: int) -> dict:
             sdpa_kw = ({"attn_mask": mask} if mask is not None
                        else {"is_causal": causal})
             lib = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw)  # noqa: E731
-            out["flash_attention"].append(entry(
+            row = entry(
                 fn, plain, lib, dn, (b, h, tq, tk, d), 2 * b * h * (tq + tk) * d * dtype.itemsize,
                 4 * pairs * d, errs[dn], config=name, causal=causal, window=window,
                 live_pairs=pairs, library_backend=sdpa_backend(torch, q, k, v, **sdpa_kw),
@@ -2294,7 +2324,12 @@ def phase_lm_kernels(torch, launches: int) -> dict:
                 **scale,
                 tolerance=(f"max abs diff <= {FLASH_LIMIT[dn]}" + (
                     f" and |diff| <= 2^-7 |plain| + {2 * FLASH_LIMIT['float32']}"
-                    " at every element" if dtype == torch.bfloat16 else ""))))
+                    " at every element; ms < plain_ms" if dtype == torch.bfloat16
+                    else "")))
+            out["flash_attention"].append(row)
+            if dtype == torch.bfloat16 and row["ms"] >= row["plain_ms"]:
+                fail(f"flash_attention bf16 at {name}: {row['ms']:.3f} ms, not faster "
+                     f"than its plain version ({row['plain_ms']:.3f} ms)")
             del q, k, v, mask
             torch.cuda.empty_cache()
 
@@ -2418,9 +2453,62 @@ def lm_route_check(torch, arch: str, totals: dict) -> dict:
                           atol=LM_CONSISTENCY):
         fail(f"lm_serve_path: {arch} prefill(T) + decode_step differs from "
              f"prefill(T+1) by {consistency:.3e}")
-    del params, ck, cp, lk, lp, lf, first
-    torch.cuda.empty_cache()
+    del ck, cp, lk, lf, first
+    info["bf16"] = lm_route_check_bf16(torch, cfg, params, lp, totals)
     return info
+
+
+def lm_route_check_bf16(torch, cfg, params, lp, totals) -> dict:
+    """The bf16 routes against fp32 (C-check-4): ``params`` (fp32, the
+    route check's) cast to each leaf's bf16-model dtype, which is what the
+    bf16 model's own init gives (it draws in fp32 and casts), the route
+    check's batch, one prefill through the kernel route and one through the
+    portable route (each after a warm-up), both held against the fp32
+    portable logits ``lp``. The kernel route must be no farther from fp32
+    than twice the portable bf16 route is. Frees ``params``."""
+    from repro_torch.models.registry import build_model, make_batch
+
+    arch = cfg.name
+    cfg16 = cfg.replace(dtype=torch.bfloat16)
+    kern = build_model(cfg16)
+    port = build_model(cfg16.replace(use_kernels=False))
+    specs = kern.specs()
+    params16 = {k: params.pop(k).to(specs[k].dtype) for k in list(params)}
+    torch.cuda.empty_cache()
+    pre = {k: (v[:, :LM_CHECK_PROMPT] if k == "tokens" else v)
+           for k, v in make_batch(cfg16, batch=LM_CHECK_BATCH, seq=LM_CHECK_PROMPT + 1,
+                                  kind="prefill", seed=11, device="cuda").items()}
+    out, logits = {}, {}
+    for route, model, want in (("kernel", kern, expected_prefill_launches(cfg)),
+                               ("portable", port, {})):
+        for _ in range(2):  # warm-up, then the timed prefill
+            logits.pop(route, None)
+            reset_counts()
+            t0 = time.perf_counter()
+            logits[route], _ = model.prefill(params16, pre)
+            torch.cuda.synchronize()
+            out[f"prefill_{route}_s"] = time.perf_counter() - t0
+            counts_are(f"{arch} bf16 {route} prefill", want, totals)
+        if not torch.isfinite(logits[route]).all():
+            fail(f"lm_serve_path: {arch} bf16 {route} prefill logits are not finite")
+    lk, lq = logits["kernel"], logits["portable"]
+    last = {name: t[:, -1].argmax(-1) for name, t in
+            (("kernel", lk), ("portable", lq), ("fp32", lp))}
+    out.update(
+        gap_kernel_fp32=_logit_gap(lk, lp), gap_portable_fp32=_logit_gap(lq, lp),
+        gap_kernel_portable=_logit_gap(lk, lq),
+        greedy_agree_last={
+            "kernel_portable": float((last["kernel"] == last["portable"]).float().mean()),
+            "kernel_fp32": float((last["kernel"] == last["fp32"]).float().mean()),
+            "portable_fp32": float((last["portable"] == last["fp32"]).float().mean())},
+        limit="gap_kernel_fp32 <= 2 gap_portable_fp32")
+    del params16, logits, lk, lq, lp
+    torch.cuda.empty_cache()
+    if out["gap_kernel_fp32"] > 2 * out["gap_portable_fp32"]:
+        fail(f"lm_serve_path: {arch} bf16 kernel route is {out['gap_kernel_fp32']:.3e} "
+             f"of the largest logit from fp32, more than twice the portable bf16 "
+             f"route's {out['gap_portable_fp32']:.3e}")
+    return out
 
 
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")  # cuBLAS / cuBLASLt kernels
@@ -2448,9 +2536,11 @@ def device_breakdown(torch, fn) -> dict:
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         name = e.name.lower()
-        key = next((k for k, tag in (("flash_attention", "flash_kernel"),
-                                     ("rwkv6_scan", "rwkv6_kernel"),
-                                     ("rglru_scan", "rglru_kernel")) if tag in name),
+        key = next((k for k, tags in (("flash_attention", ("flash_kernel",
+                                                           "flash_bf16_mma")),
+                                      ("rwkv6_scan", ("rwkv6_kernel",)),
+                                      ("rglru_scan", ("rglru_kernel",)))
+                    if any(tag in name for tag in tags)),
                    "gemm" if any(g in name for g in GEMM_NAMES) else "other")
         groups[key] += e.time_range.elapsed_us() / 1e6
         n += 1
@@ -2580,7 +2670,8 @@ def phase_lm_serve_path(torch) -> dict:
     routes = {arch: lm_route_check(torch, arch, totals) for arch in LM_CHECK_ARCHS}
     serve = {arch: lm_serve(torch, arch, totals) for arch in list_configs()}
     info = {"phase": "lm_serve_path", "gpu": gpu_line(),
-            "route_check": {"dtype": "float32", "strict_fp32": True,
+            "route_check": {"dtype": "float32, then bfloat16 (bf16)",
+                            "strict_fp32": True,
                             "batch": LM_CHECK_BATCH, "prompt": LM_CHECK_PROMPT,
                             "decode_steps": LM_CHECK_STEPS, "configs": routes},
             "serve": serve, "cut": {"layers": LM_SERVE_LAYERS,

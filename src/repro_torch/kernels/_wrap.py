@@ -1,10 +1,12 @@
 """Checks and launch plumbing shared by the kernel wrappers.
 
-Every wrapper checks device, dtype, shape and contiguity and raises on what
-its kernel does not take, allocates its outputs with ``torch.empty``,
-launches on PyTorch's current stream without synchronising, raises if the
-launch's error code is not 0, and adds one to its launch count where — and
-only where — it launches. The wrappers take CUDA tensors only; CPU tensors
+Every wrapper first refuses operands that would need a gradient (no kernel
+has a backward: an output filled by a launch has no ``grad_fn``, so the
+gradient would be dropped, not raised), then checks device, dtype, shape
+and contiguity and raises on what its kernel does not take, allocates its
+outputs with ``torch.empty``, launches on PyTorch's current stream without
+synchronising, raises if the launch's error code is not 0, and adds one to
+its launch count where — and only where — it launches. The wrappers take CUDA tensors only; CPU tensors
 go through :mod:`repro_torch.kernels.ops`, which dispatches on the device.
 """
 
@@ -15,6 +17,17 @@ import ctypes
 import torch
 
 PTR, INT, LL, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise when autograd would need a gradient through ``kernel``: grad
+    mode is on and an operand requires one."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"the {kernel} kernel has no backward: its output would carry no "
+            "gradient; train through the portable route (use_kernels=False, "
+            "attn_impl='direct') or call it under torch.no_grad()")
 
 
 def cuda_operand(name: str, t, dtypes) -> None:

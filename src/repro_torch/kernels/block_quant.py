@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import FLOAT, INT, LL, PTR, check, cuda_operand, declare, launch
+from repro_torch.kernels._wrap import (FLOAT, INT, LL, PTR, check, cuda_operand, declare,
+                                       launch, refuse_grad)
 
 #: launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"block_quant": 0}
@@ -55,6 +56,7 @@ def check_args(x, n_bits: int, block: int) -> None:
 def block_quant(x: torch.Tensor, *, n_bits: int = 8,
                 block: int = 64) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch: (dequantised x, scales); see the module docstring."""
+    refuse_grad("block_quant", x)
     if not isinstance(x, torch.Tensor) or x.dim() < 1:
         raise ValueError("x must be a tensor (..., K)")
     check_args(x, n_bits, block)

@@ -8,6 +8,10 @@
 // coordinates: causal (k <= q), sliding window (k > q - window) and the
 // ragged key tail (k >= Tk), so any Tk works, causal or not.
 //
+// Two kernels: fp32 runs flash_kernel on the CUDA cores (the design below;
+// its bits are the codec attention family's), bf16 runs flash_bf16_mma on
+// the tensor cores (its design is further down, above the kernel).
+//
 // It replaces the Pallas TPU kernel flash_attention of
 // src/repro/kernels/flash_attention.py (_flash_kernel). What is kept from it
 // is the function, the whole K/V sequence of a head held on chip, and its
@@ -15,13 +19,14 @@
 // then the block's exp-weighted sum); the TPU's need for Tk % block_k == 0
 // when not causal is not: the ragged tail is masked here.
 //
-// Bound on this card: at the codec's shape (4096, 2, 232, 16) a (q, k) pair
-// costs 2 * D FMAs against no device-memory traffic beyond one read of q,
-// k, v and one write of o, so the kernel is bound by fp32 operations on the
-// CUDA cores (0.42 ms; TF32 tensor cores are not allowed on this path: they
-// keep about three decimal digits). What limits it is instruction issue:
-// per key a thread's 64 FMAs share the issue slots with 8 shared loads and
-// the softmax's maxima, subtractions, exponentials and sums. Design:
+// fp32. Bound on this card: at the codec's shape (4096, 2, 232, 16) a
+// (q, k) pair costs 2 * D FMAs against no device-memory traffic beyond one
+// read of q, k, v and one write of o, so the kernel is bound by fp32
+// operations on the CUDA cores (0.42 ms; TF32 tensor cores are not allowed
+// on this path: they keep about three decimal digits). What limits it is
+// instruction issue: per key a thread's 64 FMAs share the issue slots with
+// 8 shared loads and the softmax's maxima, subtractions, exponentials and
+// sums. Design:
 //
 // * One CTA of 128 threads owns one (batch, head) and a tile of query rows.
 //   A thread holds R = 2 neighbouring query rows; a row belongs to G = DP /
@@ -76,13 +81,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
@@ -301,6 +300,407 @@ int launch(const T* q, const T* k, const T* v, T* o, long long bh, int tq,
                            stream);
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores: flash_bf16_mma
+//
+// A CTA of 4 warps owns 64 query rows of one (batch, head); a warp owns 16.
+// Per tile of KN keys (64; 32 at DP = 256, so that two CTAs fit an SM):
+//   S = Q K^T        mma.sync m16n8k16 bf16 x bf16 -> fp32: the products of
+//                    bf16 values are exact in fp32, so S is the plain
+//                    version's fp32 score up to the order of its sum;
+//   s = S * scale * log2(e) in fp32 (q is not pre-scaled: scaling a bf16 q
+//                    would round it), masked to -1e30 as the reference, the
+//                    dead tail k >= Tk to -inf (p = 0 exactly);
+//   online softmax   row max over the quad (2 shuffles), one correction
+//                    exp2f(m - m_new) of (l, acc) a tile, p = exp2f(s - m),
+//                    l summed from the fp32 p;
+//   acc += P_hi V + P_lo V   P_hi = bf16(p), P_lo = bf16(p - P_hi), both
+//                    with fp32 accumulate. One bf16 rounding of P is not
+//                    enough: where a row's weighted sum cancels
+//                    (|o| << sum p|v| / l) its error is a bf16 ulp of
+//                    sum p|v|, tens of ulps of o, against the per-element
+//                    gate |kernel - plain| <= 2^-7 |plain| + 4e-5. The pair
+//                    carries p to about 2^-16, as close as the fp32 version.
+// Fragments come from shared memory by ldmatrix (.trans for V, which is
+// the row-major B operand of P V); Q's fragments stay in registers for the
+// whole key loop at DP <= 128 and are re-read per tile at DP = 256, where
+// the accumulator alone takes 128 registers a thread. K and V stay bf16 in
+// shared memory: a 2-stage cp.async ring of (K, V) tiles, so the next
+// tile's copy overlaps this tile's products. Rows are DP + 8 elements
+// apart (an odd number of 16-byte units), so the 8 rows an ldmatrix reads
+// fall in 8 different bank groups. Head dims d..DP-1 are zero in shared
+// memory and add exactly 0 to a score; D = 8, 37, 80 ... run the next
+// instantiation of DP in {16, 32, 64, 80, 128, 256}.
+// Work: a CTA visits the key tiles that meet [lo, hi): hi = min(Tk, q0 +
+// 64) when causal, else Tk; lo = q0 - window + 1 under a window (unless
+// some row has no live key at all, when the reference's uniform weights
+// over every key must be reproduced: then lo = 0). Only tiles at the
+// diagonal, the window's edge or the ragged tail run mask logic.
+// Bound: bf16 tensor-core operations (4 x live pairs x D at 989 TFLOP/s);
+// the kernel issues 1.5 times that (Q K^T once, P V twice) plus the masked
+// part of the edge tiles.
+// Order: fixed, no atomics, no split over keys; a row's bits depend only on
+// its q, its head's K/V and its 64-row tile's index, so the same inputs give
+// the same bits on every launch and for any batch sub-range.
+
+using bf16 = __nv_bfloat16;
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = 32 * MMA_WARPS;
+constexpr int MMA_ROWS = 16 * MMA_WARPS;  // query rows per CTA
+constexpr int STAGES = 2;                 // K/V tiles in flight
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; zeros where !valid (src is then not read)
+__device__ __forceinline__ void cp_async16_zfill(unsigned dst, const void* src,
+                                                 bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned addr, unsigned (&r)[4]) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// c += a b: a 16x16 (row), b 16x8 (col), bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned as_u32(__nv_bfloat162 x) {
+  return *reinterpret_cast<unsigned*>(&x);
+}
+
+// (x, y) as a bf16 pair hi and the pair of what hi leaves, lo
+__device__ __forceinline__ void split_bf16(float x, float y, unsigned& hi,
+                                           unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  hi = as_u32(h);
+  lo = as_u32(__floats2bfloat162_rn(x - hf.x, y - hf.y));
+}
+
+// Where (batch, head) bh's K and V start: the one place that knows K/V
+// have as many heads as Q.
+__device__ __forceinline__ long long kv_head_offset(long long bh, int tk,
+                                                    int d) {
+  return bh * tk * d;
+}
+
+// ROWS rows of d bf16 from g (row r0 on) into shared rows LDS elements
+// apart, zero past nvalid rows; vec: 16-byte cp.async copies (d % 8 == 0,
+// 16-byte aligned; dims d..DP-1 are zeroed once by the caller), else
+// element loads that also write the zero dims.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_rows(bf16* s, const bf16* g, int r0,
+                                          int nvalid, int d, int vec) {
+  constexpr int LDS = DP + 8;
+  if (vec) {
+    const int chunks = d / 8;
+    for (int e = threadIdx.x; e < ROWS * chunks; e += MMA_THREADS) {
+      const int r = e / chunks, c = (e - r * chunks) * 8;
+      const bool ok = r0 + r < nvalid;
+      cp_async16_zfill(smem_u32(s + r * LDS + c),
+                       g + (ok ? (long long)(r0 + r) * d + c : 0), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += MMA_THREADS) {
+      const int r = e / DP, c = e - r * DP;
+      s[r * LDS + c] = (r0 + r < nvalid && c < d)
+                           ? g[(long long)(r0 + r) * d + c]
+                           : __float2bfloat16_rn(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+template <int DP>
+__host__ __device__ constexpr int mma_keys() { return DP <= 128 ? 64 : 32; }
+
+template <int DP>
+constexpr size_t mma_smem_bytes() {
+  return (size_t)(MMA_ROWS + STAGES * 2 * mma_keys<DP>()) * (DP + 8) *
+         sizeof(bf16);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, int tq,
+               int tk, int d, int causal, int window, float scale,
+               int skip_below_window, int vec) {
+  constexpr int KN = mma_keys<DP>();  // keys per tile
+  constexpr int LDS = DP + 8;         // shared row stride, elements
+  constexpr int KD = DP / 16;         // k-steps of Q K^T
+  constexpr int NT = KN / 8;          // key n-tiles of S
+  constexpr int DT = DP / 8;          // dim n-tiles of the accumulator
+  constexpr bool QREG = DP <= 128;    // Q fragments held in registers
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sq = reinterpret_cast<bf16*>(smem_raw);  // (MMA_ROWS, LDS)
+  bf16* skv = sq + MMA_ROWS * LDS;  // STAGES x {K (KN, LDS), V (KN, LDS)}
+
+  const long long bh = blockIdx.x;
+  // the heaviest causal tiles (the last rows) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bf16* qb = q + bh * tq * d;
+  const long long kv = kv_head_offset(bh, tk, d);
+  const bf16* kb = k + kv;
+  const bf16* vb = v + kv;
+
+  const int lo = (window > 0 && skip_below_window) ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(tk, q0 + MMA_ROWS) : tk;
+  const int t_lo = lo / KN, t_hi = (hi + KN - 1) / KN;
+
+  if (vec && d < DP) {  // the padded dims of every shared row, once
+    constexpr int ROWS_ALL = MMA_ROWS + STAGES * 2 * KN;
+    const int pad = DP - d;
+    for (int e = threadIdx.x; e < ROWS_ALL * pad; e += MMA_THREADS) {
+      const int r = e / pad;
+      sq[r * LDS + d + (e - r * pad)] = __float2bfloat16_rn(0.f);
+    }
+  }
+  auto load_kv = [&](int stage, int t) {
+    bf16* sk = skv + stage * 2 * KN * LDS;
+    load_rows<DP, KN>(sk, kb, t * KN, tk, d, vec);
+    load_rows<DP, KN>(sk + KN * LDS, vb, t * KN, tk, d, vec);
+  };
+  load_rows<DP, MMA_ROWS>(sq, qb, q0, tq, d, vec);
+  cp_async_commit();
+  load_kv(0, t_lo);
+  cp_async_commit();
+
+  // this thread's rows: ra and ra + 8 of the warp's 16
+  const int ra = q0 + warp * 16 + lane / 4;
+  const int kq = 2 * (lane % 4);  // its first key (column) of an n-tile
+  // ldmatrix row addresses: Q as the A operand, K as the B operand of
+  // Q K^T, V (transposed) as the B operand of P V
+  const unsigned q_addr =
+      smem_u32(sq + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+               (lane >> 4) * 8);
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = ((lane >> 3) & 1) * 8;
+  const int v_row = (lane & 7) + ((lane >> 3) & 1) * 8, v_col = (lane >> 4) * 8;
+
+  unsigned qf[QREG ? KD : 1][4];
+  if (QREG) {
+    cp_async_wait<1>();  // Q's group is done; the first K/V tile may not be
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < (QREG ? KD : 1); ++kd) ldsm_x4(q_addr + kd * 32, qf[kd]);
+  }
+
+  float acc[DT][4], m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int j = 0; j < DT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const float sl2 = scale * LOG2E;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) % STAGES;
+    if (t + 1 < t_hi) {
+      load_kv((t + 1 - t_lo) % STAGES, t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* sk = skv + stage * 2 * KN * LDS;
+    const bf16* sv = sk + KN * LDS;
+
+    // S = Q K^T for the warp's 16 rows x KN keys
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      unsigned a[4];
+      if (QREG) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = qf[QREG ? kd : 0][i];
+      } else {
+        ldsm_x4(q_addr + kd * 32, a);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        unsigned b[4];
+        ldsm_x4(smem_u32(sk + (j * 8 + k_row) * LDS + kd * 16 + k_col), b);
+        mma_bf16(s[j], a, b[0], b[1]);
+        mma_bf16(s[j + 1], a, b[2], b[3]);
+      }
+    }
+
+    // scale into the log2 domain; masks only on edge tiles (uniform)
+    const int k0 = t * KN;
+    const bool edge = (causal && k0 + KN - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + MMA_ROWS - 1 - window) ||
+                      k0 + KN > tk;
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] *= sl2;
+    if (edge) {
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int key = k0 + j * 8 + kq + (i & 1), row = ra + (i >> 1) * 8;
+          if (key >= tk)
+            s[j][i] = -INFINITY;
+          else if ((causal && key > row) || (window > 0 && key <= row - window))
+            s[j][i] = NEG_INF;
+        }
+    }
+
+    // online softmax, rows ra (i = 0, 1) and ra + 8 (i = 2, 3)
+    float mt[2] = {m[0], m[1]};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      mt[0] = fmaxf(mt[0], fmaxf(s[j][0], s[j][1]));
+      mt[1] = fmaxf(mt[1], fmaxf(s[j][2], s[j][3]));
+    }
+    float corr[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(FULL, mt[r], 1));
+      mt[r] = fmaxf(mt[r], __shfl_xor_sync(FULL, mt[r], 2));
+      corr[r] = exp2f(m[r] - mt[r]);
+      m[r] = mt[r];
+      l[r] *= corr[r];
+    }
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      acc[j][0] *= corr[0];
+      acc[j][1] *= corr[0];
+      acc[j][2] *= corr[1];
+      acc[j][3] *= corr[1];
+    }
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        s[j][i] = exp2f(s[j][i] - m[i >> 1]);
+        l[i >> 1] += s[j][i];
+      }
+
+    // acc += P_hi V + P_lo V, 16 keys a step
+#pragma unroll
+    for (int kk = 0; kk < KN / 16; ++kk) {
+      unsigned ph[4], pl[4];
+      split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+      split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+      split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        unsigned b[4];
+        ldsm_x4_trans(smem_u32(sv + (kk * 16 + v_row) * LDS + j * 8 + v_col), b);
+        mma_bf16(acc[j], ph, b[0], b[1]);
+        mma_bf16(acc[j], pl, b[0], b[1]);
+        mma_bf16(acc[j + 1], ph, b[2], b[3]);
+        mma_bf16(acc[j + 1], pl, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(FULL, l[r], 1);
+    l[r] += __shfl_xor_sync(FULL, l[r], 2);
+    l[r] = fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = ra + r * 8;
+    if (row >= tq) continue;
+    bf16* ob = o + (bh * tq + row) * d;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int c = j * 8 + kq;
+      const float x = acc[j][2 * r] / l[r], y = acc[j][2 * r + 1] / l[r];
+      if (c + 1 < d && !(d & 1)) {
+        *reinterpret_cast<__nv_bfloat162*>(ob + c) = __floats2bfloat162_rn(x, y);
+      } else {
+        if (c < d) ob[c] = __float2bfloat16_rn(x);
+        if (c + 1 < d) ob[c + 1] = __float2bfloat16_rn(y);
+      }
+    }
+  }
+}
+
+template <int DP>
+int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+               long long bh, int tq, int tk, int d, int causal, int window,
+               float scale, void* stream) {
+  const long long q_tiles = (tq + MMA_ROWS - 1) / MMA_ROWS;
+  if (bh > 0x7fffffffLL || q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = mma_smem_bytes<DP>();
+  // above 48 KB only as dynamic shared memory, once allowed (per device)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_bf16_mma<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int vec = d % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  // a row with no live key (window > 0, q - window + 1 >= Tk) takes the
+  // reference's uniform weights over every key: then visit them all
+  const int skip = !(window > 0 && (long long)tq > (long long)tk + window - 1);
+  dim3 grid((unsigned)bh, (unsigned)q_tiles);
+  flash_bf16_mma<DP>
+      <<<grid, MMA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          q, k, v, o, tq, tk, d, causal, window, scale, skip, vec);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                long long bh, int tq, int tk, int d, int causal, int window,
+                float scale, void* stream) {
+  if (d < 1 || d > MAX_D || bh < 0 || tq < 0 || tk < 1 || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (bh == 0 || tq == 0) return (int)cudaSuccess;
+  if (d <= 16)
+    return launch_mma<16>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                          stream);
+  if (d <= 32)
+    return launch_mma<32>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                          stream);
+  if (d <= 64)
+    return launch_mma<64>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                          stream);
+  if (d <= 80)
+    return launch_mma<80>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                          stream);
+  if (d <= 128)
+    return launch_mma<128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                           stream);
+  return launch_mma<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                         stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -322,8 +722,8 @@ int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                          const __nv_bfloat16* v, __nv_bfloat16* o,
                          long long bh, int tq, int tk, int d, int causal,
                          int window, float scale, void* stream) {
-  return launch<__nv_bfloat16>(q, k, v, o, bh, tq, tk, d, causal, window,
-                               scale, stream);
+  return launch_bf16(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                     stream);
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@ Counterpart of the Pallas function ``flash_attention`` in the JAX package's
 ``kernels/flash_attention.py``, with the same public layout: q (B, H, Tq,
 D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, D up to 256. Unlike
 the Pallas wrapper it takes any Tk, causal or not (the kernel masks the
-ragged key tail itself), and it pads nothing in device memory.
+ragged key tail itself), and it pads nothing in device memory. fp32 runs on
+the CUDA cores, bf16 on the tensor cores (fp32 scores and softmax, P V as a
+bf16 hi/lo pair); the source describes both.
 
 The kernel has no backward: a call that would need a gradient raises (the
 attention family trains through its direct attention). See
@@ -19,7 +21,8 @@ import math
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import FLOAT, INT, LL, PTR, check, cuda_operand, declare, launch
+from repro_torch.kernels._wrap import (FLOAT, INT, LL, PTR, check, cuda_operand, declare,
+                                       launch, refuse_grad)
 
 #: launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"flash_attention": 0}
@@ -54,6 +57,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """``softmax(q k^T / sqrt(D) + mask) v`` in one launch; see the module
     docstring for what it takes."""
+    refuse_grad("flash_attention", q, k, v)
     cuda_operand("q", q, _DTYPES)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Tq, D), got shape {tuple(q.shape)}")
@@ -71,11 +75,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("k and v need at least one key")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "the flash_attention kernel has no backward; train through the "
-            "direct attention (attn_impl='direct')"
-        )
     out = torch.empty_like(q)
     if out.numel():
         launch("flash_attention", _FUNCS[q.dtype],

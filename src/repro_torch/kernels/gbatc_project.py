@@ -14,7 +14,8 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import INT, LL, PTR, check, cuda_operand, declare, launch
+from repro_torch.kernels._wrap import (INT, LL, PTR, check, cuda_operand, declare, launch,
+                                       refuse_grad)
 
 #: launches per kernel since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {
@@ -85,6 +86,7 @@ def _launch(func: str, counter: str, dtype, device, ptr_args, s: int, nb: int,
 def gbatc_project_batched(residual: torch.Tensor,
                           basis: torch.Tensor) -> torch.Tensor:
     """Per-species ``C_s = R_s @ U_s`` in one launch; fp32 or fp64."""
+    refuse_grad("gbatc_project_batched", residual, basis)
     s, nb, d = _lead("residual", residual)
     check("residual", residual, (s, nb, d), residual.dtype, residual.device)
     check("basis", basis, (s, d, d), residual.dtype, residual.device)
@@ -99,6 +101,7 @@ def gbatc_project_batched(residual: torch.Tensor,
 def gbatc_correct_batched(x_rec: torch.Tensor, coeffs: torch.Tensor,
                           basis: torch.Tensor) -> torch.Tensor:
     """Per-species ``x_s + C_s @ U_s^T`` in one launch (decode replay)."""
+    refuse_grad("gbatc_correct_batched", x_rec, coeffs, basis)
     s, nb, d = _lead("x_rec", x_rec)
     dt, dev = x_rec.dtype, x_rec.device
     check("x_rec", x_rec, (s, nb, d), dt, dev)
@@ -117,6 +120,7 @@ def gbatc_select_accumulate(x_rec: torch.Tensor, coeff_vals: torch.Tensor,
                             basis: torch.Tensor) -> torch.Tensor:
     """Fused Algorithm-1 tail ``x + (c . [rank < m]) @ U_s^T``; the keep
     mask exists only in registers."""
+    refuse_grad("gbatc_select_accumulate", x_rec, coeff_vals, basis)
     s, nb, d = _lead("x_rec", x_rec)
     dt, dev = x_rec.dtype, x_rec.device
     check("x_rec", x_rec, (s, nb, d), dt, dev)
@@ -155,6 +159,7 @@ def gbatc_project(residual: torch.Tensor, basis: torch.Tensor) -> torch.Tensor:
     kernel's ``jnp.result_type``; an operand of another dtype is converted
     first). The launch is the batched projection kernel on (1, NB, D) and
     (1, D, D) views: nothing is copied or padded."""
+    refuse_grad("gbatc_project", residual, basis)
     nb, d = _two_d("residual", residual)
     dtype = _promoted(residual, basis)
     residual, basis = residual.to(dtype), basis.to(dtype)
@@ -178,6 +183,7 @@ def gbatc_correct(x_rec: torch.Tensor, coeffs: torch.Tensor, mask: torch.Tensor,
     with one ``.to(dtype)``, as the Pallas kernel's ``m_ref[...].astype(
     c_ref.dtype)``; the kernel multiplies it into the coefficients while it
     stages them, so the masked coefficients never reach device memory."""
+    refuse_grad("gbatc_correct", x_rec, coeffs, mask, basis)
     nb, d = _two_d("x_rec", x_rec)
     dtype = _promoted(x_rec, coeffs, basis)
     x_rec, coeffs, basis = x_rec.to(dtype), coeffs.to(dtype), basis.to(dtype)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import INT, PTR, check, cuda_operand, declare, launch
+from repro_torch.kernels._wrap import INT, PTR, check, cuda_operand, declare, launch, refuse_grad
 
 #: launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"rglru_scan": 0}
@@ -46,6 +46,7 @@ def _lib():
 def rglru_scan(a: torch.Tensor, b: torch.Tensor,
                h0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch: (h, h_T); see the module docstring."""
+    refuse_grad("rglru_scan", a, b, h0)
     cuda_operand("a", a, _DTYPES)
     if a.dim() != 3:
         raise ValueError(f"a must be (B, T, W), got shape {tuple(a.shape)}")

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels._wrap import INT, PTR, check, cuda_operand, declare, launch
+from repro_torch.kernels._wrap import INT, PTR, check, cuda_operand, declare, launch, refuse_grad
 
 #: launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"rwkv6_scan": 0}
@@ -49,6 +49,7 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                w: torch.Tensor, u: torch.Tensor,
                s0: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
     """One launch: (out, S_T); see the module docstring."""
+    refuse_grad("rwkv6_scan", r, k, v, w, u, s0)
     if not isinstance(r, torch.Tensor) or r.dim() != 4:
         raise ValueError("r must be a (B, T, H, N) tensor")
     b, t, h, n = r.shape
