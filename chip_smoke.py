@@ -119,7 +119,36 @@ Phases (each prints one JSON line; any failure exits non-zero):
    (flash at head dims 64, 80, 128 and 256) in fp32 and bf16 against their
    plain versions, bf16 within one bf16 ulp of each element's value and
    faster than its plain version, timed beside SDPA and their bounds;
-12. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+12. ``lm_train_path``  the language-model training path
+   (``repro_torch.train.train_loop.make_train_step``, ``launch.train.train``,
+   ``train.checkpoint``) on the card, every step through the portable route
+   (``use_kernels=False``: no kernel has a backward): (1) one train step of
+   each of the ten ``.smoke()`` configs in fp32 under ``strict_fp32`` on the
+   card and on the CPU from the same parameters, the loss and every
+   gradient leaf within 1e-4 of the leaf's largest |g|; (2) Llama-3.2-1B at
+   full width and depth in bf16 with ``remat="full"``, batch 4, seq 2048,
+   30 AdamW steps with the int8 gradient compression: losses falling,
+   exactly one ``block_quant`` launch a gradient leaf a step and no other
+   kernel, one launch a step (every leaf in turn, embed and lm_head at
+   (4.1 M, 64) among them) bitwise its plain version on the same gradient,
+   peak memory (this step alone allocates in expandable segments), and a
+   profiler split (forward+backward / ``compress_tree`` / AdamW, device
+   idle share) over 4 more steps, whose seconds give the step time,
+   tokens/s and MFU; (3) the same model cut to 2 layers, seq 512, 10 steps under
+   ``run_with_recovery`` with a checkpoint every 4 steps, once with a
+   ``StepFailure`` at step 6 and once without: final parameters and
+   optimizer state bitwise equal, the restore bitwise what was saved, each
+   save timed; (4) ``compress_state_bytes`` at tau_rel 1e-3 of the layer-0
+   slice of every stacked leaf of (2)'s trained model: one fp64 projection
+   and one fp32 select launch a leaf at D = 256, each held against its
+   plain version on the engine's operands, every 256-block within its
+   bound, the ratio and the seconds of prepare, select and entropy coding;
+   (5) ``python -m repro_torch.launch.train --steps 20`` in a subprocess:
+   exit 0 and a falling loss. The ``kernels`` phase holds the wide
+   instantiations (128 < D <= 256) of the fp64 projection and the fp32
+   select and correct at every ``WIDE`` shape (``batched_checks``, as at
+   D = 80) and times them at (1, 65536, 256);
+13. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -154,6 +183,11 @@ FP64_REL_LIMIT = 1e-12  # max abs difference relative to the row's l2 norm
 # row ranges of the fp64 projection's sub-range checks: each starts inside
 # a 64-row tile, so its rows meet other tile and fragment positions
 PROJECT_SUBRANGES = [(100, 5003), (20417, 20480), (1, 2)]
+# the wide kernels (128 < D <= 256: the fp64 projection, fp32 select and
+# correct) at the weight checkpoint's D = 256 (train/checkpoint.py): the
+# blocks of Llama-3.2-1B's largest layer-0 leaf (2048 x 8192 = 65536
+# blocks; timed), and ragged shapes, D = 129 and 200 among them
+WIDE = [(1, 65536, 256), (2, 513, 256), (1, 1, 256), (3, 100, 200), (2, 77, 129)]
 # the replay's shapes on partial_path's selective decodes: (species
 # selected, the window's block rows at 5120 a block group)
 PARTIAL_CORRECT_SHAPES = [(3, 10240), (1, 20480), (58, 5120), (1, 5120)]
@@ -265,7 +299,12 @@ PTXAS_NAMES = {
         r"correct_f32_ringILi(\d)ELi(\d+)ELi(\d+)E",
         lambda m: "f32/{}/ring/nch{}/minb{}".format(
             ("project", "correct", "select", "masked")[int(m.group(1))],
-            *m.groups()[1:]))],
+            *m.groups()[1:])), (
+        r"project_f64_wideILi(\d+)ELi(\d+)E",
+        lambda m: "f64/project/wide/tm{}/stages{}".format(*m.groups())), (
+        r"correct_f32_wideILi(\d)E",
+        lambda m: "f32/{}/wide".format(
+            ("project", "correct", "select", "masked")[int(m.group(1))]))],
     "flash_attention": [(
         r"flash_kernelIfLi(\d+)E",
         lambda m: "flash/f32/dp{}".format(m.group(1))), (
@@ -507,6 +546,89 @@ def fp32_pair_bits(torch, gk, x, c, u, rank, m) -> None:
               + [((sp,), gk.gbatc_correct_batched(*part(sp, x, kept, u)))])
 
 
+def batched_checks(torch, s, nb, d, seed, err: dict) -> None:
+    """Every check of the three batched kernels at (s, nb, d), on each
+    (kernel, dtype) route that takes this D: against its plain version
+    (FP64_REL_LIMIT, FP32_LIMIT; the largest difference kept in
+    ``err[name, dtype]``); the fp64 projection the same bits twice and for
+    row (PROJECT_SUBRANGES, clipped to nb) and species sub-ranges; the fp32
+    select and correct under fp32_pair_bits."""
+    from repro_torch.kernels import gbatc_project as gk
+    from repro_torch.kernels import ref as kref
+
+    for dtype in (torch.float32, torch.float64):
+        x, c, u, rank, m = make_inputs(torch, s, nb, d, dtype, seed)
+        for name, args, rows in (("gbatc_project_batched", (x, u), x),
+                                 ("gbatc_correct_batched", (x, c, u), c),
+                                 ("gbatc_select_accumulate", (x, c, rank, m, u), c)):
+            if d > gk.MAX_D and (name, dtype) not in gk._WIDE:
+                continue
+            e = compare(torch, getattr(gk, name)(*args),
+                        getattr(kref, name + "_ref")(*args), rows, dtype)
+            err[name, dtype] = max(err.get((name, dtype), 0.0), e)
+        if dtype == torch.float32:
+            fp32_pair_bits(torch, gk, x, c, u, rank, m)
+            continue
+        what = f"gbatc_project_batched (fp64, {(s, nb, d)})"
+        full = gk.gbatc_project_batched(x, u)
+        same_twice(torch, what, lambda: gk.gbatc_project_batched(x, u))
+        ranges = [(a, min(b, nb)) for a, b in PROJECT_SUBRANGES if a < nb]
+        same_rows(torch, what, full,
+                  [((slice(None), slice(a, b)), gk.gbatc_project_batched(
+                      x[:, a:b].contiguous(), u)) for a, b in ranges]
+                  + ([((slice(1, 3),), gk.gbatc_project_batched(
+                      x[1:3].contiguous(), u[1:3].contiguous()))] if s > 1 else []))
+        del full
+    del x, c, u, rank, m
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def batched_rows(torch, shape, seed, launches, err: dict, **extra) -> list[dict]:
+    """The fp64 projection and the fp32 select and correct timed at
+    ``shape`` beside their plain versions, bounds and library yardsticks
+    (``torch.bmm``, ``torch.baddbmm``; no one call computes the select);
+    ``max_abs_err`` is ``err``'s, from batched_checks."""
+    from repro_torch.kernels import gbatc_project as gk
+    from repro_torch.kernels import ref as kref
+
+    s, nb, d = shape
+    n = s * nb * d
+    rows = []
+
+    def row(name, line, dtype, fn, plain, lib, nbytes, flops):
+        rows.append(kernel_row(
+            torch, name, "gbatc_kernels.cu",
+            f"src/repro/kernels/gbatc_project.py:{line}", fn, plain, lib,
+            str(dtype).split(".")[-1], shape, nbytes, flops, launches,
+            err[name, dtype],
+            tolerance=("max abs diff <= 1e-12 x row l2 norm"
+                       if dtype == torch.float64 else "max abs diff <= 1e-5"),
+            **extra))
+
+    x, _, u, _, _ = make_inputs(torch, s, nb, d, torch.float64, seed)
+    row("gbatc_project_batched", 207, torch.float64,
+        lambda: gk.gbatc_project_batched(x, u),
+        lambda: kref.gbatc_project_batched_ref(x, u),
+        lambda: torch.bmm(x, u), (2 * n + s * d * d) * 8, 2 * n * d)
+    del x, u
+    torch.cuda.empty_cache()
+    x, c, u, rank, m = make_inputs(torch, s, nb, d, torch.float32, seed + 1)
+    kept = int((rank < m[..., None]).sum())
+    row("gbatc_select_accumulate", 288, torch.float32,
+        lambda: gk.gbatc_select_accumulate(x, c, rank, m, u),
+        lambda: kref.gbatc_select_accumulate_ref(x, c, rank, m, u), None,
+        (4 * n + s * nb + s * d * d) * 4, 2 * kept * d)
+    ut = u.transpose(1, 2)
+    row("gbatc_correct_batched", 240, torch.float32,
+        lambda: gk.gbatc_correct_batched(x, c, u),
+        lambda: kref.gbatc_correct_batched_ref(x, c, u),
+        lambda: torch.baddbmm(x, c, ut), (3 * n + s * d * d) * 4, 2 * n * d)
+    del x, c, u, rank, m, ut
+    torch.cuda.empty_cache()
+    return rows
+
+
 def phase_kernels(torch, launches: int) -> list[dict]:
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
@@ -514,94 +636,49 @@ def phase_kernels(torch, launches: int) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- ragged / odd shapes, both dtypes, every kernel -------------------
-    ragged_err: dict = {}
-
-    def note(name, dtype, e):
-        ragged_err[name, dtype] = max(ragged_err.get((name, dtype), 0.0), e)
-
+    # -- the main-path shape and ragged / odd shapes, both dtypes ---------
+    err: dict = {}
+    batched_checks(torch, S, NB, D, 1, err)
     for i, (s, nb, d) in enumerate(RAGGED):
-        for dtype in (torch.float32, torch.float64):
-            x, c, u, rank, m = make_inputs(torch, s, nb, d, dtype, 100 + i)
-            note("gbatc_project_batched", dtype, compare(
-                torch, gk.gbatc_project_batched(x, u),
-                kref.gbatc_project_batched_ref(x, u), x, dtype))
-            note("gbatc_correct_batched", dtype, compare(
-                torch, gk.gbatc_correct_batched(x, c, u),
-                kref.gbatc_correct_batched_ref(x, c, u), c, dtype))
-            note("gbatc_select_accumulate", dtype, compare(
-                torch, gk.gbatc_select_accumulate(x, c, rank, m, u),
-                kref.gbatc_select_accumulate_ref(x, c, rank, m, u), c, dtype))
-            if dtype == torch.float32:
-                fp32_pair_bits(torch, gk, x, c, u, rank, m)
-    torch.cuda.synchronize()
-
-    # -- main-path shapes: fp64 projection, fp32 select and replay --------
-    rows = []
-    n = S * NB * D
-
-    def row(name, line, dtype, fn, plain, lib, rows_for_norm, nbytes, flops,
-            **extra):
-        got, want = fn(), plain()
-        err = compare(torch, got, want, rows_for_norm, dtype)
-        del got, want
-        rows.append(kernel_row(
-            torch, name, "gbatc_kernels.cu",
-            f"src/repro/kernels/gbatc_project.py:{line}", fn, plain, lib,
-            str(dtype).split(".")[-1], (S, NB, D), nbytes, flops, launches,
-            max(err, ragged_err[name, dtype]), ragged_shapes_checked=RAGGED,
-            tolerance=("max abs diff <= 1e-12 x row l2 norm"
-                       if dtype == torch.float64 else "max abs diff <= 1e-5"),
-            **extra))
-
+        batched_checks(torch, s, nb, d, 100 + i, err)
+    # the replay's shapes on partial_path's selective decodes
     for i, (s, nb) in enumerate(PARTIAL_CORRECT_SHAPES):
         x, c, u, _, _ = make_inputs(torch, s, nb, D, torch.float32, 150 + i)
-        note("gbatc_correct_batched", torch.float32, compare(
-            torch, gk.gbatc_correct_batched(x, c, u),
-            kref.gbatc_correct_batched_ref(x, c, u), c, torch.float32))
+        e = compare(torch, gk.gbatc_correct_batched(x, c, u),
+                    kref.gbatc_correct_batched_ref(x, c, u), c, torch.float32)
+        err["gbatc_correct_batched", torch.float32] = max(
+            err["gbatc_correct_batched", torch.float32], e)
     del x, c, u
-
-    x, c, u, rank, m = make_inputs(torch, S, NB, D, torch.float64, 1)
-    same_twice(torch, "gbatc_project_batched (fp64)",
-               lambda: gk.gbatc_project_batched(x, u))
-    same_rows(torch, "gbatc_project_batched (fp64)", gk.gbatc_project_batched(x, u),
-              [((slice(None), slice(a, b)), gk.gbatc_project_batched(
-                  x[:, a:b].contiguous(), u)) for a, b in PROJECT_SUBRANGES]
-              + [((slice(1, 3),), gk.gbatc_project_batched(
-                  x[1:3].contiguous(), u[1:3].contiguous()))])
-    row("gbatc_project_batched", 207, torch.float64,
-        lambda: gk.gbatc_project_batched(x, u),
-        lambda: kref.gbatc_project_batched_ref(x, u),
-        lambda: torch.bmm(x, u), x,
-        (2 * n + S * D * D) * 8, 2 * n * D)
-    del x, c, u, rank, m
     torch.cuda.empty_cache()
 
-    x, c, u, rank, m = make_inputs(torch, S, NB, D, torch.float32, 2)
-    # the fp32 projection is part of the kernel's contract too
-    compare(torch, gk.gbatc_project_batched(x, u),
-            kref.gbatc_project_batched_ref(x, u), x, torch.float32)
-    fp32_pair_bits(torch, gk, x, c, u, rank, m)
-    kept = int((rank < m[..., None]).sum())
-    row("gbatc_select_accumulate", 288, torch.float32,
-        lambda: gk.gbatc_select_accumulate(x, c, rank, m, u),
-        lambda: kref.gbatc_select_accumulate_ref(x, c, rank, m, u),
-        None, c,
-        (4 * n + S * NB + S * D * D) * 4, 2 * kept * D)
-    ut = u.transpose(1, 2)
-    row("gbatc_correct_batched", 240, torch.float32,
-        lambda: gk.gbatc_correct_batched(x, c, u),
-        lambda: kref.gbatc_correct_batched_ref(x, c, u),
-        lambda: torch.baddbmm(x, c, ut), c,
-        (3 * n + S * D * D) * 4, 2 * n * D,
-        partial_shapes_checked=PARTIAL_CORRECT_SHAPES)
-    del x, c, u, rank, m, ut
-    torch.cuda.empty_cache()
+    # -- main-path shapes: fp64 projection, fp32 select and replay, timed -
+    rows = batched_rows(torch, (S, NB, D), 1, launches, err,
+                        ragged_shapes_checked=RAGGED)
+    rows[2]["partial_shapes_checked"] = PARTIAL_CORRECT_SHAPES
+    wide = phase_wide_kernels(torch, launches)
+    for r in rows:
+        r["wide_shapes"] = wide[r["name"]]
     emit({"phase": "kernels", "launches_timed": launches,
           "summary": [{k: r[k] for k in ("name", "dtype", "max_abs_err", "ms",
                                          "plain_ms", "library_ms", "bound_ms")}
-                      for r in rows]})
+                      for r in rows],
+          "wide": wide})
     return rows
+
+
+def phase_wide_kernels(torch, launches: int) -> dict:
+    """The wide instantiations (128 < D <= 256: the fp64 projection, the
+    fp32 select and correct) under batched_checks at every WIDE shape, and
+    timed at WIDE[0]. Returns {kernel: entry}."""
+    err: dict = {}
+    for i, (s, nb, d) in enumerate(WIDE):
+        batched_checks(torch, s, nb, d, 300 + i, err)
+    out = {}
+    for r in batched_rows(torch, WIDE[0], 390, launches, err, shapes_checked=WIDE):
+        for k in ("route", "source", "replaces", "launches"):
+            r.pop(k)
+        out[r.pop("name")] = r
+    return out
 
 
 def phase_flash(torch, launches: int) -> dict:
@@ -1921,14 +1998,14 @@ def replicas_equal(torch, replicas) -> bool:
                for r in replicas[1:] for name in r)
 
 
-def falling(losses, what: str) -> dict:
+def falling(losses, what: str, phase: str = "mesh_path") -> dict:
     """Finite losses whose last tenth's mean is below the first tenth's."""
     import numpy as np
 
     tenth = max(1, len(losses) // 10)
     first, last = float(np.mean(losses[:tenth])), float(np.mean(losses[-tenth:]))
     if not (np.isfinite(losses).all() and last < first):
-        fail(f"mesh_path: {what}: losses not finite and falling "
+        fail(f"{phase}: {what}: losses not finite and falling "
              f"(first tenth {first:.4e}, last tenth {last:.4e})")
     return {"steps": len(losses), "first_tenth_mean": first,
             "last_tenth_mean": last, "final": float(losses[-1])}
@@ -2208,13 +2285,14 @@ def expected_prefill_launches(cfg) -> dict:
     return out
 
 
-def counts_are(what: str, want: dict, totals: dict) -> dict:
+def counts_are(what: str, want: dict, totals: dict,
+               phase: str = "lm_serve_path") -> dict:
     """The launch counts since the last reset are ``want`` (0 elsewhere);
     adds them to ``totals``."""
     got = all_counts()
     full = {k: want.get(k, 0) for k in got}
     if got != full:
-        fail(f"lm_serve_path: {what} launched {got}, expected {full}")
+        fail(f"{phase}: {what} launched {got}, expected {full}")
     for k, n in got.items():
         totals[k] += n
     return got
@@ -2682,11 +2760,561 @@ def phase_lm_serve_path(torch) -> dict:
     return info
 
 
+# -- the language-model training path (lm_train_path) ------------------------
+# step 1: one train step of every .smoke() config on the card and on the CPU
+TRAIN_GRAD_REL = 1e-4  # max |cuda - cpu| over the leaf's largest |g| (and the loss)
+# step 2: Llama-3.2-1B (configs/llama3_2_1b.py, hf:meta-llama/Llama-3.2-1B) at
+# full width and depth in its bf16, remat "full", cut from the reference's
+# train_4k cell (seq 4096, global batch 256) to what one card holds: batch 4,
+# seq 2048 (the portable attention keeps O(T^2) fp32 scores and has no
+# flash backward); AdamW lr 3e-4, warmup 4, grad clip 1.0; int8 gradient
+# compression (CompressionConfig's defaults)
+TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = (
+    "llama3_2_1b", 4, 2048, 30, 4)
+# step 3: the same model cut to 2 of 16 layers (full width), seq 512, 10
+# steps, a checkpoint every 4, one StepFailure at step 6
+RECOVERY = {"layers": 2, "seq": 512, "steps": 10, "save_every": 4, "fail_at": 6,
+            "keep": 2}
+# step 4: GBATC-compressed checkpoint of the layer-0 slice of every stacked
+# leaf of step 2's trained model (60.8 M values), at tau_rel 1e-3
+CKPT_TAU = 1e-3
+CKPT_LEAVES = ("attn.wq", "attn.wk", "attn.wv", "attn.wo", "ffn.wg", "ffn.wu",
+               "ffn.wd", "ln1.scale", "ln2.scale")
+# make_train_step's profiler ranges; the rest of a step's device time is
+# the forward and backward (the backward runs on autograd's own thread)
+TRAIN_RANGES = ("train_step/compress_tree", "train_step/adamw")
+H100_BF16_FLOPS = PEAK_FLOPS["bfloat16"]
+
+
+class NoCheckpoints:
+    """A checkpoint manager that keeps nothing: step 2 times train steps;
+    saving a state that size is step 3's subject."""
+
+    def latest_step(self):
+        return None
+
+    def save(self, step, tree, wait=False):
+        return ""
+
+    def wait(self):
+        pass
+
+
+def train_profile(torch, fn) -> dict:
+    """``fn()`` under ``torch.profiler``: wall seconds, device seconds, the
+    device's idle share, and the device time of each TRAIN_RANGES part
+    (the kernels inside that range's device-side span) and of the forward
+    and backward (the rest). Fails where the profiler gives no device
+    time or no span of a range."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    spans = [(e.name, e.time_range.start, e.time_range.end) for e in events
+             if e.device_type == cuda and e.name in TRAIN_RANGES]
+    kernels = [(e.time_range.start, e.time_range.elapsed_us()) for e in events
+               if e.device_type == cuda and e.name not in TRAIN_RANGES]
+    missing = [name for name in TRAIN_RANGES if name not in {n for n, _, _ in spans}]
+    if not kernels or missing:
+        fail(f"lm_train_path: the profiler gave {len(kernels)} device kernels and "
+             f"no device-side span of {missing}")
+    busy = sum(us for _, us in kernels) / 1e6
+    split = {}
+    for name in TRAIN_RANGES:
+        mine = [(a, b) for n, a, b in spans if n == name]
+        split[name] = sum(us for t, us in kernels
+                          if any(a <= t < b for a, b in mine)) / 1e6
+    split["forward_backward"] = busy - sum(split.values())
+    return {"wall_s": wall, "device_s": busy,
+            "device_idle_share": max(0.0, 1 - busy / wall),
+            "by_part_s": split, "kernels": len(kernels)}
+
+
+def lm_train_backward_check(torch) -> dict:
+    """Step 1: every .smoke() config in fp32 under strict_fp32, one
+    make_train_step step on the card and on the CPU from the same
+    parameters and batch: loss and every gradient leaf within
+    TRAIN_GRAD_REL; no kernel launched (the portable route)."""
+    from repro_torch.configs.base import get_config, list_configs
+    from repro_torch.device import strict_fp32
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import (TrainConfig, init_train_state,
+                                              loss_and_grads, make_train_step)
+
+    out = {}
+    tcfg = TrainConfig(optimizer=opt.AdamWConfig(lr=1e-3))
+    for arch in list_configs():
+        cfg = get_config(arch).smoke().replace(use_kernels=False)
+        model = build_model(cfg)
+        params_cpu = model.init(0, "cpu")
+        res = {}
+        for dev in ("cpu", "cuda"):
+            params = {k: v.to(dev) for k, v in params_cpu.items()}
+            batch = make_batch(cfg, batch=2, seq=16, kind="train", seed=1, device=dev)
+            with strict_fp32():
+                loss, grads = loss_and_grads(model.loss, params, batch)
+                new_p, _, metrics = make_train_step(model, tcfg)(
+                    params, init_train_state(model, params, tcfg), batch)
+            res[dev] = (loss.cpu(), {k: g.cpu() for k, g in grads.items()},
+                        {k: p.cpu() for k, p in new_p.items()}, float(metrics["loss"]))
+        (l_c, g_c, p_c, m_c), (l_g, g_g, p_g, m_g) = res["cpu"], res["cuda"]
+        loss_err = abs(float(l_g) - float(l_c)) / max(abs(float(l_c)), 1e-30)
+        worst, worst_leaf = 0.0, None
+        for k, g in g_c.items():
+            top = float(g.abs().max())
+            diff = float((g_g[k] - g).abs().max())
+            rel = diff / top if top > 0 else (0.0 if diff == 0 else float("inf"))
+            if rel > worst:
+                worst, worst_leaf = rel, k
+        if not (loss_err <= TRAIN_GRAD_REL and worst <= TRAIN_GRAD_REL
+                and m_g == float(l_g) and m_c == float(l_c)):
+            fail(f"lm_train_path: {arch} CUDA against CPU: loss {loss_err:.3e}, "
+                 f"gradient {worst_leaf} {worst:.3e} of its largest |g| (limit "
+                 f"{TRAIN_GRAD_REL})")
+        out[arch] = {"loss_cpu": float(l_c), "loss_rel_err": loss_err,
+                     "grad_worst_rel_err": worst, "grad_worst_leaf": worst_leaf,
+                     "leaves": len(g_c), "params_after_step_max_abs_diff": max(
+                         float((p_g[k] - p).abs().max()) for k, p in p_c.items())}
+    return out
+
+
+def lm_train_full_width(torch, totals: dict) -> tuple:
+    """Step 2; returns (info, the trained parameters). One block_quant
+    launch a step is held bitwise against its plain version on the same
+    gradient: in step s, leaf (s mod leaves) of compress_tree, so that
+    every leaf, embed and lm_head at (4.1 M, 64) among them, is held at the
+    shape training gives it. The comparison runs inside the step, on the
+    device (its flags are read when the run has ended)."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.tokens import TokenPipeline, TokenPipelineConfig
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch.train import train
+    from repro_torch.models.registry import build_model
+    from repro_torch.parallel import gradient_compression as gc
+    from repro_torch.parallel.gradient_compression import CompressionConfig
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, make_train_step
+
+    cfg = get_config(TRAIN_ARCH).replace(use_kernels=False, remat="full")
+    tcfg = TrainConfig(optimizer=opt.AdamWConfig(lr=3e-4, warmup_steps=4,
+                                                 total_steps=TRAIN_STEPS,
+                                                 grad_clip=1.0),
+                       compression=CompressionConfig())
+    model = build_model(cfg)
+    specs = model.specs()
+    names = list(specs)
+    n_params = sum(p.numel() for p in specs.values())
+    n_leaves = len(specs)
+    samples, calls = [], [0]
+    real_bq = gc._block_quant
+
+    def sampling(xb, n_bits, block):
+        out = real_bq(xb, n_bits, block)
+        step, leaf = divmod(calls[0], n_leaves)
+        if leaf == step % n_leaves:
+            want, want_sc = kref.block_quant_ref(xb, n_bits=n_bits, block=block)
+            samples.append((step, names[leaf], tuple(xb.shape), torch.stack([
+                (out[0] != want).any(), (out[1] != want_sc.reshape(-1)).any()])))
+            del want, want_sc
+        calls[0] += 1
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    gc._block_quant = sampling
+    try:
+        out = train(cfg, tcfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                    ckpt=NoCheckpoints(), save_every=TRAIN_STEPS, log_every=0,
+                    device="cuda")
+        torch.cuda.synchronize()
+    finally:
+        gc._block_quant = real_bq
+    counts_are("full-width training", {"block_quant": n_leaves * TRAIN_STEPS}, totals,
+               "lm_train_path")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if list(out["params"]) != names:
+        fail("lm_train_path: the trained parameters are not in the model's order")
+    sampled = [{"step": st, "leaf": name, "blocks": list(shape),
+                "bitwise_plain": not bool(bad.any())}
+               for st, name, shape, bad in samples]
+    blocks_of = {k: -(-p.numel() // tcfg.compression.block) for k, p in specs.items()}
+    if (len(sampled) != TRAIN_STEPS or set(names) - {x["leaf"] for x in sampled}
+            or any(x["blocks"][0] != blocks_of[x["leaf"]] for x in sampled)):
+        fail(f"lm_train_path: the sampled block_quant launches do not cover every "
+             f"leaf once a step: {[(x['step'], x['leaf']) for x in sampled]}")
+    wrong = [x for x in sampled if not x["bitwise_plain"]]
+    if wrong:
+        fail(f"lm_train_path: block_quant launches differ from their plain version "
+             f"on the training gradients: {wrong}")
+    del samples
+    losses = out["losses"]
+    loss = falling(losses, f"{TRAIN_ARCH} full-width training", "lm_train_path")
+    # where the time goes: TRAIN_PROFILED more steps under the profiler
+    pipe = TokenPipeline(TokenPipelineConfig(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                                             seq_len=TRAIN_SEQ, seed=0))
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in
+                pipe.batch_at(TRAIN_STEPS + i).items()} for i in range(TRAIN_PROFILED)]
+    step_fn = make_train_step(model, tcfg)
+    carry = {"params": out["params"], "state": out["state"]}
+    step_s, train_s, step_list = out["median_step_s"], out["seconds"], out["step_seconds"]
+    del out
+
+    def steps():
+        for b in batches:
+            carry["params"], carry["state"], m = step_fn(carry["params"],
+                                                         carry["state"], b)
+            float(m["loss"])  # the loop's own synchronisation
+
+    reset_counts()
+    prof = train_profile(torch, steps)
+    counts_are("profiled steps", {"block_quant": n_leaves * TRAIN_PROFILED}, totals,
+               "lm_train_path")
+    params = carry.pop("params")
+    carry.clear()
+    torch.cuda.empty_cache()
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_embed = cfg.vocab * cfg.d_model  # the embedding lookup is no matmul
+    flops_per_token = (6 * (n_params - n_embed)
+                       + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * TRAIN_SEQ)
+    profiled_s = prof["wall_s"] / TRAIN_PROFILED
+    info = {"arch": TRAIN_ARCH, "dtype": "bfloat16", "remat": cfg.remat,
+            "layers": cfg.n_layers, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "steps": TRAIN_STEPS, "params": n_params, "gradient_leaves": n_leaves,
+            "compression": "int8, block 64, error feedback", "losses": losses,
+            "loss": loss, "step_s": profiled_s, "tokens_per_s": tokens / profiled_s,
+            "mfu": flops_per_token * tokens / profiled_s / H100_BF16_FLOPS,
+            "train_s": train_s, "train_step_s_median": step_s,
+            "train_step_seconds": step_list,
+            "train_tokens_per_s": tokens / step_s,
+            "train_mfu": flops_per_token * tokens / step_s / H100_BF16_FLOPS,
+            "flops_per_token": flops_per_token,
+            "flops_rule": "6 N (N without the embedding table) + 12 L H D T; "
+                          "over the step's seconds and 989 TFLOP/s",
+            "timing_note": "the profiled steps run after train() returned, "
+                           "without the initial state run_with_recovery keeps "
+                           "for a restart (ROADMAP C-ref-14); train()'s 30 "
+                           "steps run with it, within a few GB of the card's "
+                           "memory, and carry the sampled block_quant checks",
+            "block_quant_sampled": sampled,
+            "peak_device_gb": peak_gb, "reduced": {
+                "from": "train_4k (seq 4096, global batch 256)",
+                "seq": TRAIN_SEQ, "batch": TRAIN_BATCH},
+            "profile_steps": TRAIN_PROFILED, "profile": prof}
+    return info, params
+
+
+class RecordingCheckpoints:
+    """Step 3's checkpoint manager: a CheckpointManager writing
+    synchronously (each save timed whole) that keeps a host copy of the
+    tree it saved at ``hold`` and holds the tree a restore of that step
+    gives back to it, byte for byte (the CRCs are checked by restore)."""
+
+    def __init__(self, root: str, hold: int):
+        from repro_torch.train import checkpoint as ck
+
+        self.ck, self.hold = ck, hold
+        self.mgr = ck.CheckpointManager(root, keep=RECOVERY["keep"], async_write=False)
+        self.saves, self.restores, self.held, self.restored_bitwise = [], [], None, None
+
+    def latest_step(self):
+        return self.mgr.latest_step()
+
+    def wait(self):
+        self.mgr.wait()
+
+    def save(self, step, tree, wait=False):
+        t0 = time.perf_counter()
+        path = self.mgr.save(step, tree, wait=True)
+        self.saves.append({"step": step, "seconds": time.perf_counter() - t0})
+        if step == self.hold:
+            self.held = self.ck.flatten_tree(tree)
+        return path
+
+    def restore(self, tree_like, step=None):
+        t0 = time.perf_counter()
+        tree, got = self.mgr.restore(tree_like, step)
+        self.restores.append({"step": got, "seconds": time.perf_counter() - t0})
+        if got == self.hold:
+            back = self.ck.flatten_tree(tree)
+            self.restored_bitwise = (sorted(back) == sorted(self.held) and all(
+                back[k].dtype == v.dtype and back[k].tobytes() == v.tobytes()
+                for k, v in self.held.items()))
+            if not self.restored_bitwise:
+                fail(f"lm_train_path: the restore of step {got} is not what was saved")
+        return tree, got
+
+
+def lm_train_recovery(torch, totals: dict) -> dict:
+    """Step 3: run_with_recovery twice from the same initialisation (seed
+    0), with one StepFailure and without; final parameters and optimizer
+    state bitwise equal; the restore bitwise what was saved."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.device import deterministic
+    from repro_torch.launch.train import train
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.fault_tolerance import StepFailure
+    from repro_torch.train.train_loop import TrainConfig
+
+    cfg = get_config(TRAIN_ARCH).replace(use_kernels=False, remat="full",
+                                         n_layers=RECOVERY["layers"])
+    # no gradient compression: the reference's checkpoint tree ({params,
+    # opt}) holds no error-feedback residuals
+    tcfg = TrainConfig(optimizer=opt.AdamWConfig(lr=3e-4, warmup_steps=4,
+                                                 total_steps=RECOVERY["steps"],
+                                                 grad_clip=1.0))
+    fail_at, every = RECOVERY["fail_at"], RECOVERY["save_every"]
+    restored = (fail_at - 1) // every * every  # the latest save before the failure
+    fired = []
+
+    def fail_once(step):
+        if step == fail_at and not fired:
+            fired.append(step)
+            raise StepFailure("injected")
+
+    runs, info = {}, {}
+    base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(ROOT, "build"))
+    try:
+        for name, hook in (("failure", fail_once), ("clean", None)):
+            mgr = RecordingCheckpoints(os.path.join(base, name), hold=restored)
+            reset_counts()
+            with deterministic():
+                out = train(cfg, tcfg, steps=RECOVERY["steps"], batch=TRAIN_BATCH,
+                            seq=RECOVERY["seq"], ckpt=mgr, save_every=every,
+                            log_every=0, device="cuda", before_step=hook)
+            torch.cuda.synchronize()
+            counts_are(f"recovery run ({name})", {}, totals, "lm_train_path")
+            runs[name] = out
+            info[name] = {"report": out["report"], "losses": out["losses"],
+                          "seconds": out["seconds"], "median_step_s": out["median_step_s"],
+                          "saves": mgr.saves, "restores": mgr.restores}
+            if name == "failure":
+                if out["report"]["restarts"] != 1 or mgr.restored_bitwise is not True:
+                    fail(f"lm_train_path: recovery run: {out['report']}, restore "
+                         f"bitwise {mgr.restored_bitwise}")
+                info[name]["restored_step"] = restored
+                info[name]["restore_bitwise"] = True
+            shutil.rmtree(os.path.join(base, name), ignore_errors=True)
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    a, b = runs["failure"], runs["clean"]
+    equal = (all(torch.equal(a["params"][k], p) for k, p in b["params"].items())
+             and all(torch.equal(a["state"]["opt"][part][k], t)
+                     for part in ("m", "v") for k, t in b["state"]["opt"][part].items())
+             and a["state"]["opt"]["step"] == b["state"]["opt"]["step"])
+    if not equal:
+        fail("lm_train_path: the recovered run's parameters or optimizer state "
+             "differ from the uninterrupted run's")
+    info.update({"final_bitwise_equal": True, "layers": cfg.n_layers,
+                 "seq": RECOVERY["seq"], "batch": TRAIN_BATCH, **RECOVERY,
+                 "deterministic_algorithms": "warn_only, scoped (device.deterministic)",
+                 "checkpoint_bytes": sum(t.numel() * (t.element_size() + 8)
+                                         for t in b["params"].values())})
+    del runs, a, b
+    torch.cuda.empty_cache()
+    return info
+
+
+def lm_train_compressed_checkpoint(torch, params: dict, totals: dict) -> dict:
+    """Step 4: compress_state_bytes (device "cuda") of the layer-0 slices
+    of the trained model's stacked leaves, one leaf a call: one projection
+    and one select launch each (D = 256), each held against its plain
+    version on the operands the engine gave it (FP64_REL_LIMIT,
+    FP32_LIMIT); every 256-block within the bound (the reference test's
+    tau (1 + 1e-6), plus the fp32 rounding of the stored block, which the
+    reference's own result needs too at tau_rel 1e-3); seconds of the
+    engine's prepare and select and of the entropy coder (wrapped here
+    while the step runs; the operands are copied there and compared after
+    the call)."""
+    import numpy as np
+
+    from repro_torch.core import entropy, gae
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.train.checkpoint import compress_state_bytes
+
+    flat = {f"layers/{name.replace('.', '/')}/0":
+            params[f"layers.{name}"][0].float().cpu().numpy()  # bf16 -> fp32 exactly
+            for name in CKPT_LEAVES}
+    stages = {"prepare": 0.0, "select": 0.0, "entropy": 0.0}
+    real = {}
+
+    def timed(owner, attr, stage):
+        fn = getattr(owner, attr)
+        real[owner, attr] = fn
+
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                stages[stage] += time.perf_counter() - t0
+
+        setattr(owner, attr, wrapped)
+
+    launched = []
+
+    def kept(name):
+        fn = getattr(ops, name)
+        real[ops, name] = fn
+
+        def wrapped(*a, **kw):
+            got = fn(*a, **kw)
+            launched.append((name, [t.clone() for t in a], got.clone()))
+            return got
+
+        setattr(ops, name, wrapped)
+
+    timed(gae.GuaranteeEngine, "prepare", "prepare")
+    timed(gae.GuaranteeEngine, "select", "select")
+    timed(entropy, "huffman_encode", "entropy")
+    timed(entropy, "zstd_bytes", "entropy")
+    kept("gbatc_project_batched")
+    kept("gbatc_select_accumulate")
+    leaves, raw, packed = {}, 0, 0
+    t_start = time.perf_counter()
+    try:
+        for k, v in flat.items():
+            reset_counts()
+            t0 = time.perf_counter()
+            rec, nbytes, rep = compress_state_bytes({k: v}, tau_rel=CKPT_TAU,
+                                                    device="cuda")
+            seconds = time.perf_counter() - t0
+            counts_are(f"compressed checkpoint {k}", {"gbatc_project_batched": 1,
+                                                      "gbatc_select_accumulate": 1},
+                       totals, "lm_train_path")
+            plain_err = {}
+            for name, args, got in launched:
+                dtype = torch.float64 if name == "gbatc_project_batched" else torch.float32
+                plain = getattr(kref, name + "_ref")(*args)
+                plain_err[name] = {"shape": list(got.shape), "max_abs_err": compare(
+                    torch, got, plain, args[0], dtype)}
+            if sorted(plain_err) != sorted(GBATC_KERNELS[:2]) or any(
+                    e["shape"][-1] != 256 for e in plain_err.values()):
+                fail(f"lm_train_path: compressed {k}: launches {plain_err}")
+            launched.clear()
+            # the reference test's check, in its fp32 arithmetic, plus the
+            # fp32 rounding of the stored block (half an ulp an element,
+            # at most 2^-24 |rec block|): the engine meets tau in fp64
+            blocks, rblocks = v.reshape(-1, 256), rec[k].reshape(-1, 256)
+            norms = np.linalg.norm(blocks - rblocks, axis=1)
+            bound = CKPT_TAU * np.sqrt(np.mean(blocks ** 2)) * np.sqrt(256)
+            storage = 2.0 ** -24 * np.linalg.norm(rblocks, axis=1)
+            if not (norms <= bound * (1 + 1e-6) + storage).all():
+                fail(f"lm_train_path: compressed {k}: a block misses its bound "
+                     f"({float(norms.max()):.6e} > {float(bound):.6e})")
+            raw += rep["raw_bytes"]
+            packed += nbytes
+            leaves[k] = {"shape": list(v.shape), "blocks": blocks.shape[0],
+                         "ratio": rep["ratio"], "seconds": seconds,
+                         "worst_block_over_bound": float(norms.max() / bound),
+                         "blocks_over_bound_1e-6": int((norms > bound * (1 + 1e-6)).sum()),
+                         "worst_excess_in_storage_rounding": float(
+                             ((norms - bound) / storage).max()),
+                         "kernels_against_plain": plain_err}
+    finally:
+        for (owner, attr), fn in real.items():
+            setattr(owner, attr, fn)
+    return {"tau_rel": CKPT_TAU, "values": int(sum(v.size for v in flat.values())),
+            "leaves": leaves, "raw_bytes": raw, "compressed_bytes": packed,
+            "ratio": raw / packed, "seconds": time.perf_counter() - t_start,
+            "stage_seconds": stages, "input": "fp32 copies of the bf16 weights "
+            "(exact); embed and lm_head (262.7 M values each) left out: the host "
+            "Huffman coder would take about 90 s each"}
+
+
+def lm_train_entry_point(torch) -> dict:
+    """Step 5: python -m repro_torch.launch.train --steps 20 at its smoke
+    defaults on the card, in a subprocess: exit 0, a falling loss."""
+    ck = tempfile.mkdtemp(prefix="chip_smoke_cli_", dir=os.path.join(ROOT, "build"))
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    try:
+        p = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            "--steps", "20", "--ckpt-dir", ck],
+                           capture_output=True, text=True, timeout=600, env=env,
+                           cwd=ROOT)
+    finally:
+        shutil.rmtree(ck, ignore_errors=True)
+    seconds = time.perf_counter() - t0
+    line = next((ln for ln in p.stdout.splitlines() if ln.startswith("loss ")), "")
+    try:
+        first, last = (float(x) for x in line.split(";")[0][5:].split(" -> "))
+    except ValueError:
+        first = last = float("nan")
+    if p.returncode != 0 or not last < first:
+        fail(f"lm_train_path: launch.train exited {p.returncode} ({line!r}):\n"
+             f"{p.stdout[-2000:]}\n{p.stderr[-2000:]}")
+    return {"command": "python -m repro_torch.launch.train --steps 20",
+            "returncode": p.returncode, "loss_first": first, "loss_last": last,
+            "seconds": seconds, "stdout_head": p.stdout.splitlines()[:2]}
+
+
+def phase_lm_train_path(torch) -> dict:
+    """The language-model training path (see the module docstring, step
+    12); returns the phase line, whose ``launches`` give each kernel's
+    count per step (the profiled steps included in ``full_width``)."""
+    t_start = time.perf_counter()
+    info = {"phase": "lm_train_path", "gpu": gpu_line()}
+    seconds = {}
+    totals = {part: {k: 0 for k in all_counts()} for part in
+              ("backward_check", "full_width", "recovery", "compressed_checkpoint")}
+    t0 = time.perf_counter()
+    reset_counts()
+    info["backward_check"] = lm_train_backward_check(torch)
+    counts_are("backward check", {}, totals["backward_check"], "lm_train_path")
+    seconds["backward_check"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    # the full-width step holds the initial state run_with_recovery keeps
+    # for a restart beside the current one (ROADMAP C-ref-14) and peaks near
+    # 74 GB; in fixed segments the caching allocator fragments past the
+    # card's 80 GB there. The segments it allocates in this step alone are
+    # expandable: they change where memory comes from, not what a kernel
+    # computes, and the earlier phases run in the allocator's defaults.
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        info["full_width"], params = lm_train_full_width(torch, totals["full_width"])
+        info["full_width"]["expandable_segments"] = sum(
+            bool(seg.get("is_expandable")) for seg in torch.cuda.memory_snapshot())
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
+    seconds["full_width"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["recovery"] = lm_train_recovery(torch, totals["recovery"])
+    seconds["recovery"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    info["compressed_checkpoint"] = lm_train_compressed_checkpoint(
+        torch, params, totals["compressed_checkpoint"])
+    seconds["compressed_checkpoint"] = time.perf_counter() - t0
+    del params
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    info["entry_point"] = lm_train_entry_point(torch)
+    seconds["entry_point"] = time.perf_counter() - t0
+    info["launches"] = totals
+    info["seconds_by_step"] = seconds
+    info["seconds"] = time.perf_counter() - t_start
+    emit(info)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,ops_path,"
-                            "partial_path,serve_path,stream_path,mesh_path,lm_serve_path")
+                            "partial_path,serve_path,stream_path,mesh_path,lm_serve_path,"
+                            "lm_train_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -2768,6 +3396,7 @@ def run(torch, args, phases) -> None:
     main_codec = None
     del data, temperature
     lm = phase_lm_serve_path(torch) if "lm_serve_path" in phases else None
+    lm_train = phase_lm_train_path(torch) if "lm_train_path" in phases else None
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]],
@@ -2786,16 +3415,17 @@ def run(torch, args, phases) -> None:
         if mesh:
             by_path["mesh_path"] = {part: c[r["name"]]
                                     for part, c in mesh["launches"].items()}
-        if lm:
-            by_path["lm_serve_path"] = {part: c[r["name"]]
-                                        for part, c in lm["launches"].items()}
+        for name, line in (("lm_serve_path", lm), ("lm_train_path", lm_train)):
+            if line:
+                by_path[name] = {part: c[r["name"]]
+                                 for part, c in line["launches"].items()}
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
                                          "attention_path", "ops_path",
                                          "partial_path", "serve_path",
                                          "stream_path", "mesh_path",
-                                         "lm_serve_path"))
+                                         "lm_serve_path", "lm_train_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -41,11 +41,37 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
     return dev
 
 
-# strict_fp32's process-wide state: how many callers are inside it (any
-# thread), and the flags the first of them found on entry
-_STRICT_LOCK = threading.Lock()
-_strict_depth = 0
-_strict_saved: Optional[tuple] = None
+class _ScopedFlags:
+    """Process-wide flags held at one value while any caller is inside a
+    scope. Entries are counted across threads under one lock: the first
+    caller to enter saves the flags and sets the scope's values, later
+    entries (nested, or from other threads) only count, and the last
+    caller to leave restores what the first one found. A thread inside
+    never sees another thread's exit undo its flags. While any thread is
+    inside, every thread of the process sees the scope's values, including
+    one that never entered."""
+
+    def __init__(self, get, set_, values: tuple):
+        self._get, self._set, self._values = get, set_, values
+        self._lock = threading.Lock()
+        self._depth = 0
+        self._saved: Optional[tuple] = None
+
+    @contextlib.contextmanager
+    def scope(self):
+        with self._lock:
+            if self._depth == 0:
+                self._saved = self._get()
+                self._set(self._values)
+            self._depth += 1
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._depth -= 1
+                if self._depth == 0:
+                    self._set(self._saved)
+                    self._saved = None
 
 
 def _fp32_flags() -> tuple:
@@ -60,29 +86,28 @@ def _set_fp32_flags(flags: tuple) -> None:
      cudnn.deterministic) = flags
 
 
-@contextlib.contextmanager
-def strict_fp32():
-    """True-fp32 numerics for the enclosed calls (see module docstring).
+_STRICT = _ScopedFlags(_fp32_flags, _set_fp32_flags, (False, False, False, True))
+_DETERMINISTIC = _ScopedFlags(
+    lambda: (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled()),
+    lambda flags: torch.use_deterministic_algorithms(flags[0], warn_only=flags[1]),
+    (True, True))
 
-    The four backend flags (cuDNN and matmul TF32, cuDNN autotuning and
-    determinism) are process-wide, so entries are counted across threads
-    under one lock: the first caller to enter saves the flags and sets
-    the strict values, later entries (nested, or from other threads) only
-    count, and the last caller to leave restores what the first one
-    found. A thread inside never sees another thread's exit undo its
-    flags. While any thread is inside, every thread of the process sees
-    the strict flags, including one that never entered."""
-    global _strict_depth, _strict_saved
-    with _STRICT_LOCK:
-        if _strict_depth == 0:
-            _strict_saved = _fp32_flags()
-            _set_fp32_flags((False, False, False, True))
-        _strict_depth += 1
-    try:
-        yield
-    finally:
-        with _STRICT_LOCK:
-            _strict_depth -= 1
-            if _strict_depth == 0:
-                _set_fp32_flags(_strict_saved)
-                _strict_saved = None
+
+def strict_fp32():
+    """True-fp32 numerics for the enclosed calls (see module docstring):
+    cuDNN and matmul TF32 off, cuDNN autotuning off and determinism on.
+    The four backend flags are process-wide, so entries are counted
+    across threads (:class:`_ScopedFlags`)."""
+    return _STRICT.scope()
+
+
+def deterministic():
+    """``torch.use_deterministic_algorithms(True, warn_only=True)`` for the
+    enclosed calls: the scatter-adds of the embedding's and the gathers'
+    backward take their deterministic kernels on CUDA, so a replayed
+    training step gives the same bits. Scoped as :func:`strict_fp32`
+    (the flags are process-wide). ``warn_only``: an operation without a
+    deterministic kernel warns instead of raising, and the caller's
+    bitwise check is the proof."""
+    return _DETERMINISTIC.scope()

@@ -172,6 +172,36 @@
 //   mask in there. Neither the mask nor the masked coefficients are ever
 //   written to device memory.
 //
+// Wide blocks, 128 < D <= 256 (project_f64_wide, correct_f32_wide): the
+// fp64 projection and the fp32 correct and select modes also take the
+// weight checkpoint's 256-long blocks (train/checkpoint.py). A species'
+// basis is 512 KB in fp64 and 256 KB in fp32 there, more than the 227 KB
+// of shared memory a CTA may hold, so neither kernel stages it: the row
+// tiles stream through the same cp.async ring as below, and the basis is
+// read from device memory, where one species' basis stays L2-resident
+// while every CTA walks its rows (and the warps that share columns hit in
+// L1). At (1, 65536, 256) the fp64 projection does 8.6 GFLOP against 268
+// MB moved, so the tensor cores bound it (0.128 ms at 67 TFLOP/s);
+// correct moves 201 MB and does 4.3 G FFMA (0.128 ms at 67 TFLOP/s). The
+// basis reads are L2 traffic on top of that: about 1 GB for the
+// projection and 256 KB a 64-row tile for correct and select. Right first:
+// the D <= 128 kernels are left as they were, so the codec's bits cannot
+// move.
+//
+// * project_f64_wide: DMMA m16n8k8 in fp64 as project_f64_dmma, k steps
+//   ascending; 32-row tiles, 3 stages (200 KB at D = 256); a warp owns 16
+//   rows by 64 columns (8 n fragments), 8 warps; each B fragment is two
+//   8-byte loads a lane from the row-major basis (a warp's load is 4 rows
+//   of 64 contiguous bytes, every byte used), zero past D, fetched one k
+//   step ahead of its MMAs.
+// * correct_f32_wide: correct_f32_ring's order of arithmetic exactly (acc
+//   = +0, fmaf over k ascending with zero terms past D, out = x + acc, c'
+//   = +0 where rank >= m in select), so select on (c, rank, m) is still
+//   bitwise correct on where(rank < m, c, 0). 512 threads a CTA cover 128
+//   columns and walk the row's columns in passes of 128 against the same
+//   staged tile; a thread's four B rows are 16-byte loads of U[j][k..k+3]
+//   where D % 4 == 0, scalar loads otherwise.
+//
 // fp64 at D = 80 needs 51.2 KB for the basis alone, above the 48 KB static
 // limit: all shared memory is dynamic and every launcher raises the
 // function's limit first. Launchers return the cudaError_t of the launch.
@@ -187,7 +217,8 @@ constexpr int TY = 16;                   // row lanes
 constexpr int THREADS = TX * TY;         // 256
 constexpr int RM = TILE_ROWS / TY;       // rows per thread
 constexpr int KU = 4;                    // k unroll = shared row padding
-constexpr int MAX_D = 128;
+constexpr int MAX_D = 128;       // the tile kernel, the fp32 projection
+constexpr int MAX_D_WIDE = 256;  // the fp64 projection, fp32 correct/select
 
 constexpr int MODE_CORRECT = 1;
 constexpr int MODE_SELECT = 2;
@@ -577,6 +608,132 @@ project_f64_dmma(const double* __restrict__ r, const double* __restrict__ basis,
           const double2 b = bk[j * 32];
           dmma(acc[j], a, b.x, b.y);
         }
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = wm * 16 + h * 8 + g;
+      if (row >= rows) continue;
+      double* o = out + ((size_t)s * nb + row0 + row) * d;
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) {
+        const int col = (wn * NFW + j) * 8 + 2 * q;
+        if (j >= nf_w || col >= d) continue;
+        if (vec) {
+          *reinterpret_cast<double2*>(o + col) =
+              make_double2(acc[j][2 * h], acc[j][2 * h + 1]);
+        } else {
+          o[col] = acc[j][2 * h];
+          if (col + 1 < d) o[col + 1] = acc[j][2 * h + 1];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// ---- fp64 projection at 128 < D <= 256 -------------------------------------
+
+// Warp (wm, wn) of a tile owns rows 16 wm .. +15 and n fragments 8 wn ..
+// +7 (columns 64 wn .. +63); B fragments come from the row-major basis in
+// device memory: lane (g, q) reads U[8 ks + q][n] and U[8 ks + q + 4][n],
+// n = 8 f + g, zero past D.
+template <int TM, int STAGES>
+__global__ void __launch_bounds__(TM / 16 * 4 * 32, 1)
+project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
+                 double* __restrict__ out, int s_count, long long nb, int d,
+                 int ld, int vec) {
+  constexpr int WM = TM / 16;  // 16-row warp groups in a tile
+  constexpr int WN = 4;        // column quarters of 8 n fragments
+  constexpr int NFW = 8;
+  constexpr int THREADS_W = WM * WN * 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* a_s = reinterpret_cast<double*>(smem_raw);  // (STAGES, TM, ld)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, q = lane & 3;
+  const int ks_n = (d + 7) / 8;
+  const int nf_w = min(NFW, (d + 7) / 8 - wn * NFW);  // this warp's n fragments
+  const long long tps = (nb + TM - 1) / TM;         // tiles a species
+  const long long total = tps * s_count;
+  const long long t_begin = total * blockIdx.x / gridDim.x;
+  const long long t_end = total * (blockIdx.x + 1) / gridDim.x;
+
+  // pad columns d .. ld-1 add exactly 0 (B is zero past D too)
+  const int pad = ld - d;
+  for (int i = tid; i < STAGES * TM * pad; i += THREADS_W)
+    a_s[(i / pad) * ld + d + i % pad] = 0.0;
+
+  auto issue = [&](long long t, int buf) {
+    const long long s = t / tps, row0 = (t - s * tps) * TM;
+    const int rows = (int)min((long long)TM, nb - row0);
+    const double* src = r + ((size_t)s * nb + row0) * d;
+    double* dst = a_s + buf * TM * ld;
+    if (vec) {
+      const int half = d >> 1, n = rows * half;
+      for (int i = tid; i < n; i += THREADS_W) {
+        const int row = i / half, c = (i - row * half) * 2;
+        cp_async16(dst + row * ld + c, src + (size_t)row * d + c);
+      }
+    } else {
+      const int n = rows * d;
+      for (int i = tid; i < n; i += THREADS_W) {
+        const int row = i / d, c = i - row * d;
+        cp_async8(dst + row * ld + c, src + i);
+      }
+    }
+  };
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (t_begin + st < t_end) issue(t_begin + st, st);
+    cp_async_commit();
+  }
+
+  for (long long t = t_begin; t < t_end; ++t) {
+    const int i = (int)(t - t_begin);
+    cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; tile t-1 is done with
+    if (t + STAGES - 1 < t_end)
+      issue(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+    cp_async_commit();
+    if (nf_w <= 0) continue;  // warp-uniform: D too small for this quarter
+
+    const long long s = t / tps;
+    const long long row0 = (t - s * tps) * TM;
+    const int rows = (int)min((long long)TM, nb - row0);
+    const double* u = basis + (size_t)s * d * d;
+    const double* a0 = a_s + (i % STAGES) * TM * ld + (wm * 16 + g) * ld + q;
+    const int n0 = wn * NFW * 8 + g;  // column of fragment 0 of this lane
+    auto load_b = [&](int ks, double (&b)[NFW][2]) {
+      const int k = ks * 8 + q;
+#pragma unroll
+      for (int j = 0; j < NFW; ++j) {
+        const int n = n0 + j * 8;
+        const bool in = j < nf_w && n < d;
+        b[j][0] = in && k < d ? __ldg(u + (size_t)k * d + n) : 0.0;
+        b[j][1] = in && k + 4 < d ? __ldg(u + (size_t)(k + 4) * d + n) : 0.0;
+      }
+    };
+    double acc[NFW][4];
+#pragma unroll
+    for (int j = 0; j < NFW; ++j)
+      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0;
+    double b[NFW][2];
+    load_b(0, b);
+    for (int ks = 0; ks < ks_n; ++ks) {
+      double bn[NFW][2];
+      const bool more = ks + 1 < ks_n;
+      if (more) load_b(ks + 1, bn);  // in flight during the MMAs
+      const double* ak = a0 + ks * 8;
+      const double a[4] = {ak[0], ak[8 * ld], ak[4], ak[8 * ld + 4]};
+#pragma unroll
+      for (int j = 0; j < NFW; ++j)
+        if (j < nf_w) dmma(acc[j], a, b[j][0], b[j][1]);
+      if (more) {
+#pragma unroll
+        for (int j = 0; j < NFW; ++j) b[j][0] = bn[j][0], b[j][1] = bn[j][1];
       }
     }
 #pragma unroll
@@ -1067,6 +1224,235 @@ inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// ---- fp32 correct and select at 128 < D <= 256 ----------------------------
+
+constexpr int WIDE_THREADS = 512;  // 8 groups of 16 columns: 128 a pass
+
+// correct_f32_ring with the basis read from device memory. Thread tid owns
+// rows ry + 16 i (i < 4) of a tile, ry = (tid / 4) % 16, and in pass p
+// columns col .. col+3, col = 128 p + 16 (tid / 64) + 4 (tid % 4); its B
+// values for 4 k are U[col + e][k .. k+3] (e < 4; rows past D clamped to
+// the last row, their columns never stored), one 16-byte load each where
+// bvec (D % 4 == 0, U 16-byte aligned), else 4 scalar loads, zero past D.
+template <int MODE>
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
+correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
+                 const int* __restrict__ rank,  // select only, (S, NB, D)
+                 const int* __restrict__ m,     // select only, (S, NB)
+                 const float* __restrict__ basis, float* __restrict__ out,
+                 int s_count, long long nb, int d, int lda, int vec, int bvec) {
+  constexpr int RM = RING_RM, TM = RING_TM, STAGES = RING_STAGES;
+  constexpr int THREADS_W = WIDE_THREADS;
+  constexpr bool SELECT = MODE == MODE_SELECT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldk = (d + KU - 1) / KU * KU;  // k padded with zero terms
+  float* c_s = reinterpret_cast<float*>(smem_raw);  // (STAGES, TM, lda)
+  // select: one rank tile (TM, lda), then the cuts (STAGES, TM)
+  int* r_s = reinterpret_cast<int*>(c_s + STAGES * TM * lda);
+  int* m_s = r_s + (SELECT ? TM * lda : 0);
+
+  const int tid = threadIdx.x;
+  const int ry = (tid >> 2) % RING_NRY;
+  const int col0 = (tid >> 6) * 16 + (tid & 3) * 4;  // in a pass of 128
+  const int passes = (d + 127) / 128;
+  // tile indices fit an int (the launcher checks S * tiles a species)
+  const int tps = (int)((nb + TM - 1) / TM);  // tiles a species
+  const int total = tps * s_count;
+  const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
+  // a thread copies the chunks (row, k) of a tile from (row_first,
+  // k_first) on, a fixed step apart: the same chunks every tile
+  const int w = vec ? 4 : 1;  // floats a chunk
+  const int q = d / w;        // chunks a row
+  const int row_first = tid / q, k_first = tid - row_first * q;
+  const int row_step = THREADS_W / q, k_step = THREADS_W - row_step * q;
+
+  auto tile = [&](int t, int& s, long long& r0, int& rows) {
+    s = t / tps;
+    const long long row0 = (long long)(t - s * tps) * TM;
+    r0 = s * nb + row0;
+    rows = (int)min((long long)TM, nb - row0);
+  };
+  auto copy = [&](void* dst, const void* src) {
+    if (vec) cp_async16(dst, src);
+    else cp_async4(dst, src);
+  };
+  auto own_chunks = [&](int rows, auto f) {
+    for (int row = row_first, k = k_first; row < rows;) {
+      f(row, row * lda + k * w, (size_t)row * d + k * w);
+      row += row_step;
+      k += k_step;
+      if (k >= q) k -= q, ++row;
+    }
+  };
+  auto issue_c = [&](int t, int buf) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    const float* src = c + (size_t)r0 * d;
+    float* dst = c_s + buf * TM * lda;
+    own_chunks(rows, [&](int, int off, size_t g) { copy(dst + off, src + g); });
+  };
+  auto issue_rank = [&](int t) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    const int* src = rank + (size_t)r0 * d;
+    own_chunks(rows, [&](int, int off, size_t g) { copy(r_s + off, src + g); });
+  };
+  auto issue_m = [&](int t, int buf) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    if (tid < rows) cp_async4(m_s + buf * TM + tid, m + r0 + tid);
+  };
+  auto mask_own = [&](int t, int buf) {
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    float* cd = c_s + buf * TM * lda;
+    const int* ms = m_s + buf * TM;
+    own_chunks(rows, [&](int row, int off, size_t) {
+      const int cut = ms[row];
+      if (vec) {
+        const int4 r = *reinterpret_cast<const int4*>(r_s + off);
+        float4 v = *reinterpret_cast<float4*>(cd + off);
+        if (!(r.x < cut)) v.x = 0.f;
+        if (!(r.y < cut)) v.y = 0.f;
+        if (!(r.z < cut)) v.z = 0.f;
+        if (!(r.w < cut)) v.w = 0.f;
+        *reinterpret_cast<float4*>(cd + off) = v;
+      } else if (!(r_s[off] < cut)) {
+        cd[off] = 0.f;
+      }
+    });
+  };
+
+  // zero padding, once: k in [d, ldk) of every A row adds fmaf(0, 0, acc)
+  if (ldk > d) {
+    const int pad = ldk - d;
+    for (int i = tid; i < STAGES * TM * pad; i += THREADS_W)
+      c_s[(i / pad) * lda + d + i % pad] = 0.f;
+  }
+  if (SELECT) {  // the first tile's cuts, synchronously
+    int s;
+    long long r0;
+    int rows;
+    tile(t_begin, s, r0, rows);
+    if (tid < rows) m_s[tid] = m[r0 + tid];
+  }
+  __syncthreads();
+  // the cp.async groups of correct_f32_ring, in the same order
+  if (SELECT) {
+    issue_rank(t_begin);
+    cp_async_commit();
+  }
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (t_begin + st < t_end) issue_c(t_begin + st, st);
+    if (SELECT && t_begin + st + 1 < t_end)
+      issue_m(t_begin + st + 1, (st + 1) % STAGES);
+    cp_async_commit();
+  }
+
+  for (int t = t_begin; t < t_end; ++t) {
+    const int buf = (t - t_begin) % STAGES;
+    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
+    if (SELECT) {
+      mask_own(t, buf);
+      asm volatile("" ::: "memory");
+      if (t + 1 < t_end) issue_rank(t + 1);
+      cp_async_commit();
+    }
+    __syncthreads();  // tile t whole and masked; tile t-1 done with
+    if (t + STAGES - 1 < t_end) issue_c(t + STAGES - 1, (buf + STAGES - 1) % STAGES);
+    if (SELECT && t + STAGES < t_end) issue_m(t + STAGES, buf);
+    cp_async_commit();
+
+    int s;
+    long long r0;
+    int rows;
+    tile(t, s, r0, rows);
+    const size_t g0 = (size_t)r0 * d;
+    const float* u = basis + (size_t)s * d * d;
+    const float* ap = c_s + buf * TM * lda + ry * lda;
+
+    for (int p = 0; p < passes; ++p) {
+      const int col = p * 128 + col0;
+      // x of this thread's elements, in flight while the FFMAs run
+      float xv[RM][4];
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const int row = ry + r * RING_NRY;
+        const float* xp = x + g0 + (size_t)row * d + col;
+        if (vec) {
+          if (row < rows && col < d) ld4(xp, xv[r]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            xv[r][e] = (row < rows && col + e < d) ? xp[e] : 0.f;
+        }
+      }
+      const float* ub[4];  // B rows: U[col + e], clamped to the last row
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ub[e] = u + (size_t)min(col + e, d - 1) * d;
+
+      float acc[RM][4];
+#pragma unroll
+      for (int r = 0; r < RM; ++r)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+      for (int k0 = 0; k0 < ldk; k0 += 4) {
+        float a[RM][4];
+#pragma unroll
+        for (int r = 0; r < RM; ++r) ld4(ap + r * RING_NRY * lda + k0, a[r]);
+        float b[4][4];  // b[e][kk] = U[col + e][k0 + kk]
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (bvec) {
+            const float4 v = __ldg(reinterpret_cast<const float4*>(ub[e] + k0));
+            b[e][0] = v.x, b[e][1] = v.y, b[e][2] = v.z, b[e][3] = v.w;
+          } else {
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk)
+              b[e][kk] = k0 + kk < d ? __ldg(ub[e] + k0 + kk) : 0.f;
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int r = 0; r < RM; ++r)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[r][e] = fmaf(a[r][kk], b[e][kk], acc[r][e]);
+      }
+
+#pragma unroll
+      for (int r = 0; r < RM; ++r) {
+        const int row = ry + r * RING_NRY;
+        if (row >= rows) continue;
+        float* op = out + g0 + (size_t)row * d + col;
+        if (vec) {
+          if (col < d)
+            *reinterpret_cast<float4*>(op) =
+                make_float4(xv[r][0] + acc[r][0], xv[r][1] + acc[r][1],
+                            xv[r][2] + acc[r][2], xv[r][3] + acc[r][3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (col + e < d) op[e] = xv[r][e] + acc[r][e];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+
 template <int MODE, int NCH, int MINB>
 int launch_ring(const float* x, const float* c, const int* rank, const int* m,
                 const float* u, float* out, int s, long long nb, int d,
@@ -1099,17 +1485,53 @@ int launch_ring(const float* x, const float* c, const int* rank, const int* m,
   return (int)cudaGetLastError();
 }
 
-// two CTAs an SM at D <= 80, one at D <= 128
+template <int MODE>
+int launch_wide(const float* x, const float* c, const int* rank, const int* m,
+                const float* u, float* out, int s, long long nb, int d,
+                void* stream) {
+  const int lda = ring_lda(d);
+  size_t words = (size_t)RING_STAGES * RING_TM * lda;
+  if (MODE == MODE_SELECT) words += (size_t)RING_TM * lda + RING_STAGES * RING_TM;
+  const size_t smem = words * sizeof(float);
+  const long long tiles = (long long)s * ((nb + RING_TM - 1) / RING_TM);
+  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = correct_f32_wide<MODE>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      WIDE_THREADS, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long slots = (long long)sms * per_sm;
+  const long long grid = tiles < slots ? tiles : slots;
+  const int vec = d % 4 == 0 && aligned16(x) && aligned16(c) &&
+                  aligned16(rank) && aligned16(out);
+  const int bvec = d % 4 == 0 && aligned16(u);
+  kernel<<<(unsigned)grid, WIDE_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(x, c, rank, m, u, out, s, nb, d,
+                                                lda, vec, bvec);
+  return (int)cudaGetLastError();
+}
+
+// two CTAs an SM at D <= 80, one at D <= 128, the wide kernel above
 template <int MODE>
 int launch_correct_f32(const float* x, const float* c, const int* rank,
                        const int* m, const float* u, float* out, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || d > MAX_D_WIDE || s < 0 || s > 65535 || nb < 0 ||
+      tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80)
     return launch_ring<MODE, 5, 2>(x, c, rank, m, u, out, s, nb, d, stream);
-  return launch_ring<MODE, 8, 1>(x, c, rank, m, u, out, s, nb, d, stream);
+  if (d <= MAX_D)
+    return launch_ring<MODE, 8, 1>(x, c, rank, m, u, out, s, nb, d, stream);
+  return launch_wide<MODE>(x, c, rank, m, u, out, s, nb, d, stream);
 }
 
 template <int NFW, int TM, int STAGES>
@@ -1141,13 +1563,42 @@ int launch_dmma(const double* r, const double* u, double* c, int s,
   return (int)cudaGetLastError();
 }
 
+template <int TM, int STAGES>
+int launch_dmma_wide(const double* r, const double* u, double* c, int s,
+                     long long nb, int d, void* stream) {
+  constexpr int threads = TM / 16 * 4 * 32;
+  const int ld = dmma_ld(d);
+  const size_t smem = (size_t)STAGES * TM * ld * sizeof(double);
+  auto kernel = project_f64_wide<TM, STAGES>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
+                                                      smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long tiles = (long long)s * ((nb + TM - 1) / TM);
+  const long long slots = (long long)sms * per_sm;
+  const long long grid = tiles < slots ? tiles : slots;
+  const int vec = d % 2 == 0 && aligned16(r) && aligned16(c);
+  kernel<<<(unsigned)grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      r, u, c, s, nb, d, ld, vec);
+  return (int)cudaGetLastError();
+}
+
 int launch_project_f64(const double* r, const double* u, double* c, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || d > MAX_D_WIDE || s < 0 || s > 65535 || nb < 0 ||
+      tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80) return launch_dmma<5, 64, 3>(r, u, c, s, nb, d, stream);
-  return launch_dmma<8, 32, 3>(r, u, c, s, nb, d, stream);
+  if (d <= MAX_D) return launch_dmma<8, 32, 3>(r, u, c, s, nb, d, stream);
+  return launch_dmma_wide<32, 3>(r, u, c, s, nb, d, stream);
 }
 
 template <int NFW, int TM, int STAGES>

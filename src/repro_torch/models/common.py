@@ -18,14 +18,19 @@ through the direct branch.
 
 Decode attention (one query against a cache with a length mask) stays
 plain torch in both routes: the reference has no kernel for it.
+
+:func:`remat` is the reference's ``jax.checkpoint`` around a block, with
+its two policies (``cfg.remat``), for ``loss`` under autograd.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.kernels import ops
 
@@ -237,3 +242,45 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.mean(lse - gold)
+
+
+# --------------------------------------------------------------------------
+# Rematerialisation
+# --------------------------------------------------------------------------
+# dot_general with no batch dimensions is a 2-D product: a weight matmul
+# (``x @ w`` dispatches to aten.mm); attention's and the MoE experts'
+# batched products (aten.bmm) are recomputed like everything else
+_SAVEABLE_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    del ctx, args, kwargs
+    if op in _SAVEABLE_DOTS:
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, mode: str):
+    """``fn`` under the reference's ``cfg.remat`` policy, for the backward:
+    ``"none"`` keeps every activation; ``"full"`` (``nothing_saveable``)
+    keeps only the block's inputs and recomputes the block in the
+    backward; ``"dots"`` (``dots_with_no_batch_dims_saveable``) also keeps
+    the outputs of the weight matmuls. Outside grad mode nothing is kept
+    anyway, and ``fn`` runs as it is. Recomputation repeats the forward's
+    operations on the same inputs, so the gradients' bits do not depend on
+    the mode."""
+    if mode not in ("none", "full", "dots"):
+        raise ValueError(f"unknown remat mode {mode!r}")
+    if mode == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if mode == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return _ckpt.checkpoint(fn, *args, **kw)
+
+    return wrapped

@@ -19,6 +19,9 @@ to [1e-37, 1] before its logs, where the model's a lies in (0, 1]. Decode
 is one fused step on both routes and launches no kernel. The local
 attention (head dim 256, window 2048) runs through flash in prefill.
 
+``loss`` runs under autograd, each period rematerialised unless
+``cfg.remat`` is "none".
+
 Layer stacking: the stacked (rec, rec, attn) periods + an unrolled (rec,
 rec) tail (8 + 2 = 26 blocks at full size). Prefill keeps the last
 ``window`` keys and values in a ring buffer: position p at slot p % window.
@@ -253,13 +256,17 @@ class RecurrentGemma:
         return embed(params["embed"], tokens), pos
 
     # ---- public -----------------------------------------------------------
-    @torch.no_grad()
     def loss(self, params, batch):
+        """Next-token CE, differentiable; each (rec, rec, attn) period under
+        ``cfg.remat`` (any mode other than "none" keeps nothing, as the
+        reference; the tail blocks are not rematerialised)."""
         cfg = self.cfg
         params = nest(params)
         x, pos = self._embed_positions(params, batch["tokens"])
+        period = common.remat(lambda p, x, pos: self._period_seq(p, x, pos)[0],
+                              "none" if cfg.remat == "none" else "full")
         for i in range(self.n_periods):
-            x, _, _ = self._period_seq(layer(params["periods"], i), x, pos)
+            x = period(layer(params["periods"], i), x, pos)
         x, _ = self._tail_seq(params, x)
         logits = _apply_norm(cfg, params["ln_f"], x) @ params["lm_head"]
         return common.cross_entropy(logits, batch["labels"])

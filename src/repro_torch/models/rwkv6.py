@@ -17,7 +17,8 @@ tensors); otherwise the reference's per-step loop. The kernel clamps w to
 [1e-37, 1] before its logs; the model's w lies in (0, 1] and can only
 underflow to 0, where the clamp moves the state by at most 1e-37 times
 itself. ``decode_step`` is one step of the recurrence, O(1) per token, on
-both routes, and launches no kernel.
+both routes, and launches no kernel. ``loss`` runs under autograd, each
+layer rematerialised unless ``cfg.remat`` is "none".
 """
 
 from __future__ import annotations
@@ -231,10 +232,16 @@ class RWKV6:
     def _trunk(self, params, tokens):
         return _layer_norm(params["ln_in"], embed(params["embed"], tokens))
 
-    @torch.no_grad()
     def loss(self, params, batch):
+        """Next-token CE, differentiable; each layer under ``cfg.remat``
+        (any mode other than "none" keeps nothing, as the reference)."""
         params = nest(params)
-        x, _ = self._stack(params, self._trunk(params, batch["tokens"]))
+        x = self._trunk(params, batch["tokens"])
+        zero = self._zero_state(x.shape[0], x.device)
+        block = common.remat(lambda p, x, st: self._block_seq(p, x, st, False)[0],
+                             "none" if self.cfg.remat == "none" else "full")
+        for i in range(self.cfg.n_layers):
+            x = block(layer(params["layers"], i), x, layer(zero, i))
         logits = _layer_norm(params["ln_f"], x) @ params["lm_head"]
         return common.cross_entropy(logits, batch["labels"])
 

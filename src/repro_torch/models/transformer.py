@@ -18,6 +18,9 @@ same cache dicts:
   (a gather, no atomics, so the same inputs give the same bits on the
   card); the reference scatter-adds them in expert order, which differs
   from it by rounding only;
+* ``loss`` runs under autograd, each layer under ``cfg.remat``
+  (:func:`repro_torch.models.common.remat`); ``prefill`` and
+  ``decode_step`` run without gradients;
 * ``decode_step`` writes the new position into the cache's tensors in
   place and returns the cache (the reference returns new arrays); the
   position it writes at is read on the device, so a step does not wait
@@ -312,16 +315,23 @@ class DecoderLM:
         return x
 
     def _stack(self, params, x, positions, collect_kv=False):
-        """Every layer in order; returns (x, aux, [(k, v)] if collect_kv)."""
+        """Every layer in order; returns (x, aux, [(k, v)] if collect_kv).
+        Without ``collect_kv`` (the loss) each layer runs under
+        ``cfg.remat`` (:func:`repro_torch.models.common.remat`)."""
         aux = torch.zeros((), device=x.device)
         kvs = []
         x = self._constrain(x)
+        block = common.remat(lambda p, x, pos: self._block(p, x, pos)[:2],
+                             self.cfg.remat)
         for i in range(self.cfg.n_layers):
-            x, a, kv = self._block(layer(params["layers"], i), x, positions)
+            p = layer(params["layers"], i)
+            if collect_kv:
+                x, a, kv = self._block(p, x, positions)
+                kvs.append(kv)
+            else:
+                x, a = block(p, x, positions)
             x = self._constrain(x)
             aux = aux + a
-            if collect_kv:
-                kvs.append(kv)
         return x, aux, kvs
 
     # ---- input assembly --------------------------------------------------
@@ -352,10 +362,10 @@ class DecoderLM:
         return x, pos, npatch
 
     # ---- public API --------------------------------------------------------
-    @torch.no_grad()
     def loss(self, params, batch):
         """Next-token CE (+ MoE aux). batch: tokens (B,T), labels (B,T)
-        [+ patches for VLM]. A forward only (no gradients in this slice)."""
+        [+ patches for VLM]. Differentiable (train through
+        ``use_kernels=False``: no kernel has a backward)."""
         cfg = self.cfg
         params = nest(params)
         x, pos, text_start = self._assemble(params, batch)

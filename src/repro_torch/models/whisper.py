@@ -139,25 +139,34 @@ class Whisper:
         x = x + _ffn(p["ffn"], _apply_norm(cfg, p["ln3"], x))
         return x, self_kv, cross_kv
 
-    def _decoder(self, params, tokens, enc):
-        """(normed decoder states, [(self k, v)], [(cross k, v)])."""
+    def _decoder(self, params, tokens, enc, collect_kv=True):
+        """(normed decoder states, [(self k, v)], [(cross k, v)]). Without
+        ``collect_kv`` (the loss) each block runs under ``cfg.remat`` (any
+        mode other than "none" keeps nothing, as the reference) and the
+        lists stay empty."""
         cfg = self.cfg
         t = tokens.shape[1]
         x = embed(params["embed"], tokens) + params["pos_dec"][:t][None]
         selfs, crosses = [], []
+        block = common.remat(lambda p, x, enc: self._dec_block(p, x, enc)[0],
+                             "none" if cfg.remat == "none" else "full")
         for i in range(cfg.n_layers):
-            x, self_kv, cross_kv = self._dec_block(layer(params["dec_layers"], i), x, enc)
+            p = layer(params["dec_layers"], i)
+            if not collect_kv:
+                x = block(p, x, enc)
+                continue
+            x, self_kv, cross_kv = self._dec_block(p, x, enc)
             selfs.append(self_kv)
             crosses.append(cross_kv)
         return _apply_norm(cfg, params["ln_dec"], x), selfs, crosses
 
     # ---- public ----------------------------------------------------------------
-    @torch.no_grad()
     def loss(self, params, batch):
-        """batch: frames (B, n_ctx, d_model), tokens (B,T), labels (B,T)."""
+        """batch: frames (B, n_ctx, d_model), tokens (B,T), labels (B,T).
+        Differentiable; the decoder blocks under ``cfg.remat``."""
         params = nest(params)
         enc = self._encode(params, batch["frames"])
-        x, _, _ = self._decoder(params, batch["tokens"], enc)
+        x, _, _ = self._decoder(params, batch["tokens"], enc, collect_kv=False)
         # tied output head (whisper ties embed <-> logits)
         return common.cross_entropy(x @ params["embed"].T, batch["labels"])
 

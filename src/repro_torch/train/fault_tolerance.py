@@ -89,6 +89,11 @@ class Watchdog:
     def median(self) -> float:
         return float(np.median(self._times)) if self._times else 0.0
 
+    @property
+    def times(self) -> list[float]:
+        """Every observed step's seconds, in order."""
+        return list(self._times)
+
 
 def run_with_recovery(
     *,

@@ -1,4 +1,16 @@
-"""The mini-batch trainer behind ``autoencoder.fit`` and ``correction.fit``.
+"""Train/serve step factories of the language models, and the mini-batch
+trainer behind ``autoencoder.fit`` and ``correction.fit``.
+
+``make_train_step`` closes over (model, :class:`TrainConfig`) and returns
+``(params, state, batch) -> (params, state, metrics)``: the loss and its
+gradients (``torch.autograd.grad``, accumulated over ``grad_accum``
+microbatches), the error-feedback gradient compression when it is on, and
+the AdamW update, over the port's flat parameter dicts. No kernel has a
+backward, so a model whose ``cfg.use_kernels`` is True is refused: the
+step trains through the portable route only. The compression and the
+update run under ``torch.profiler.record_function`` ranges
+(``train_step/compress_tree``, ``train_step/adamw``), which split a
+profiler trace of the step.
 
 On one device the data set is moved to the device once; each step gathers
 the same random rows from every data array with indices drawn **on the
@@ -19,13 +31,104 @@ dp_fit`); on a 1-device mesh it is the plain loop on that device.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+import dataclasses
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike, resolve_device, strict_fp32
+from repro_torch.parallel import gradient_compression as gc
 from repro_torch.train import optimizer as opt
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: opt.AdamWConfig = dataclasses.field(default_factory=opt.AdamWConfig)
+    compression: Optional[gc.CompressionConfig] = None
+    # microbatch accumulation (1 = none); the batch axis must divide
+    grad_accum: int = 1
+
+
+def init_train_state(model, params, train_cfg: TrainConfig) -> dict[str, Any]:
+    del model
+    state: dict[str, Any] = {"opt": opt.init_state(params)}
+    if train_cfg.compression and train_cfg.compression.enabled:
+        state["residuals"] = gc.init_residuals(params)
+    return state
+
+
+def loss_and_grads(loss_fn, params, *args):
+    """``loss_fn(params, *args)`` and its gradient with respect to every
+    parameter (zeros where the loss does not reach one, as ``jax.grad``),
+    detached: no graph, no ``requires_grad``."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss = loss_fn(leaves, *args)
+    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+    return loss.detach(), {k: torch.zeros_like(p) if g is None else g
+                           for (k, p), g in zip(leaves.items(), grads)}
+
+
+def make_train_step(model, train_cfg: TrainConfig):
+    """The whole step as one function (see the module docstring)."""
+    if model.cfg.use_kernels:
+        raise ValueError(
+            f"{model.cfg.name}: use_kernels=True routes the forward through "
+            "kernels with no backward; train with cfg.replace(use_kernels=False)")
+    ocfg, ccfg = train_cfg.optimizer, train_cfg.compression
+
+    def train_step(params, state, batch):
+        loss, grads = _accumulated(params, batch)
+        new_state = dict(state)
+        with torch.no_grad():
+            if ccfg and ccfg.enabled:
+                with torch.profiler.record_function("train_step/compress_tree"):
+                    grads, new_state["residuals"] = gc.compress_tree(
+                        grads, state["residuals"], ccfg)
+            with torch.profiler.record_function("train_step/adamw"):
+                params, new_state["opt"], om = opt.update(ocfg, grads, state["opt"],
+                                                          params)
+        return params, new_state, {"loss": loss, **om}
+
+    def _accumulated(params, batch):
+        n = train_cfg.grad_accum
+        if n > 1:
+            # unrolled accumulation: each microbatch's activations are freed
+            # before the next one runs
+            micro = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=next(iter(params.values())).device)
+            grads = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                     for k, p in params.items()}
+            for i in range(n):
+                l_i, g_i = loss_and_grads(model.loss, params,
+                                          {k: v[i] for k, v in micro.items()})
+                loss = loss + l_i / n
+                grads = {k: a + g_i[k] / n for k, a in grads.items()}
+            return loss, grads
+        return loss_and_grads(model.loss, params, batch)
+
+    return train_step
+
+
+def make_prefill_step(model):
+    def prefill_step(params, batch):
+        return model.prefill(params, batch)
+
+    return prefill_step
+
+
+def make_serve_step(model):
+    def serve_step(params, cache, tokens):
+        return model.decode_step(params, cache, tokens)
+
+    return serve_step
+
+
+# ---------------------------------------------------------------------------
+# mini-batch SGD engine (the codec trainer hot loop)
+# ---------------------------------------------------------------------------
 
 _BATCH_SALT = 0x5CA1AB1E  # folds the batch stream away from the init seed
 
@@ -57,10 +160,7 @@ class MiniBatchTrainer:
 
     def loss_and_grads(self, params, batch):
         """The loss (detached) and the gradients of every parameter."""
-        leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-        loss = self._loss_fn(leaves, *batch)
-        grads = torch.autograd.grad(loss, list(leaves.values()))
-        return loss.detach(), dict(zip(leaves.keys(), grads))
+        return loss_and_grads(self._loss_fn, params, *batch)
 
     def step(self, params, state, batch):
         """One training step: loss, gradients, AdamW update."""

@@ -141,3 +141,21 @@ def test_many_threads_interleaved(start_state):
     assert not any(t.is_alive() for t in threads)
     assert bad == []
     assert _flags() == START
+
+
+def test_deterministic_is_scoped_and_nests():
+    """``deterministic()`` turns on deterministic algorithms (warn-only)
+    for its scope, nested or not, and restores what it found."""
+    from repro_torch.device import deterministic
+
+    def state():
+        return (torch.are_deterministic_algorithms_enabled(),
+                torch.is_deterministic_algorithms_warn_only_enabled())
+
+    before = state()
+    with deterministic():
+        assert state() == (True, True)
+        with deterministic():
+            assert state() == (True, True)
+        assert state() == (True, True)
+    assert state() == before

@@ -122,6 +122,76 @@ def test_fp64_matches_pallas(kernel):
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
 
 
+# -- wide blocks, 128 < D <= 256 (the weight checkpoint's D = 256) ---------
+WIDE = [(2, 100, 129), (1, 70, 200), (2, 33, 256)]
+
+
+@pytest.mark.parametrize("s,nb,d", WIDE)
+def test_wide_project_fp64_matches_pallas(s, nb, d):
+    """The route the engine takes at D = 256: fp64, rtol 1e-12."""
+    x, _, u, _, _ = _inputs(s, nb, d, dtype=np.float64)
+    with jax.enable_x64():
+        want = np.asarray(ref_kernels.gbatc_project_batched(
+            jnp.asarray(x), jnp.asarray(u), interpret=True))
+    got = ref.gbatc_project_batched_ref(*_t(x, u))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("s,nb,d", WIDE)
+def test_wide_select_accumulate_matches_pallas(s, nb, d):
+    x, c, u, rank, m = _inputs(s, nb, d)
+    want = ref_kernels.gbatc_select_accumulate(
+        jnp.asarray(x), jnp.asarray(c), jnp.asarray(rank), jnp.asarray(m),
+        jnp.asarray(u), interpret=True)
+    got = ref.gbatc_select_accumulate_ref(*_t(x, c, rank, m, u))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("s,nb,d", WIDE)
+def test_wide_correct_matches_pallas(s, nb, d):
+    x, c, u, _, _ = _inputs(s, nb, d)
+    want = ref_kernels.gbatc_correct_batched(
+        jnp.asarray(x), jnp.asarray(c), jnp.asarray(u), interpret=True)
+    got = ref.gbatc_correct_batched_ref(*_t(x, c, u))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("kernel,dtype,limit", [
+    ("gbatc_project_batched", torch.float64, 256),
+    ("gbatc_select_accumulate", torch.float32, 256),
+    ("gbatc_correct_batched", torch.float32, 256),
+    ("gbatc_project_batched", torch.float32, 128),
+    ("gbatc_select_accumulate", torch.float64, 128),
+    ("gbatc_correct_batched", torch.float64, 128),
+])
+def test_wrapper_d_limit_per_route(kernel, dtype, limit):
+    """Past its route's limit a wrapper raises ValueError (before the
+    device check, so on the CPU too); at the limit it goes on to refuse
+    the CPU tensor."""
+    def call(d):
+        x, c, u, rank, m = _t(*_inputs(1, 4, d, dtype=np.float64 if dtype == torch.float64
+                                       else np.float32))
+        fn = getattr(cuda_wrappers, kernel)
+        if kernel == "gbatc_project_batched":
+            return fn(x, u)
+        if kernel == "gbatc_correct_batched":
+            return fn(x, c, u)
+        return fn(x, c, rank, m, u)
+
+    with pytest.raises(ValueError, match=rf"range 1\.\.{limit}$"):
+        call(limit + 1)
+    with pytest.raises(ValueError, match="CUDA tensors only"):
+        call(limit)
+
+
+def test_2d_pair_stays_at_128_in_fp64():
+    x, c, u, _, _ = _t(*_inputs(1, 4, 129, dtype=np.float64))
+    with pytest.raises(ValueError, match=r"range 1\.\.128$"):
+        cuda_wrappers.gbatc_project(x[0], u[0])
+    with pytest.raises(ValueError, match=r"range 1\.\.128$"):
+        cuda_wrappers.gbatc_correct(x[0], c[0], torch.ones_like(x[0]), u[0])
+
+
 def test_ops_on_cpu_run_the_plain_versions():
     x, c, u, rank, m = _inputs(2, 33, 16)
     np.testing.assert_array_equal(
