@@ -148,7 +148,30 @@ Phases (each prints one JSON line; any failure exits non-zero):
    instantiations (128 < D <= 256) of the fp64 projection and the fp32
    select and correct at every ``WIDE`` shape (``batched_checks``, as at
    D = 80) and times them at (1, 65536, 256);
-13. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+13. ``dryrun_path``  the dry run (``repro_torch.launch.dryrun``, meta tensors
+   only): (1) ``python -m repro_torch.launch.dryrun --arch <a> --mesh both``
+   for every config, in subprocesses started together: each exits 0 with
+   CUDA never initialised and writes exactly its cells (64 in all: 32 a
+   mesh), one line a cell with its per-device argument and output GB
+   beside the card's memory (temp bytes not included) and its global
+   FLOPs; (2) Llama-3.2-1B at lm_train_path's full-width cell (bf16, remat
+   full, batch 4, seq 2048, no compression, ``use_kernels=False``): the dry
+   run's meta count equals, as an integer, ``FlopCounterMode`` around one
+   real ``make_train_step`` step on the card, and around one real
+   ``decode_step`` at batch 4 on a cache of 4096 (the step has no branch on
+   the device, so this shows that none crept in and that the dry run's
+   lean counter agrees with torch's; the tests hold the same two counts to
+   the reference step's jaxpr); the counted FLOPs a token beside the
+   6 N + 12 L H D T rule, and the hardware-FLOPs utilisation beside the
+   MFU over the step's median time; (3) the storage bytes of the real
+   training state (params, AdamW moments, batch) equal the dry run's
+   argument bytes on a (1, 1) mesh less the 4-byte step count the port
+   keeps on the host, and the storage of the step's outputs its output
+   bytes less the tuple's table and the step count and learning rate the
+   port keeps on the host (likewise the decode step's arguments and its
+   logits and cache), with the step's peak less the argument bytes
+   reported;
+14. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -3309,12 +3332,230 @@ def phase_lm_train_path(torch) -> dict:
     return info
 
 
+# -- the dry run (dryrun_path) --------------------------------------------------
+# gate 2's decode step: lm_train_path's batch on a cache of this length
+DRYRUN_DECODE_LEN = 4096
+DRYRUN_TIMED_STEPS = 3  # timed train steps after one warm-up, for the HFU
+DRYRUN_TIMEOUT_S = 600  # each dry-run child's limit
+
+
+def dryrun_children(out_dir: str) -> dict:
+    """Gate 1's children: ``python -m repro_torch.launch.dryrun --arch <a>
+    --mesh both --out <out_dir>``, one per config, all started together."""
+    from repro_torch.configs.base import list_configs
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    return {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--mesh", "both", "--out", out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for arch in list_configs()}
+
+
+def dryrun_cells(torch, procs: dict, out_dir: str) -> dict:
+    """Gate 1: every child exits 0 with CUDA never initialised and writes
+    exactly its config's cells (cfg.shapes x 2 meshes); one line a cell."""
+    from repro_torch.configs.base import get_config
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    cells, children = [], {}
+    for arch, p in procs.items():
+        out, err = p.communicate(timeout=DRYRUN_TIMEOUT_S)
+        lines = out.splitlines()
+        children[arch] = {"returncode": p.returncode,
+                          "cuda_line": next((ln for ln in lines
+                                             if ln.startswith("[dryrun] cuda_")), None)}
+        if p.returncode != 0 or "[dryrun] cuda_initialized=False" not in lines:
+            fail(f"dryrun_path: the dry run of {arch} exited {p.returncode} "
+                 f"({children[arch]['cuda_line']}):\n{out[-2000:]}\n{err[-3000:]}")
+        want = {f"{arch}__{shape}__{mesh}.json" for shape in get_config(arch).shapes
+                for mesh in ("pod16x16", "pod2x16x16")}
+        got = {f for f in os.listdir(out_dir) if f.startswith(arch + "__")}
+        if got != want:
+            fail(f"dryrun_path: {arch} wrote {sorted(got)}, expected {sorted(want)}")
+        for name in sorted(want):
+            with open(os.path.join(out_dir, name)) as f:
+                cell = json.load(f)
+            arg = cell["memory"]["argument_size_in_bytes"]
+            out = cell["memory"]["output_size_in_bytes"]
+            line = {"phase": "dryrun_path", "cell": name[:-5],
+                    "argument_gb_per_device": arg / 1e9, "output_gb_per_device": out / 1e9,
+                    "card_total_gb": total / 1e9,
+                    # no argument is donated: both are held at the step's end
+                    # (temp bytes have no counterpart on meta tensors)
+                    "arguments_and_outputs_fit": arg + out <= total,
+                    "unread_gb": cell["memory"]["unread_bytes"] / 1e9,
+                    "flops_global": cell["flops"], "n_devices": cell["n_devices"],
+                    "trace_s": cell["trace_s"]}
+            emit(line)
+            cells.append(line)
+    if len(cells) != 64:
+        fail(f"dryrun_path: {len(cells)} cells written, expected 64")
+    return {"cells": len(cells),
+            "arguments_and_outputs_fit": sum(c["arguments_and_outputs_fit"] for c in cells),
+            "children": children}
+
+
+def phase_dryrun_path(torch) -> dict:
+    """The dry run and its two checks on the card (see the module
+    docstring, step 13); returns the phase line, whose ``launches`` give
+    each kernel's count over the real steps (none: the portable route)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeSpec, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train.train_loop import TrainConfig, init_train_state, make_train_step
+
+    t_start = time.perf_counter()
+    info = {"phase": "dryrun_path", "gpu": gpu_line()}
+    totals = {"real_steps": {k: 0 for k in all_counts()}}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=os.path.join(ROOT, "build"))
+    procs = dryrun_children(out_dir)
+    try:
+        # gates 2 and 3 while the children count on the host: lm_train_path's
+        # full-width cell without the gradient compression
+        cfg = get_config(TRAIN_ARCH).replace(use_kernels=False, remat="full")
+        shape = ShapeSpec("lm_train_path", TRAIN_SEQ, TRAIN_BATCH, "train")
+        dshape = ShapeSpec("lm_train_path_decode", DRYRUN_DECODE_LEN, TRAIN_BATCH, "decode")
+        one = make_mesh((1, 1), ("data", "model"))
+        t0 = time.perf_counter()
+        meta, dmeta = dryrun.step_flops(cfg, shape), dryrun.step_flops(cfg, dshape)
+        meta_s = time.perf_counter() - t0
+        arg, parts = dryrun.argument_bytes(cfg, shape, one, meta["reads"])
+        darg, dparts = dryrun.argument_bytes(cfg, dshape, one, dmeta["reads"])
+        out_b, out_parts = dryrun.output_bytes(cfg, shape, one, meta["outputs"])
+        dout_b, dout_parts = dryrun.output_bytes(cfg, dshape, one, dmeta["outputs"])
+        torch.cuda.empty_cache()
+        model = build_model(cfg)
+        tcfg = TrainConfig(optimizer=opt.AdamWConfig(lr=1e-4))
+        params = model.init(0, device="cuda")
+        state = init_train_state(model, params, tcfg)
+        batch = make_batch(cfg, batch=TRAIN_BATCH, seq=TRAIN_SEQ, kind="train",
+                           device="cuda")
+        storage = sum(t.untyped_storage().nbytes() for t in (
+            *params.values(), *state["opt"]["m"].values(), *state["opt"]["v"].values(),
+            *batch.values()))
+        # the step count is the reference's int32 argument; the port's is a host int
+        if storage != arg - parts["opt.step"] or parts["opt.step"] != 4:
+            fail(f"dryrun_path: the training state holds {storage} bytes on the card, "
+                 f"the dry run accounts {arg} ({parts}) with a 4-byte step count")
+        step = make_train_step(model, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with FlopCounterMode(display=False) as counter:
+            out = step(params, state, batch)
+            loss = float(out[2]["loss"])
+        # the outputs, less the step count and learning rate kept on the host
+        out_storage = sum(t.untyped_storage().nbytes() for t in (
+            *out[0].values(), *out[1]["opt"]["m"].values(), *out[1]["opt"]["v"].values(),
+            *out[2].values()) if isinstance(t, torch.Tensor))
+        out_want = out_b - out_parts["tuple_table"] - out_parts["opt.step"] - 4
+        del out
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        counts_are("the counted train step", {}, totals["real_steps"], "dryrun_path")
+        real = int(counter.get_total_flops())
+        if real != meta["flops"]:
+            fail(f"dryrun_path: the train step counts {real} FLOPs on the card, "
+                 f"the dry run {meta['flops']}")
+        if out_storage != out_want:
+            fail(f"dryrun_path: the train step's outputs hold {out_storage} bytes on the "
+                 f"card, the dry run accounts {out_want} ({out_parts})")
+        cache = {k: torch.zeros(v.shape, dtype=v.dtype, device="cuda")
+                 for k, v in model.cache_specs(TRAIN_BATCH, DRYRUN_DECODE_LEN).items()}
+        cache["len"].fill_(TRAIN_SEQ)
+        tokens = make_batch(cfg, batch=TRAIN_BATCH, seq=1, kind="decode",
+                            device="cuda")["tokens"]
+        dstorage = sum(t.untyped_storage().nbytes()
+                       for t in (*params.values(), *cache.values(), tokens))
+        if dstorage != darg:
+            fail(f"dryrun_path: the decode arguments hold {dstorage} bytes on the card, "
+                 f"the dry run accounts {darg} ({dparts})")
+        reset_counts()
+        with FlopCounterMode(display=False) as counter:
+            logits, new_cache = model.decode_step(params, cache, tokens)
+            torch.cuda.synchronize()
+        dout_storage = logits.untyped_storage().nbytes() + sum(
+            t.untyped_storage().nbytes() for t in new_cache.values())
+        del new_cache
+        if dout_storage != dout_b - dout_parts["tuple_table"]:
+            fail(f"dryrun_path: the decode step's outputs hold {dout_storage} bytes on the "
+                 f"card, the dry run accounts {dout_b} ({dout_parts})")
+        counts_are("the counted decode step", {}, totals["real_steps"], "dryrun_path")
+        dreal = int(counter.get_total_flops())
+        if dreal != dmeta["flops"] or not bool(torch.isfinite(logits).all()):
+            fail(f"dryrun_path: the decode step counts {dreal} FLOPs on the card, the "
+                 f"dry run {dmeta['flops']} (finite logits: "
+                 f"{bool(torch.isfinite(logits).all())})")
+        del logits, cache
+        gates_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        info["cells"] = dryrun_cells(torch, procs, out_dir)
+        info["cells"]["seconds"] = time.perf_counter() - t0
+        # the step's time, with the children done: a warm-up, then timed steps
+        reset_counts()
+        times = []
+        for i in range(DRYRUN_TIMED_STEPS + 1):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = step(params, state, batch)
+            float(out[2]["loss"])
+            del out
+            times.append(time.perf_counter() - t1)
+        counts_are("the timed train steps", {}, totals["real_steps"], "dryrun_path")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    del params, state, batch
+    torch.cuda.empty_cache()
+    step_s = statistics.median(times[1:])
+    tokens_n = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in model.specs().values())
+    rule = (6 * (n_params - cfg.vocab * cfg.d_model)
+            + 12 * cfg.n_layers * cfg.n_heads * cfg.head_dim * TRAIN_SEQ)
+    info["train_step"] = {
+        "arch": TRAIN_ARCH, "dtype": "bfloat16", "remat": cfg.remat,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "compression": None,
+        "flops_meta": meta["flops"], "flops_card": real, "equal": True,
+        "depth_fit": meta["depth_fit"], "loss": loss,
+        "flops_per_token_counted": real / tokens_n, "flops_per_token_rule": rule,
+        "counted_over_rule": real / tokens_n / rule,
+        "rule": "6 N (N without the embedding table) + 12 L H D T (lm_train_path)",
+        "step_s_median": step_s, "step_seconds": times,
+        "hfu": real / step_s / H100_BF16_FLOPS,
+        "mfu": rule * tokens_n / step_s / H100_BF16_FLOPS,
+        "argument_bytes": arg, "bytes_by_part": parts, "storage_bytes_on_card": storage,
+        "output_bytes": out_b, "output_bytes_by_part": out_parts,
+        "output_storage_bytes_on_card": out_storage,
+        "peak_bytes": peak, "peak_minus_arguments_bytes": peak - storage}
+    info["decode_step"] = {
+        "batch": TRAIN_BATCH, "cache_len": DRYRUN_DECODE_LEN, "flops_meta": dmeta["flops"],
+        "flops_card": dreal, "equal": True, "argument_bytes": darg,
+        "bytes_by_part": dparts, "storage_bytes_on_card": dstorage,
+        "output_bytes": dout_b, "output_bytes_by_part": dout_parts,
+        "output_storage_bytes_on_card": dout_storage}
+    info["seconds_by_step"] = {"meta_counts": meta_s, "gates_2_3": gates_s,
+                               "cells_wait": info["cells"]["seconds"]}
+    info["launches"] = totals
+    info["seconds"] = time.perf_counter() - t_start
+    emit(info)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,ops_path,"
                             "partial_path,serve_path,stream_path,mesh_path,lm_serve_path,"
-                            "lm_train_path")
+                            "lm_train_path,dryrun_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -3397,6 +3638,7 @@ def run(torch, args, phases) -> None:
     del data, temperature
     lm = phase_lm_serve_path(torch) if "lm_serve_path" in phases else None
     lm_train = phase_lm_train_path(torch) if "lm_train_path" in phases else None
+    dry = phase_dryrun_path(torch) if "dryrun_path" in phases else None
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]],
@@ -3415,7 +3657,8 @@ def run(torch, args, phases) -> None:
         if mesh:
             by_path["mesh_path"] = {part: c[r["name"]]
                                     for part, c in mesh["launches"].items()}
-        for name, line in (("lm_serve_path", lm), ("lm_train_path", lm_train)):
+        for name, line in (("lm_serve_path", lm), ("lm_train_path", lm_train),
+                           ("dryrun_path", dry)):
             if line:
                 by_path[name] = {part: c[r["name"]]
                                  for part, c in line["launches"].items()}
@@ -3425,7 +3668,8 @@ def run(torch, args, phases) -> None:
                                          "attention_path", "ops_path",
                                          "partial_path", "serve_path",
                                          "stream_path", "mesh_path",
-                                         "lm_serve_path", "lm_train_path"))
+                                         "lm_serve_path", "lm_train_path",
+                                         "dryrun_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -99,7 +99,7 @@ class ArchConfig:
     scan_layers: bool = True
     remat: str = "full"  # "none" | "full" | "dots"
     use_kernels: bool = True  # hand-written kernels; False = portable path
-    constrain_acts: tuple = ()  # sharding lever; identity until parallel/sharding
+    constrain_acts: tuple = ()  # sharding lever; the identity here (no partitioner)
     kv_quant: bool = False  # int8 KV cache on the decode path
     kv_shard_heads_padded: bool = False  # force head-sharded KV (pad to TP)
 

@@ -231,7 +231,8 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def constrain(x: torch.Tensor, *spec) -> torch.Tensor:
     """The identity: the reference's sharding-constraint lever has nothing
-    to pin until ``parallel/sharding`` is ported."""
+    to pin in a package with no partitioner (``parallel/sharding`` only
+    accounts)."""
     del spec
     return x
 

@@ -50,7 +50,8 @@ from repro_torch.models.transformer import (
     positions_at,
     write_at,
 )
-from repro_torch.nn.module import Param, init_tree, nest, spec_tree, stack_defs
+from repro_torch.nn.module import (Param, init_tree, nest, pspec_tree, spec_tree,
+                                   stack_defs)
 
 _C = 8.0  # Griffin's fixed decay sharpness
 
@@ -209,6 +210,9 @@ class RecurrentGemma:
 
     def specs(self) -> dict[str, torch.Tensor]:
         return spec_tree(self.defs)
+
+    def pspecs(self, rules) -> dict:
+        return pspec_tree(self.defs, rules)
 
     # ---- state --------------------------------------------------------
     def _zero_rec_state(self, b, device):

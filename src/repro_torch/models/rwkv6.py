@@ -33,7 +33,8 @@ from repro_torch.device import DeviceLike
 from repro_torch.kernels import ops
 from repro_torch.models import common
 from repro_torch.models.transformer import embed, layer
-from repro_torch.nn.module import Param, init_tree, nest, spec_tree, stack_defs
+from repro_torch.nn.module import (Param, init_tree, nest, pspec_tree, spec_tree,
+                                   stack_defs)
 
 
 def _time_mix_defs(cfg: ArchConfig):
@@ -163,6 +164,9 @@ class RWKV6:
 
     def specs(self) -> dict[str, torch.Tensor]:
         return spec_tree(self.defs)
+
+    def pspecs(self, rules) -> dict:
+        return pspec_tree(self.defs, rules)
 
     # ---- time mix ---------------------------------------------------------
     def _time_mix_seq(self, p, x, last_x, state, step):

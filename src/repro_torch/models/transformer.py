@@ -38,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import common
-from repro_torch.nn.module import Param, init_tree, nest, spec_tree, stack_defs
+from repro_torch.nn.module import (Param, init_tree, nest, pspec_tree, spec_tree,
+                                   stack_defs)
 
 
 # --------------------------------------------------------------------------
@@ -202,6 +203,15 @@ def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
     return max(8, -(-cap // 8) * 8)  # round up to 8, as the reference
 
 
+def expert_counts(ids: torch.Tensor, e: int) -> torch.Tensor:
+    """``torch.bincount(ids, minlength=e)`` as an integer scatter-add, which
+    has a meta kernel (``bincount`` has none), so the dry run counts an MoE
+    step; integer sums in any order are the same counts."""
+    ids = ids.reshape(-1).long()
+    return torch.zeros(e, dtype=torch.int64, device=ids.device).scatter_add_(
+        0, ids, torch.ones_like(ids))
+
+
 def moe_dispatch(cfg: ArchConfig, p, xf):
     """The routing of N tokens xf (N, D): returns (top_w (N, k), top_i (N,
     k), probs (N, E), order, slot, keep), the last three over the N*k
@@ -216,7 +226,7 @@ def moe_dispatch(cfg: ArchConfig, p, xf):
     order = torch.argsort(flat_e, stable=True)
     se = flat_e[order]
     cap = moe_capacity(cfg, n)
-    counts = torch.bincount(se, minlength=e)
+    counts = expert_counts(se, e)
     starts = torch.cumsum(counts, 0) - counts
     pos_in_e = torch.arange(se.numel(), device=xf.device) - starts[se]
     keep = pos_in_e < cap
@@ -234,7 +244,7 @@ def _moe_forward(cfg: ArchConfig, p, x):
 
     # load-balancing aux loss (Switch-style)
     me = probs.mean(0)
-    ce = torch.bincount(top_i.reshape(-1), minlength=e).float() / (n * k)
+    ce = expert_counts(top_i, e).float() / (n * k)
     aux = cfg.router_aux_coef * e * torch.sum(me * ce)
 
     st = order // k  # token of each sorted assignment
@@ -295,6 +305,9 @@ class DecoderLM:
 
     def specs(self) -> dict[str, torch.Tensor]:
         return spec_tree(self.defs)
+
+    def pspecs(self, rules) -> dict:
+        return pspec_tree(self.defs, rules)
 
     # ---- blocks ----------------------------------------------------------
     def _ffn(self, p, normed):

@@ -22,7 +22,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.device import DeviceLike
 from repro_torch.models import common
 from repro_torch.models.transformer import _apply_norm, _norm_defs, embed, layer, write_at
-from repro_torch.nn.module import Param, init_tree, nest, spec_tree, stack_defs
+from repro_torch.nn.module import (Param, init_tree, nest, pspec_tree, spec_tree,
+                                   stack_defs)
 
 
 def _mha_defs(cfg: ArchConfig):
@@ -106,6 +107,9 @@ class Whisper:
 
     def specs(self) -> dict[str, torch.Tensor]:
         return spec_tree(self.defs)
+
+    def pspecs(self, rules) -> dict:
+        return pspec_tree(self.defs, rules)
 
     # ---- encoder ----------------------------------------------------------
     def _encode(self, params, frames):

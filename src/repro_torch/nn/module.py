@@ -1,5 +1,6 @@
 """Parameter definitions of the language models: the counterpart of the JAX
-package's ``nn/module.py`` (``Param``, ``init_tree``, ``spec_tree``).
+package's ``nn/module.py`` (``Param``, ``init_tree``, ``spec_tree``,
+``logical_to_pspec``, ``pspec_tree``).
 
 A model describes its parameters as a nested-dict *definition tree* whose
 leaves are :class:`Param` — shape, dtype, initializer and logical axis
@@ -17,9 +18,10 @@ names — under the reference's paths, stacked layer axes included
   dtype, no storage — PyTorch's zero-allocation counterpart of
   ``jax.ShapeDtypeStruct``, so a configuration's bytes are known before
   anything is allocated.
-
-The logical axes are kept for the sharding rules of ``parallel/sharding``,
-which are not ported yet (no ``pspec_tree`` here).
+* :func:`pspec_tree` maps every leaf's logical axes through a rules table
+  (:func:`repro_torch.parallel.sharding.make_rules`) to a
+  :class:`PartitionSpec`, the same flat dict of placements: what the dry
+  run (:mod:`repro_torch.launch.dryrun`) counts each device's bytes by.
 """
 
 from __future__ import annotations
@@ -141,6 +143,51 @@ def spec_tree(defs) -> dict[str, torch.Tensor]:
     """``{dotted path: meta tensor}`` — shapes and dtypes, no storage."""
     return {".".join(path): torch.empty(p.full_shape, dtype=p.dtype, device="meta")
             for path, p in walk(defs)}
+
+
+class PartitionSpec(tuple):
+    """Where each dim of an array lives on a mesh: one entry per dim, ``None``
+    (replicated), a mesh-axis name, or a tuple of names (sharded over their
+    product); dims past the last entry are replicated. The counterpart of
+    ``jax.sharding.PartitionSpec`` with its normalisation (an empty tuple
+    entry is ``None``, a one-name tuple is the name), so two specs agree
+    exactly when their ``tuple(...)`` do."""
+
+    def __new__(cls, *entries):
+        def norm(e):
+            if isinstance(e, (tuple, list)):
+                e = tuple(e)
+                return None if not e else e[0] if len(e) == 1 else e
+            return e
+
+        return super().__new__(cls, tuple(norm(e) for e in entries))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def logical_to_pspec(axes, rules: Mapping[str, Any]) -> PartitionSpec:
+    """Map logical axis names to mesh axes through ``rules``: a rule value is
+    ``None`` (replicate), a mesh-axis name or a tuple of names. A mesh axis
+    is used once a spec: a later dim that names it again drops it."""
+    used: set[str] = set()
+    out = []
+    for name in axes:
+        assignment = rules.get(name) if name is not None else None
+        if assignment is None:
+            out.append(None)
+            continue
+        entries = assignment if isinstance(assignment, tuple) else (assignment,)
+        kept = tuple(a for a in entries if a not in used)
+        used.update(kept)
+        out.append(kept)
+    return PartitionSpec(*out)
+
+
+def pspec_tree(defs, rules: Mapping[str, Any]) -> dict[str, PartitionSpec]:
+    """``{dotted path: PartitionSpec}`` of every leaf, the order of
+    :func:`spec_tree`."""
+    return {".".join(path): logical_to_pspec(p.axes, rules) for path, p in walk(defs)}
 
 
 def param_bytes(defs) -> int:

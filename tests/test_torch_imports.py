@@ -89,7 +89,7 @@ for mod in ("codec.partial", "codec.integrity", "testing.faults",
 for mod in ("configs", "configs.base", "nn.module", "models.common",
             "models.transformer", "models.rwkv6", "models.rglru", "models.whisper",
             "models.registry", "serve.kvcache", "serve.serve_loop", "launch",
-            "launch.serve"):
+            "launch.serve", "launch.mesh", "launch.dryrun", "parallel.sharding"):
     assert f"repro_torch.{mod}" in names, mod
 from repro_torch.configs.base import list_configs
 for arch in list_configs():
