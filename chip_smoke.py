@@ -171,7 +171,20 @@ Phases (each prints one JSON line; any failure exits non-zero):
    port keeps on the host (likewise the decode step's arguments and its
    logits and cache), with the step's peak less the argument bytes
    reported;
-14. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+14. ``analysis_path``  the invariant checker (``repro_torch.analysis``) on
+   the card: (1) ``python -m repro_torch.analysis`` in a subprocess (the
+   AST lint, the wire schema and the trace audit at its tiny shapes on the
+   card) exits 0; (2) meanwhile the audit's registry of 13 hot programs
+   runs in this process at the main path's width, on main_path's fitted
+   state and attention_path's artifact (58 species, NB = 20480, D = 80; the
+   attention decode at (4096, 2, 232, 16)): every aten op under a
+   dispatch recorder and ``torch.cuda.set_sync_debug_mode("error")`` (the
+   ``log_every`` program under ``"warn"``, its syncs counted), no finding,
+   and each program's own kernel launched (the fp64 projection, the fp32
+   select and correct, flash in the attention decode, ``block_quant`` in
+   the quantized data-parallel step); one line a program with its ops,
+   host syncs, fp64 ops, transfers and launches;
+15. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -1305,7 +1318,7 @@ def phase_attention_path(torch, args, data) -> dict:
     cfg = PipelineConfig(family="attention", arch=(32, 2, 1, 64), latent=36,
                          use_correction=True, ae_steps=args.attn_ae_steps,
                          corr_steps=args.corr_steps, seed=args.seed)
-    info, blob, _, field, _ = drive(torch, data, cfg, args, "attention_path", {
+    info, blob, artifact, field, _ = drive(torch, data, cfg, args, "attention_path", {
         "species": 58, "block": [4, 5, 4], "latent": 36,
         "arch": {"d_model": 32, "n_heads": 2, "depth": 1, "mlp_hidden": 64},
         "tokens": 232, "head_dim": 16, "correction": [232, 464, 232]},
@@ -1319,7 +1332,7 @@ def phase_attention_path(torch, args, data) -> dict:
         fail("flash_attention was never launched during decompress")
     info["family_tag"] = tag
     emit(info)
-    return info, blob, field
+    return info, blob, field, artifact
 
 
 # partial_path: the conv blob's selections (species, frame window); None
@@ -3550,12 +3563,96 @@ def phase_dryrun_path(torch) -> dict:
     return info
 
 
+# analysis_path: each program's own kernel, by launch counter
+ANALYSIS_KERNELS = {
+    "gbatc_project_batched": "gbatc_project_batched",
+    "gbatc_project_shard": "gbatc_project_batched",
+    "gbatc_select_accumulate": "gbatc_select_accumulate",
+    "gbatc_select_accumulate_shard": "gbatc_select_accumulate",
+    "gbatc_correct_batched": "gbatc_correct_batched",
+    "fused_decode_attention": "flash_attention",
+    "trainer_mesh_dp_quantized": "block_quant",
+}
+ANALYSIS_CLI_TIMEOUT_S = 300
+
+
+def phase_analysis_path(torch, main_codec, attention_artifact) -> dict:
+    """The invariant checker on the card (see the module docstring, step
+    14); returns the phase line, whose ``launches`` are the registry's."""
+    from repro_torch.analysis import trace_audit
+
+    t_start = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    cli = subprocess.Popen([sys.executable, "-m", "repro_torch.analysis"],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                           text=True, env=env, cwd=ROOT)
+    try:
+        t0 = time.perf_counter()
+        w = trace_audit.workload_from(main_codec.pipeline, attention_artifact)
+        workload_s = time.perf_counter() - t0
+        reset_counts()
+        t0 = time.perf_counter()
+        report = trace_audit.audit(workload=w)
+        registry_s = time.perf_counter() - t0
+        launches = all_counts()
+        out, err = cli.communicate(timeout=ANALYSIS_CLI_TIMEOUT_S)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    cli_s = time.perf_counter() - t_start
+    summary = next((ln for ln in out.splitlines()
+                    if ln.startswith("repro_torch.analysis:")), None)
+    if cli.returncode != 0 or summary is None or "on cuda" not in summary:
+        fail(f"analysis_path: python -m repro_torch.analysis exited "
+             f"{cli.returncode}:\n{out[-3000:]}\n{err[-3000:]}")
+    if report.findings:
+        fail("analysis_path: the audit at the main path's width found: "
+             + "; ".join(str(f) for f in report.findings))
+    if list(report.programs) != [
+            "trainer_stream_step", "trainer_scan_hot", "trainer_scan_log_every",
+            "trainer_mesh_dp", "trainer_mesh_dp_quantized", "fused_decode",
+            "fused_decode_corrected", "fused_decode_attention",
+            "gbatc_project_batched", "gbatc_correct_batched",
+            "gbatc_select_accumulate", "gbatc_project_shard",
+            "gbatc_select_accumulate_shard"]:
+        fail(f"analysis_path: the registry ran {list(report.programs)}")
+    for name, st in report.programs.items():
+        kernel = ANALYSIS_KERNELS.get(name)
+        if kernel and not st.launches.get(kernel):
+            fail(f"analysis_path: {name} launched no {kernel} kernel "
+                 f"({st.launches})")
+        if st.device_syncs is None:
+            fail(f"analysis_path: {name} ran without the card's sync check")
+        emit({"phase": "analysis_path", "program": name, "ops": st.n_ops,
+              "syncs": st.syncs, "device_syncs": st.device_syncs,
+              "fp64_ops": st.f64_ops, "transfers": st.transfers,
+              "transfer_bytes": st.transfer_bytes, "captured_bytes": st.const_bytes,
+              "collectives": st.collectives, "in_place": st.in_place,
+              "launches": st.launches, "seconds": st.seconds})
+    log = report.programs["trainer_scan_log_every"]
+    if log.syncs != {"_local_scalar_dense": 2} or log.device_syncs != 3:
+        fail(f"analysis_path: log_every synced {log.syncs} / {log.device_syncs}x "
+             "on the card, expected 2 logged losses and one history fetch")
+    shape = [int(n) for n in w.x.shape]
+    del w, report
+    torch.cuda.empty_cache()
+    info = {"phase": "analysis_path", "gpu": gpu_line(), "cli_summary": summary,
+            "cli_and_registry_s": cli_s, "workload_s": workload_s,
+            "registry_s": registry_s, "guarantee_shape": shape,
+            "findings": 0, "launches": {"registry": launches},
+            "seconds": time.perf_counter() - t_start}
+    emit(info)
+    return info
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,ops_path,"
                             "partial_path,serve_path,stream_path,mesh_path,lm_serve_path,"
-                            "lm_train_path,dryrun_path")
+                            "lm_train_path,dryrun_path,analysis_path")
     ap.add_argument("--launches", type=int, default=20,
                     help="timed launches per kernel (median reported)")
     ap.add_argument("--frames", type=int, default=16)
@@ -3611,7 +3708,9 @@ def run(torch, args, phases) -> None:
     for phase in ("stream_path", "mesh_path"):
         if phase in phases and "main_path" not in phases:
             fail(f"{phase} needs the main_path phase")
-    data = temperature = main_codec = None
+    if "analysis_path" in phases and not {"main_path", "attention_path"} <= set(phases):
+        fail("analysis_path needs the main_path and attention_path phases")
+    data = temperature = main_codec = attention_artifact = None
     if "main_path" in phases or "attention_path" in phases:
         data, temperature, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
@@ -3619,7 +3718,7 @@ def run(torch, args, phases) -> None:
             paths["main_path"], *outputs["main_path"], main_codec = \
                 phase_main_path(torch, args, data)
         if "attention_path" in phases:
-            paths["attention_path"], *outputs["attention_path"] = \
+            paths["attention_path"], *outputs["attention_path"], attention_artifact = \
                 phase_attention_path(torch, args, data)
     ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
     partial = (phase_partial_path(torch, outputs["main_path"],
@@ -3631,6 +3730,10 @@ def run(torch, args, phases) -> None:
     stream = (phase_stream_path(torch, args, paths["main_path"], data, temperature,
                                 outputs["main_path"][2])
               if "stream_path" in phases else None)
+    # analysis_path runs last, on main_path's fit and attention_path's blob
+    analysis_inputs = ((main_codec, attention_artifact)
+                       if "analysis_path" in phases else None)
+    attention_artifact = None
     outputs.clear()
     mesh = (phase_mesh_path(torch, args, paths["main_path"], data, main_codec)
             if "mesh_path" in phases else None)
@@ -3639,6 +3742,9 @@ def run(torch, args, phases) -> None:
     lm = phase_lm_serve_path(torch) if "lm_serve_path" in phases else None
     lm_train = phase_lm_train_path(torch) if "lm_train_path" in phases else None
     dry = phase_dryrun_path(torch) if "dryrun_path" in phases else None
+    analysis = (phase_analysis_path(torch, *analysis_inputs)
+                if "analysis_path" in phases else None)
+    analysis_inputs = None
     for r in rows:
         by_path = {p: {"compress": info["launches_compress"][r["name"]],
                        "decompress": info["launches_decompress"][r["name"]],
@@ -3658,7 +3764,7 @@ def run(torch, args, phases) -> None:
             by_path["mesh_path"] = {part: c[r["name"]]
                                     for part, c in mesh["launches"].items()}
         for name, line in (("lm_serve_path", lm), ("lm_train_path", lm_train),
-                           ("dryrun_path", dry)):
+                           ("dryrun_path", dry), ("analysis_path", analysis)):
             if line:
                 by_path[name] = {part: c[r["name"]]
                                  for part, c in line["launches"].items()}
@@ -3669,7 +3775,7 @@ def run(torch, args, phases) -> None:
                                          "partial_path", "serve_path",
                                          "stream_path", "mesh_path",
                                          "lm_serve_path", "lm_train_path",
-                                         "dryrun_path"))
+                                         "dryrun_path", "analysis_path"))
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

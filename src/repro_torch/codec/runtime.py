@@ -632,7 +632,8 @@ def _fused_vecs(rt: _DecodeRuntime, dec_params, corr_params,
     the tail chunk padded to the fixed shape, so the encode side and the
     decode side run the same kernels on the same shapes whatever the
     field's length. Parameters may be reference-layout numpy trees or flat
-    state dicts.
+    state dicts; ``lat32`` a host array or an fp32 tensor (on the device, it
+    costs no copy).
 
     ``rows=(b0, nb)`` says ``lat32`` holds block rows ``[b0, b0 + n)`` of
     an ``nb``-row field. They then run in the full decode's dispatch
@@ -647,7 +648,8 @@ def _fused_vecs(rt: _DecodeRuntime, dec_params, corr_params,
     dev = rt.device
     dec_state = _as_state(dec_params, dev)
     corr_state = _as_state(corr_params, dev)
-    lat = torch.from_numpy(np.ascontiguousarray(lat32, dtype=np.float32)).to(dev)
+    lat = (lat32 if isinstance(lat32, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(lat32, dtype=np.float32))).to(dev)
     n = lat.shape[0]
     b0, nb = (0, n) if rows is None else (int(rows[0]), int(rows[1]))
     b1 = b0 + n

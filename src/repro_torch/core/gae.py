@@ -56,7 +56,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import struct
-import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional
 
@@ -65,6 +64,7 @@ import torch
 
 from repro_torch.core import container, entropy, index_coding, pca
 from repro_torch.core.quantization import dequantize
+from repro_torch.core.stopwatch import Stopwatch
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels import ops
 
@@ -482,52 +482,52 @@ class GuaranteeEngine:
         # PCA on host numpy: the D x D eigh is tiny, and sharing the exact
         # gram/eigh path with the numpy oracle is what makes the engine's
         # byte accounting bit-identical to it.
-        t0 = time.perf_counter()
-        basis_stale, _ = pca.pca_basis_stack(residual, executor=_pool())
-        t1 = time.perf_counter()
+        sw = Stopwatch()
+        with sw("pca"):
+            basis_stale, _ = pca.pca_basis_stack(residual, executor=_pool())
 
-        residual_dev = self._stage(residual)
-        basis_dev = self._stage(basis_stale)
-        coeffs_stale_dev = self._dispatch("project", residual_dev, basis_dev)
-        del residual_dev, basis_dev, residual
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        t2 = time.perf_counter()
+        with sw("project"):
+            residual_dev = self._stage(residual)
+            basis_dev = self._stage(basis_stale)
+            coeffs_stale_dev = self._dispatch("project", residual_dev, basis_dev)
+            del residual_dev, basis_dev, residual
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
         # host ordering and CSR assembly need the projection on the host:
         # one device->host copy of S*NB*D fp64
-        coeffs_stale = coeffs_stale_dev.cpu().numpy()
-        t3 = time.perf_counter()
+        with sw("coeffs_to_host"):
+            coeffs_stale = coeffs_stale_dev.cpu().numpy()
 
-        if not can_reuse or len(stale) == s:
-            norms2, basis, coeffs = norms2_stale, basis_stale, coeffs_stale
-            coeffs_sorted = np.empty_like(coeffs)
-            inv_rank = np.empty((s, nb, d), np.int32)
-            fresh = range(s)
-        else:
-            norms2 = reuse.norms2.copy()
-            norms2[stale] = norms2_stale
-            basis = reuse.basis.copy()
-            basis[stale] = basis_stale
-            coeffs = reuse.coeffs.copy()
-            coeffs[stale] = coeffs_stale
-            coeffs_sorted = reuse.coeffs_sorted.copy()
-            inv_rank = reuse.inv_rank.copy()
-            fresh = stale.tolist()
+        with sw("order"):
+            if not can_reuse or len(stale) == s:
+                norms2, basis, coeffs = norms2_stale, basis_stale, coeffs_stale
+                coeffs_sorted = np.empty_like(coeffs)
+                inv_rank = np.empty((s, nb, d), np.int32)
+                fresh = range(s)
+            else:
+                norms2 = reuse.norms2.copy()
+                norms2[stale] = norms2_stale
+                basis = reuse.basis.copy()
+                basis[stale] = basis_stale
+                coeffs = reuse.coeffs.copy()
+                coeffs[stale] = coeffs_stale
+                coeffs_sorted = reuse.coeffs_sorted.copy()
+                inv_rank = reuse.inv_rank.copy()
+                fresh = stale.tolist()
 
-        iota = np.arange(d, dtype=np.int32)
+            iota = np.arange(d, dtype=np.int32)
 
-        def order_work(sidx):
-            order = _stable_desc_order(coeffs[sidx] ** 2)
-            coeffs_sorted[sidx] = np.take_along_axis(coeffs[sidx], order, axis=-1)
-            np.put_along_axis(
-                inv_rank[sidx], order, np.broadcast_to(iota, order.shape), axis=-1
-            )
+            def order_work(sidx):
+                order = _stable_desc_order(coeffs[sidx] ** 2)
+                coeffs_sorted[sidx] = np.take_along_axis(coeffs[sidx], order,
+                                                         axis=-1)
+                np.put_along_axis(
+                    inv_rank[sidx], order, np.broadcast_to(iota, order.shape),
+                    axis=-1
+                )
 
-        list(_pool().map(order_work, fresh))
-        self.last_prepare_s = {
-            "pca": t1 - t0, "project": t2 - t1, "coeffs_to_host": t3 - t2,
-            "order": time.perf_counter() - t3,
-        }
+            list(_pool().map(order_work, fresh))
+        self.last_prepare_s = sw.spans
         device_backend = self.select_backend == "device"
         full_recompute = coeffs is coeffs_stale
         prepared = PreparedGuarantee(

@@ -54,8 +54,6 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional
 
-import time
-
 import numpy as np
 import torch
 
@@ -64,6 +62,7 @@ from repro_torch.codec.artifact import CompressedArtifact
 from repro_torch.codec.families import get as _family, structural as _structural
 from repro_torch.core import blocking, correction, gae, metrics
 from repro_torch.core.quantization import dequantize, quantize, quantize_params
+from repro_torch.core.stopwatch import Stopwatch
 from repro_torch.device import DeviceLike, resolve_device, strict_fp32
 from repro_torch.train.fault_tolerance import retry_with_backoff
 
@@ -202,19 +201,19 @@ class GBATCPipeline:
     def fit(self, data: np.ndarray, verbose: bool = False) -> dict:
         """Train the AE (and correction net) once; returns training stats."""
         assert data.shape[0] == self.n_species
-        t0 = time.perf_counter()
-        normed, mn, rngs = self._normalize(data)
-        blocks = blocking.to_blocks(normed, self.cfg.geometry)
-        del normed
-        if self.mesh is not None:
-            blocks = parallel.shard_rows(blocks, self.mesh)
-        t_blocks = time.perf_counter() - t0
-        stats = self._fit_blocks(
-            blocks, mn, rngs, shape=tuple(data.shape),
-            data_nbytes=data.nbytes, data=data, verbose=verbose,
-        )
-        self.timings["normalize_block"] = t_blocks
-        self.timings["fit_total"] = time.perf_counter() - t0
+        sw = Stopwatch()
+        with sw("fit_total"):
+            with sw("normalize_block"):
+                normed, mn, rngs = self._normalize(data)
+                blocks = blocking.to_blocks(normed, self.cfg.geometry)
+                del normed
+                if self.mesh is not None:
+                    blocks = parallel.shard_rows(blocks, self.mesh)
+            stats = self._fit_blocks(
+                blocks, mn, rngs, shape=tuple(data.shape),
+                data_nbytes=data.nbytes, data=data, verbose=verbose,
+            )
+        self.timings.update(sw.spans)
         return stats
 
     def fit_stream(self, loader, verbose: bool = False, *,
@@ -247,13 +246,26 @@ class GBATCPipeline:
         data-space NRMSE up to float rounding: per-species min/max
         normalization makes the range exactly 1).
         """
-        geom = self.cfg.geometry
         retry = dict(
             max_retries=loader_retries, backoff=retry_backoff,
             retry_on=(OSError, IOError),
             **({} if _sleep is None else {"sleep": _sleep}),
         )
-        t0 = time.perf_counter()
+        sw = Stopwatch()
+        with sw("fit_total"):
+            with sw("ingest"):
+                blocks, mn, rngs, shape, nbytes = self._ingest(loader, retry)
+            stats = self._fit_blocks(
+                blocks, mn.astype(np.float32), rngs.astype(np.float32),
+                shape=shape, data_nbytes=nbytes, data=None, verbose=verbose,
+            )
+        self.timings.update(sw.spans)
+        return stats
+
+    def _ingest(self, loader, retry: dict):
+        """``fit_stream``'s two passes over the loader; returns ``(blocks,
+        mn, rngs, shape, nbytes)``."""
+        geom = self.cfg.geometry
 
         def pass_ranges():
             # accumulators local to the pass: a mid-iteration fault
@@ -334,14 +346,7 @@ class GBATCPipeline:
                 return blocks
 
         blocks = retry_with_backoff(pass_blocks, **retry)
-        t_ingest = time.perf_counter() - t0
-        stats = self._fit_blocks(
-            blocks, mn.astype(np.float32), rngs.astype(np.float32),
-            shape=shape, data_nbytes=nbytes, data=None, verbose=verbose,
-        )
-        self.timings["ingest"] = t_ingest
-        self.timings["fit_total"] = time.perf_counter() - t0
-        return stats
+        return blocks, mn, rngs, shape, nbytes
 
     def _fit_blocks(self, blocks, mn: np.ndarray,
                     rngs: np.ndarray, *, shape, data_nbytes: int,
@@ -352,57 +357,59 @@ class GBATCPipeline:
         cfg = self.cfg
         mesh = self.mesh
         fit_kw = {} if mesh is None else {"mesh": mesh}
-        t0 = time.perf_counter()
-        blocks_dev = (torch.from_numpy(blocks).to(self.device) if mesh is None
-                      else blocks)
-        state, losses = self.family.fit(
-            self.model,
-            blocks_dev,
-            steps=cfg.ae_steps,
-            batch_size=cfg.batch_size,
-            lr=cfg.lr,
-            seed=cfg.seed,
-            log_every=200 if verbose else 0,
-            device=self.device,
-            **fit_kw,
-        )
-        # parameters leave the trainer in the reference's tree layout (what
-        # the wire carries). Honest sub-fp32 storage: round them through the
-        # container's storage dtype *before* any of them are used, so the
-        # latents, correction fit, and guarantee all see exactly the values
-        # the serialized decoder will replay (fp32 is the identity)
-        params = quantize_params(convert.to_reference(state),
-                                 cfg.param_dtype_bytes)
-        t1 = time.perf_counter()
-        latents = self._encode(params, blocks_dev)
-        t2 = time.perf_counter()
-
-        corr_params = None
-        if self.corr_net is not None:
-            # decode through the shared fused runtime; pointwise vecs are a
-            # transpose away and stay on the device for the correction fit
-            ae_vecs = self._decode_vecs(params, latents, None, host=False)
-            vec_rec = (ae_vecs.permute(1, 2, 0)
-                       .reshape(-1, self.n_species).contiguous())
-            del ae_vecs
-            if mesh is None:
-                vec_orig = correction.blocks_to_pointwise(blocks_dev)
-            else:
-                # pointwise vectors sharded by the same block rows
-                vec_rec = parallel.shard_rows(vec_rec, mesh)
-                vec_orig = [correction.blocks_to_pointwise(b) for b in blocks_dev]
-            corr_state, _ = correction.fit(
-                self.corr_net, vec_rec, vec_orig,
-                steps=cfg.corr_steps, seed=cfg.seed + 1, device=self.device,
+        sw = Stopwatch()
+        with sw("fit_ae"):
+            blocks_dev = (torch.from_numpy(blocks).to(self.device) if mesh is None
+                          else blocks)
+            state, losses = self.family.fit(
+                self.model,
+                blocks_dev,
+                steps=cfg.ae_steps,
+                batch_size=cfg.batch_size,
+                lr=cfg.lr,
+                seed=cfg.seed,
+                log_every=200 if verbose else 0,
+                device=self.device,
                 **fit_kw,
             )
-            del vec_rec, vec_orig
-            corr_params = quantize_params(convert.to_reference(corr_state),
-                                          cfg.param_dtype_bytes)
-        del blocks_dev
-        t3 = time.perf_counter()
-        self.timings = {"fit_ae": t1 - t0, "encode_latents": t2 - t1,
-                        "fit_correction": t3 - t2}
+            # parameters leave the trainer in the reference's tree layout
+            # (what the wire carries). Honest sub-fp32 storage: round them
+            # through the container's storage dtype *before* any of them are
+            # used, so the latents, correction fit, and guarantee all see
+            # exactly the values the serialized decoder will replay (fp32 is
+            # the identity)
+            params = quantize_params(convert.to_reference(state),
+                                     cfg.param_dtype_bytes)
+        with sw("encode_latents"):
+            latents = self._encode(params, blocks_dev)
+
+        corr_params = None
+        with sw("fit_correction"):
+            if self.corr_net is not None:
+                # decode through the shared fused runtime; pointwise vecs are
+                # a transpose away and stay on the device for the correction
+                # fit
+                ae_vecs = self._decode_vecs(params, latents, None, host=False)
+                vec_rec = (ae_vecs.permute(1, 2, 0)
+                           .reshape(-1, self.n_species).contiguous())
+                del ae_vecs
+                if mesh is None:
+                    vec_orig = correction.blocks_to_pointwise(blocks_dev)
+                else:
+                    # pointwise vectors sharded by the same block rows
+                    vec_rec = parallel.shard_rows(vec_rec, mesh)
+                    vec_orig = [correction.blocks_to_pointwise(b)
+                                for b in blocks_dev]
+                corr_state, _ = correction.fit(
+                    self.corr_net, vec_rec, vec_orig,
+                    steps=cfg.corr_steps, seed=cfg.seed + 1, device=self.device,
+                    **fit_kw,
+                )
+                del vec_rec, vec_orig
+                corr_params = quantize_params(convert.to_reference(corr_state),
+                                              cfg.param_dtype_bytes)
+            del blocks_dev
+        self.timings = sw.spans
 
         self._ae_params = params
         self._corr_params = corr_params
@@ -478,20 +485,20 @@ class GBATCPipeline:
         hit = self._prepared.get(key)
         if hit is not None:
             return hit
-        t0 = time.perf_counter()
-        lat_q = quantize(self._latents, lat_bin)
-        corr_params = None if skip_correction else self._corr_params
-        vecs_rec = self._decode_vecs(
-            self._ae_params, dequantize(lat_q, lat_bin), corr_params
-        )
-        t1 = time.perf_counter()
-        prepared = self._gengine.prepare(
-            self._orig_vectors(), vecs_rec, reuse=self._last_prepared
-        )
-        self._last_prepared = prepared
+        sw = Stopwatch()
+        with sw("decode_vecs"):
+            lat_q = quantize(self._latents, lat_bin)
+            corr_params = None if skip_correction else self._corr_params
+            vecs_rec = self._decode_vecs(
+                self._ae_params, dequantize(lat_q, lat_bin), corr_params
+            )
+        with sw("prepare"):
+            prepared = self._gengine.prepare(
+                self._orig_vectors(), vecs_rec, reuse=self._last_prepared
+            )
+            self._last_prepared = prepared
         self.timings.update(
-            decode_vecs=t1 - t0, prepare=time.perf_counter() - t1,
-            prepare_stages=dict(self._gengine.last_prepare_s),
+            sw.spans, prepare_stages=dict(self._gengine.last_prepare_s),
         )
         # latent wire streams are NOT packed here — the artifact packs
         # lazily per shard layout into this shared memo, so a sweep pays
@@ -536,58 +543,57 @@ class GBATCPipeline:
         geom = cfg.geometry
         shape = self._shape
         mn, rngs = self._norm
-        t_start = time.perf_counter()
+        sw = Stopwatch()
+        with sw("compress_total"):
+            prepared, lat_q, lat_bin, corr_params, latent_memo = \
+                self._prepare_guarantee(latent_bin_rel, skip_correction)
 
-        prepared, lat_q, lat_bin, corr_params, latent_memo = \
-            self._prepare_guarantee(latent_bin_rel, skip_correction)
+            d = geom.block_size
+            tau = target_nrmse * np.sqrt(d)  # normalized range == 1
+            with sw("select"):
+                corrected, arts = self._gengine.select(prepared, tau, coeff_bin)
 
-        d = geom.block_size
-        tau = target_nrmse * np.sqrt(d)  # normalized range == 1
-        t0 = time.perf_counter()
-        corrected, arts = self._gengine.select(prepared, tau, coeff_bin)
-        t1 = time.perf_counter()
+            with sw("report"):
+                artifact = CompressedArtifact(
+                    latent_q=lat_q,
+                    latent_bin=lat_bin,
+                    ae_params=self._ae_params,
+                    corr_params=corr_params,
+                    species_guarantees=arts,
+                    norm_min=mn,
+                    norm_range=rngs,
+                    shape=shape,
+                    cfg=cfg,
+                    _param_streams=self._packed_param_streams(),
+                    _latent_memo=latent_memo,
+                    # a mesh fit packs its latents as the shards' row blocks
+                    _latent_parts=(None if self.mesh is None
+                                   else np.split(lat_q, self.mesh.size)),
+                )
 
-        artifact = CompressedArtifact(
-            latent_q=lat_q,
-            latent_bin=lat_bin,
-            ae_params=self._ae_params,
-            corr_params=corr_params,
-            species_guarantees=arts,
-            norm_min=mn,
-            norm_range=rngs,
-            shape=shape,
-            cfg=cfg,
-            _param_streams=self._packed_param_streams(),
-            _latent_memo=latent_memo,
-            # a mesh fit packs its latents as the shards' row blocks
-            _latent_parts=(None if self.mesh is None
-                           else np.split(lat_q, self.mesh.size)),
-        )
+                rec_blocks = blocking.vectors_as_blocks(corrected, geom)
+                rec_normed = blocking.from_blocks(rec_blocks, shape, geom)
+                recon = (rec_normed * rngs[:, None, None, None]
+                         + mn[:, None, None, None])
 
-        rec_blocks = blocking.vectors_as_blocks(corrected, geom)
-        rec_normed = blocking.from_blocks(rec_blocks, shape, geom)
-        recon = rec_normed * rngs[:, None, None, None] + mn[:, None, None, None]
-
-        t2 = time.perf_counter()
-        bb = artifact.byte_breakdown()  # serializes the container
-        t3 = time.perf_counter()
-        if self._data is not None:
-            per_species = np.array(
-                [metrics.nrmse(self._data[s], recon[s])
-                 for s in range(self.n_species)]
-            )
-        else:
-            # streamed fit: the original field was never materialized.
-            # NRMSE is range-normalized and per-species min/max
-            # normalization makes the range exactly 1, so the normalized
-            # block-vector RMS *is* the NRMSE (up to float rounding; the
-            # guarantee itself is enforced in normalized units either way)
-            err = corrected - self._orig_vectors()
-            per_species = np.sqrt(np.mean(np.square(err), axis=(1, 2)))
-        t4 = time.perf_counter()
-        self.timings.update(select=t1 - t0, encode=t3 - t2,
-                            report=(t2 - t1) + (t4 - t3),
-                            compress_total=t4 - t_start)
+            with sw("encode"):
+                bb = artifact.byte_breakdown()  # serializes the container
+            with sw("report"):
+                if self._data is not None:
+                    per_species = np.array(
+                        [metrics.nrmse(self._data[s], recon[s])
+                         for s in range(self.n_species)]
+                    )
+                else:
+                    # streamed fit: the original field was never
+                    # materialized. NRMSE is range-normalized and
+                    # per-species min/max normalization makes the range
+                    # exactly 1, so the normalized block-vector RMS *is* the
+                    # NRMSE (up to float rounding; the guarantee itself is
+                    # enforced in normalized units either way)
+                    err = corrected - self._orig_vectors()
+                    per_species = np.sqrt(np.mean(np.square(err), axis=(1, 2)))
+        self.timings.update(sw.spans)
         return CompressionReport(
             recon=recon.astype(np.float32),
             compression_ratio=self._data_nbytes / bb["total"],

@@ -446,7 +446,7 @@ def main(argv=None) -> None:
                     if flops is None:
                         flops = step_flops(cfg, SHAPES[shape_name])
                     run_cell(arch, shape_name, mp, args.out, flops=flops)
-                except Exception as e:  # noqa: BLE001 — record, go on, exit non-zero
+                except Exception as e:  # noqa: BLE001  # repro: allow[typed-errors] — record, go on, exit non-zero
                     failures.append((arch, shape_name, mesh_name, repr(e)))
                     traceback.print_exc()
     print(f"[dryrun] cuda_initialized={torch.cuda.is_initialized()}", flush=True)

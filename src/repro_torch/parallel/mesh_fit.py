@@ -98,6 +98,40 @@ def psum(shards: Sequence[torch.Tensor]) -> list[torch.Tensor]:
     return out
 
 
+#: cross-replica gradient exchanges since the last reset, by kind (the
+#: trace audit's count of a data-parallel step's collectives)
+EXCHANGES: dict[str, int] = {"psum": 0, "quantized_psum": 0}
+
+
+def dp_step(trainer, replicas: list, states: list, batches: Sequence[tuple], *,
+            quantized: bool):
+    """One data-parallel step over ``P = len(replicas)`` replicas: every
+    shard's loss and gradients on its own device (all queued before the
+    exchange), one exchange of the packed gradients (``psum``, or the int8
+    ``quantized_psum`` with ``quantized``), divided by ``P``, and the same
+    in-place AdamW update on every replica. Returns ``(replicas, states,
+    loss)``, the loss the mean of the shards' in shard order on the first
+    device."""
+    n_p = len(replicas)
+    shard_losses, buckets = [], []
+    for replica, batch in zip(replicas, batches, strict=True):
+        loss, grads = trainer.loss_and_grads(replica, batch)
+        shard_losses.append(loss)
+        buckets.append(pack_bucket(grads, BLOCK))
+    kind = "quantized_psum" if quantized else "psum"
+    summed = (gc.quantized_psum(buckets, block=BLOCK) if quantized
+              else psum(buckets))
+    EXCHANGES[kind] += 1
+    loss = shard_losses[0]
+    for x in shard_losses[1:]:
+        loss = loss + x.to(loss.device)
+    with torch.no_grad():
+        for i in range(n_p):
+            grads = unpack_bucket(summed[i] / n_p, replicas[i], BLOCK)
+            opt.update_(trainer._ocfg, grads, states[i], replicas[i])
+    return replicas, states, loss / n_p
+
+
 def dp_fit(trainer, params: dict, shards: Sequence[tuple], *, steps: int,
            n: int, bs: int, seed: int, log_every: int, mesh: Mesh,
            quantized: bool, indices=None):
@@ -136,26 +170,15 @@ def dp_fit(trainer, params: dict, shards: Sequence[tuple], *, steps: int,
     losses = []
     with strict_fp32():
         for t in range(steps):
-            shard_losses, buckets = [], []
+            batches = []
             for i, d in enumerate(devs):
                 idx = (indices[i][t] if indices is not None else
                        torch.randint(0, n_local, (bs_local,), generator=gens[i],
                                      device=d))
-                loss, grads = trainer.loss_and_grads(
-                    replicas[i], tuple(a[idx] for a in shards[i]))
-                shard_losses.append(loss)
-                buckets.append(pack_bucket(grads, BLOCK))
-            summed = (gc.quantized_psum(buckets, block=BLOCK) if quantized
-                      else psum(buckets))
-            loss = shard_losses[0]
-            for x in shard_losses[1:]:
-                loss = loss + x.to(devs[0])
-            losses.append(loss / n_p)
-            with torch.no_grad():
-                for i in range(n_p):
-                    grads = unpack_bucket(summed[i] / n_p, replicas[i], BLOCK)
-                    replicas[i], states[i], _ = opt.update(
-                        trainer._ocfg, grads, states[i], replicas[i])
+                batches.append(tuple(a[idx] for a in shards[i]))
+            _, _, loss = dp_step(trainer, replicas, states, batches,
+                                 quantized=quantized)
+            losses.append(loss)
             if log_every and t % log_every == 0:
                 trainer._log_fn(t, float(losses[-1]))
     for i, r in enumerate(replicas[1:], 1):

@@ -27,41 +27,14 @@ Usage::
 from __future__ import annotations
 
 import dataclasses
-import enum
 from typing import Optional
 
 import numpy as np
 
+from repro_torch.analysis.wire_schema import GUARANTEE_PARTS, RegionKind
 from repro_torch.codec import format as wire
 from repro_torch.core import container as container_format
 from repro_torch.core.container import ContainerReader
-
-
-class RegionKind(enum.Enum):
-    """Fault-addressable region label templates (format-string values).
-
-    One member per region species the v4+ digests (and this harness)
-    address; ``label(...)`` renders the concrete label. The strings are
-    the reference package's (its wire schema's ``RegionKind``), so a
-    region list from either package names the same units alike.
-    """
-
-    HEADER = "header"
-    STREAM = "stream:{name}"
-    META_FAMILY = "meta:family"
-    LATENT_HEAD = "latent:head"
-    LATENT_SHARD = "latent:shard{unit}"
-    GUARANTEE_DIR = "guarantee:dir"
-    GUARANTEE_SPECIES_PART = "guarantee:s{unit}:{part}"
-    BLOB = "blob"
-
-    def label(self, **kw) -> str:
-        return self.value.format(**kw)
-
-
-#: CRC-chain order of one species' guarantee extent; regions iterate
-#: parts in exactly this order.
-GUARANTEE_PARTS = ("coeff", "index", "basis")
 
 
 @dataclasses.dataclass(frozen=True)

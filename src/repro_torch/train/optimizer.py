@@ -11,6 +11,12 @@ Parameters, gradients and moments are flat ``dict[str, Tensor]`` (a
 ``state_dict`` without buffers). The step count and the scalar schedule
 live on the host — the schedule is evaluated in float32 like the
 reference's — so a step costs no device synchronisation.
+
+:func:`update` is functional (its inputs are left as they were, which is
+what a caller that restarts from its last state needs); :func:`update_`
+is the same step written into the parameters and moments it is given,
+the counterpart of the reference's donated carries, for a trainer that
+owns its state.
 """
 
 from __future__ import annotations
@@ -81,28 +87,50 @@ def clip_by_global_norm(grads: dict[str, torch.Tensor], max_norm: float):
     return {k: g * scale for k, g in grads.items()}, norm
 
 
-def update(cfg: AdamWConfig, grads, state, params):
-    """One AdamW step. Returns ``(new_params, new_state, metrics)``; the
-    inputs are left untouched."""
+def _prologue(cfg: AdamWConfig, grads, state):
+    """Step count, clipped gradients, global norm, learning rate and the
+    two bias corrections of the next step."""
     step = int(state["step"]) + 1
     if cfg.grad_clip is not None:
         grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
     else:
         gnorm = global_norm(grads)
-    lr = schedule(cfg, step)
     f = np.float32
     b1c = float(f(1.0) - f(cfg.b1) ** f(step))
     b2c = float(f(1.0) - f(cfg.b2) ** f(step))
+    return step, grads, gnorm, schedule(cfg, step), b1c, b2c
 
+
+def _leaf_(cfg: AdamWConfig, p, m, v, g, lr: float, b1c: float, b2c: float):
+    """One leaf's update, written into ``p``, ``m`` and ``v``."""
+    g32 = g.float()
+    m.mul_(cfg.b1).add_((1.0 - cfg.b1) * g32)
+    v.mul_(cfg.b2).add_((1.0 - cfg.b2) * torch.square(g32))
+    delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
+    if cfg.weight_decay:
+        delta = delta + cfg.weight_decay * p.float()
+    p.copy_(p.float() - lr * delta)
+
+
+def update(cfg: AdamWConfig, grads, state, params):
+    """One AdamW step. Returns ``(new_params, new_state, metrics)``; the
+    inputs are left untouched (each leaf is updated in a fresh copy)."""
+    step, grads, gnorm, lr, b1c, b2c = _prologue(cfg, grads, state)
     new_p, new_m, new_v = {}, {}, {}
     for k, p in params.items():
-        g32 = grads[k].float()
-        m = cfg.b1 * state["m"][k] + (1.0 - cfg.b1) * g32
-        v = cfg.b2 * state["v"][k] + (1.0 - cfg.b2) * torch.square(g32)
-        delta = (m / b1c) / (torch.sqrt(v / b2c) + cfg.eps)
-        if cfg.weight_decay:
-            delta = delta + cfg.weight_decay * p.float()
-        new_p[k] = (p.float() - lr * delta).to(p.dtype)
-        new_m[k], new_v[k] = m, v
+        new_p[k], new_m[k], new_v[k] = (p.clone(), state["m"][k].clone(),
+                                        state["v"][k].clone())
+        _leaf_(cfg, new_p[k], new_m[k], new_v[k], grads[k], lr, b1c, b2c)
     new_state = {"m": new_m, "v": new_v, "step": step}
     return new_p, new_state, {"grad_norm": gnorm, "lr": lr}
+
+
+def update_(cfg: AdamWConfig, grads, state, params):
+    """:func:`update` written into ``params`` and ``state``'s moments (and
+    its step count). Returns ``(params, state, metrics)``, the objects
+    given."""
+    step, grads, gnorm, lr, b1c, b2c = _prologue(cfg, grads, state)
+    for k, p in params.items():
+        _leaf_(cfg, p, state["m"][k], state["v"][k], grads[k], lr, b1c, b2c)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}

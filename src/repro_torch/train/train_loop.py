@@ -17,7 +17,9 @@ the same random rows from every data array with indices drawn **on the
 device** from a seeded ``torch.Generator``; losses stay on the device and
 are fetched once at the end (``log_every`` is the only other
 synchronisation, and only when asked for). The optimiser is the written-out
-AdamW of :mod:`repro_torch.train.optimizer`.
+AdamW of :mod:`repro_torch.train.optimizer`, applied in place
+(``update_``) to the trainer's own copy of the parameters and moments, so
+a step allocates no new carries.
 
 The reference draws its batches from another generator, so the same seed
 gives another batch stream here. ``indices=`` takes a ``(steps, batch)``
@@ -163,10 +165,13 @@ class MiniBatchTrainer:
         return loss_and_grads(self._loss_fn, params, *batch)
 
     def step(self, params, state, batch):
-        """One training step: loss, gradients, AdamW update."""
+        """One training step: loss, gradients, AdamW update, written into
+        ``params`` and ``state`` (:func:`~repro_torch.train.optimizer.update_`:
+        the carries keep their storage from step to step). Returns
+        ``(params, state, loss)``."""
         loss, grads = self.loss_and_grads(params, batch)
         with torch.no_grad():
-            params, state, _ = opt.update(self._ocfg, grads, state, params)
+            opt.update_(self._ocfg, grads, state, params)
         return params, state, loss
 
     def fit(self, params, data, *, steps: int, batch_size: int, seed: int,
@@ -204,7 +209,8 @@ class MiniBatchTrainer:
         )
         n = data[0].shape[0]
         bs = min(batch_size, n)
-        params = {k: p.detach().to(dev) for k, p in params.items()}
+        # a copy even on the same device: the steps write into it
+        params = {k: p.detach().to(dev, copy=True) for k, p in params.items()}
         state = opt.init_state(params)
         if indices is not None:
             indices = torch.tensor(np.asarray(indices), dtype=torch.int64,

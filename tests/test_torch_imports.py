@@ -34,7 +34,7 @@ def _imported_roots(path):
 
 def test_package_layout_mirrors_the_reference():
     for sub in ("core", "codec", "nn", "train", "kernels", "data", "models",
-                "serve", "testing", "parallel", "configs", "launch"):
+                "serve", "testing", "parallel", "configs", "launch", "analysis"):
         assert (PKG / sub / "__init__.py").is_file(), sub
     for src in ("gbatc_kernels.cu", "flash_attention.cu", "block_quant.cu",
                 "rglru_scan.cu", "rwkv6_scan.cu"):
