@@ -147,7 +147,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    exit 0 and a falling loss. The ``kernels`` phase holds the wide
    instantiations (128 < D <= 256) of the fp64 projection and the fp32
    select and correct at every ``WIDE`` shape (``batched_checks``, as at
-   D = 80) and times them at (1, 65536, 256);
+   D = 80), holds the sha256 of their outputs at every ``WIDE`` shape to
+   ``WIDE_SHA256`` (the bits of the first, row-tile build of these
+   kernels), prints them on a line of their own, and times the kernels at
+   (1, 65536, 256);
 13. ``dryrun_path``  the dry run (``repro_torch.launch.dryrun``, meta tensors
    only): (1) ``python -m repro_torch.launch.dryrun --arch <a> --mesh both``
    for every config, in subprocesses started together: each exits 0 with
@@ -224,6 +227,52 @@ PROJECT_SUBRANGES = [(100, 5003), (20417, 20480), (1, 2)]
 # blocks of Llama-3.2-1B's largest layer-0 leaf (2048 x 8192 = 65536
 # blocks; timed), and ragged shapes, D = 129 and 200 among them
 WIDE = [(1, 65536, 256), (2, 513, 256), (1, 1, 256), (3, 100, 200), (2, 77, 129)]
+WIDE_SEED = 300  # the seed at WIDE[0]; WIDE[i] takes WIDE_SEED + i
+# sha256 of the wide routes' outputs on wide_digest_operands(*WIDE[i],
+# WIDE_SEED + i), as the first, row-tile build of the wide kernels gave
+# them on an H100: a redesign of those kernels moves no bit
+WIDE_SHA256 = {
+    (1, 65536, 256): {
+        "gbatc_project_batched":
+            "7e97319e26f3ec44057d74d31c63237831fa8b655cc4fa1c11e03f01bba41d17",
+        "gbatc_select_accumulate":
+            "99066858265cd4e6f0ab7c53c57b6848db43a96ce87b1c39c17b344c54539cce",
+        "gbatc_correct_batched":
+            "44fad2b16db9183c2a9f375f18677d89e144a9a21cacc84be738ab901a2eadb9",
+    },
+    (2, 513, 256): {
+        "gbatc_project_batched":
+            "214b4a0f91b8686a3d553a688b8595b9df6673dfe3649389f0ba1d6dc6a78d7c",
+        "gbatc_select_accumulate":
+            "c87e3ca8223627f014ed753f02b6b67e8f69545acfcd65e4dca59e8602162652",
+        "gbatc_correct_batched":
+            "2859c551d1ea569f832705a74e39e0c2526feb24442fd8189d9a971aee1f6c30",
+    },
+    (1, 1, 256): {
+        "gbatc_project_batched":
+            "bf5324c5b5870fa8821111d81ad023e5842351bed07e00f8dad4632ae7783398",
+        "gbatc_select_accumulate":
+            "7999f32427022a1c3887006171f633efd9ce6c02d6fba62f03f16f6e9f0e976d",
+        "gbatc_correct_batched":
+            "ee7dbf1a9352d78faee089b65dbfea72784b039f61ed52b95ff51444c93cc3d0",
+    },
+    (3, 100, 200): {
+        "gbatc_project_batched":
+            "d09194b7c851aeb3f9a033ba7912ee96ab9b7e6f162aff50349bb47710145755",
+        "gbatc_select_accumulate":
+            "a4ef6435825054408952d1c28956a8bbc9013b0c685b9001941c994cbec6c9a2",
+        "gbatc_correct_batched":
+            "9c135de51583b08db850238e10f2223f93a710dc5dab1fc443265b7ba182cf11",
+    },
+    (2, 77, 129): {
+        "gbatc_project_batched":
+            "6ed2dd6a2cf45d08c6f96744e416b4ca241c1bb5cdea8cfb0bf3970326c804b5",
+        "gbatc_select_accumulate":
+            "8da2fbcda7fcbf6b591a3ca62dc74ca57e60734fcb986dcc0be56b69a39bc9ea",
+        "gbatc_correct_batched":
+            "5e6cbf1ad7860a66dfc223d1081bb4c3b25bc5838950a02fd59f04424c3b5ad1",
+    },
+}
 # the replay's shapes on partial_path's selective decodes: (species
 # selected, the window's block rows at 5120 a block group)
 PARTIAL_CORRECT_SHAPES = [(3, 10240), (1, 20480), (58, 5120), (1, 5120)]
@@ -336,8 +385,8 @@ PTXAS_NAMES = {
         lambda m: "f32/{}/ring/nch{}/minb{}".format(
             ("project", "correct", "select", "masked")[int(m.group(1))],
             *m.groups()[1:])), (
-        r"project_f64_wideILi(\d+)ELi(\d+)E",
-        lambda m: "f64/project/wide/tm{}/stages{}".format(*m.groups())), (
+        r"project_f64_wideE",
+        lambda m: "f64/project/wide"), (
         r"correct_f32_wideILi(\d)E",
         lambda m: "f32/{}/wide".format(
             ("project", "correct", "select", "masked")[int(m.group(1))]))],
@@ -702,17 +751,65 @@ def phase_kernels(torch, launches: int) -> list[dict]:
     return rows
 
 
+def wide_digest_operands(torch, s, nb, d, seed) -> dict:
+    """Each wide route's operands at (s, nb, d), drawn on the host with
+    numpy from ``seed`` (the cuts' ranks sorted stably on the card), so
+    their bits hang on no library of the card's: {kernel: operands}."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    x, c = rng.standard_normal((2, s, nb, d))
+    u = rng.standard_normal((s, d, d)) / np.sqrt(d)
+    keys = rng.random((s, nb, d))
+    m = rng.integers(0, d + 1, (s, nb), dtype=np.int32)
+
+    def dev(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).cuda()
+
+    rank = torch.argsort(dev(keys), dim=-1, stable=True).to(torch.int32)
+    x32, c32, u32 = (dev(a.astype(np.float32)) for a in (x, c, u))
+    return {"gbatc_project_batched": (dev(x), dev(u)),
+            "gbatc_select_accumulate": (x32, c32, rank, dev(m), u32),
+            "gbatc_correct_batched": (x32, c32, u32)}
+
+
+def wide_digests(torch) -> dict:
+    """The sha256 of each wide route's output at every WIDE shape, on
+    wide_digest_operands(WIDE[i], WIDE_SEED + i); fails unless each is
+    WIDE_SHA256's. Returns {kernel: digest at WIDE[0]}."""
+    from repro_torch.kernels import gbatc_project as gk
+
+    t0 = time.perf_counter()
+    got = {}
+    for i, shape in enumerate(WIDE):
+        ops = wide_digest_operands(torch, *shape, WIDE_SEED + i)
+        got[shape] = {name: hashlib.sha256(
+            getattr(gk, name)(*args).cpu().numpy().tobytes()).hexdigest()
+            for name, args in ops.items()}
+        del ops
+        if got[shape] != WIDE_SHA256[shape]:
+            fail(f"the wide kernels' outputs at {shape} moved: {got[shape]} "
+                 f"against {WIDE_SHA256[shape]}")
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "wide_digests", "seed": WIDE_SEED,
+          "sha256": {str(list(k)): v for k, v in got.items()},
+          "equal_to_pinned": True, "seconds": time.perf_counter() - t0})
+    return got[WIDE[0]]
+
+
 def phase_wide_kernels(torch, launches: int) -> dict:
     """The wide instantiations (128 < D <= 256: the fp64 projection, the
-    fp32 select and correct) under batched_checks at every WIDE shape, and
-    timed at WIDE[0]. Returns {kernel: entry}."""
+    fp32 select and correct) under batched_checks and wide_digests at
+    every WIDE shape, and timed at WIDE[0]. Returns {kernel: entry}."""
     err: dict = {}
     for i, (s, nb, d) in enumerate(WIDE):
-        batched_checks(torch, s, nb, d, 300 + i, err)
+        batched_checks(torch, s, nb, d, WIDE_SEED + i, err)
+    sha = wide_digests(torch)
     out = {}
     for r in batched_rows(torch, WIDE[0], 390, launches, err, shapes_checked=WIDE):
         for k in ("route", "source", "replaces", "launches"):
             r.pop(k)
+        r["sha256"] = sha[r["name"]]
         out[r.pop("name")] = r
     return out
 

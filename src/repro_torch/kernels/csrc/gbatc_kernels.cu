@@ -176,31 +176,49 @@
 // fp64 projection and the fp32 correct and select modes also take the
 // weight checkpoint's 256-long blocks (train/checkpoint.py). A species'
 // basis is 512 KB in fp64 and 256 KB in fp32 there, more than the 227 KB
-// of shared memory a CTA may hold, so neither kernel stages it: the row
-// tiles stream through the same cp.async ring as below, and the basis is
-// read from device memory, where one species' basis stays L2-resident
-// while every CTA walks its rows (and the warps that share columns hit in
-// L1). At (1, 65536, 256) the fp64 projection does 8.6 GFLOP against 268
-// MB moved, so the tensor cores bound it (0.128 ms at 67 TFLOP/s);
-// correct moves 201 MB and does 4.3 G FFMA (0.128 ms at 67 TFLOP/s). The
-// basis reads are L2 traffic on top of that: about 1 GB for the
-// projection and 256 KB a 64-row tile for correct and select. Right first:
-// the D <= 128 kernels are left as they were, so the codec's bits cannot
-// move.
+// of shared memory a CTA may hold, so both kernels stage it in k panels
+// beside the matching panel of the row tile, one ring of panels a CTA that
+// runs on across its tiles. At (1, 65536, 256) the projection moves 268 MB
+// (0.080 ms at 3.35 TB/s) for 8.6 GFLOP (0.128 ms on the fp64 tensor
+// cores), and correct 201 MB for 4.3 G FFMA (0.128 ms at 67 TFLOP/s): the
+// operations bound both. Select moves 268 MB (0.080 ms) and needs FFMAs
+// only for the kept terms, about half of them at uniform cuts: its bytes
+// bound it. Design:
 //
-// * project_f64_wide: DMMA m16n8k8 in fp64 as project_f64_dmma, k steps
-//   ascending; 32-row tiles, 3 stages (200 KB at D = 256); a warp owns 16
-//   rows by 64 columns (8 n fragments), 8 warps; each B fragment is two
-//   8-byte loads a lane from the row-major basis (a warp's load is 4 rows
-//   of 64 contiguous bytes, every byte used), zero past D, fetched one k
-//   step ahead of its MMAs.
-// * correct_f32_wide: correct_f32_ring's order of arithmetic exactly (acc
-//   = +0, fmaf over k ascending with zero terms past D, out = x + acc, c'
-//   = +0 where rank >= m in select), so select on (c, rank, m) is still
-//   bitwise correct on where(rank < m, c, 0). 512 threads a CTA cover 128
-//   columns and walk the row's columns in passes of 128 against the same
-//   staged tile; a thread's four B rows are 16-byte loads of U[j][k..k+3]
-//   where D % 4 == 0, scalar loads otherwise.
+// * project_f64_wide: DMMA m16n8k8 in fp64 as project_f64_dmma. A 64-row
+//   tile takes all 256 columns: 8 warps of 32 rows by 64 columns, 64 fp64
+//   accumulators a lane. A panel is 32 k: the tile's A[:, k0 : k0 + 32]
+//   (18 KB, rows padded to 36 doubles) and U[k0 : k0 + 32, :] as it lies
+//   in device memory (66 KB, rows padded to 264 doubles), both copied 16
+//   bytes at a time; 2 stages, 168 KB, one CTA an SM. Each basis byte
+//   fetched from L2 serves 64 rows, so the L2-to-SM stream is 537 MB of
+//   basis and 134 MB of A. A B fragment is two 8-byte loads a lane (rows
+//   q and q + 4), which take the 4 wavefronts of one 16-byte load: a
+//   panel in fragment order would take 8-byte copies, and filling it that
+//   way measured slower than the loads it saves.
+// * correct_f32_wide: 128 x 128 tiles (a row tile's two column tiles
+//   follow each other, so its c panels come from L2 the second time), 8
+//   warps of 32 rows by 64 columns, an 8 x 8 register tile a thread. A
+//   panel is 16 k: c[rows, k0 : k0 + 16] (select: and rank) and U[j0 : j0
+//   + 128, k0 : k0 + 16] land as they lie in device memory through a
+//   3-stage cp.async ring, and the thread that copied a chunk writes it
+//   (select: c = +0 where rank >= m) into a double buffer laid out [k][row]
+//   and [k][j]; each k is then 2 + 2 16-byte loads for 64 FFMAs. Each
+//   basis byte serves 128 rows: 134 MB of basis and 134 MB of c through
+//   L2. 82 KB (correct) or 106 KB (select) a CTA, two CTAs an SM under 128
+//   registers; what spills under that cap (16-24 bytes a thread) is
+//   stored and loaded around the copies, the transposes and the epilogue,
+//   never in the FFMA loop. x is read once an element, in the epilogue.
+// * The order of arithmetic is fixed, so no bit depends on the tiling.
+//   fp32: acc = +0, acc = fmaf(c'_k, U[j][k], acc) for k ascending up to
+//   ceil(D / 4) * 4 with +0 terms past D, out = x + acc, c' = +0 where
+//   rank >= m; select on (c, rank, m) stays bitwise correct on where(rank
+//   < m, c, 0). fp64: each fragment's m16n8k8 steps ascending from +0, no
+//   step past ceil(D / 8), +0 in A and B past D. A panel only changes
+//   which thread computes an element and when its operands arrive; no
+//   split-k, no TF32, no fast-math. The kernels phase of chip_smoke.py
+//   holds their outputs' sha256 at every WIDE shape to pinned values
+//   (WIDE_SHA256).
 //
 // fp64 at D = 80 needs 51.2 KB for the basis alone, above the 48 KB static
 // limit: all shared memory is dynamic and every launcher raises the
@@ -634,126 +652,197 @@ project_f64_dmma(const double* __restrict__ r, const double* __restrict__ basis,
 
 // ---- fp64 projection at 128 < D <= 256 -------------------------------------
 
-// Warp (wm, wn) of a tile owns rows 16 wm .. +15 and n fragments 8 wn ..
-// +7 (columns 64 wn .. +63); B fragments come from the row-major basis in
-// device memory: lane (g, q) reads U[8 ks + q][n] and U[8 ks + q + 4][n],
-// n = 8 f + g, zero past D.
-template <int TM, int STAGES>
-__global__ void __launch_bounds__(TM / 16 * 4 * 32, 1)
+constexpr int WIDE_THREADS = 256;  // 8 warps, both wide kernels
+
+// species, first column, first row (of all S * NB) and rows of a tile
+struct WideTile {
+  int s, j0, rows;
+  long long r0;
+};
+
+// A 64-row tile against all of a species' columns. Warp (wm, wn) owns rows
+// 32 wm .. +31 (two A fragments) and n fragments 8 wn .. +7. A CTA walks
+// its tiles as one stream of k panels (WIDE_KP64 k each): a panel is the
+// tile's A[:, k0 : k0 + KP] (rows padded to KP + 4 doubles) and U[k0 : k0
+// + KP, :] as it lies in device memory (rows padded to 264 doubles), both
+// copied by all threads with cp.async; lane (g, q) reads its B fragment as
+// U[k0 + 8 ks + q][n] and U[k0 + 8 ks + q + 4][n], n = 8 f + g.
+constexpr int WIDE_KP64 = 32;     // k a panel of the fp64 projection
+constexpr int WIDE_STAGES64 = 2;  // panels in its ring
+
+__global__ void __launch_bounds__(WIDE_THREADS, 1)
 project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
                  double* __restrict__ out, int s_count, long long nb, int d,
-                 int ld, int vec) {
-  constexpr int WM = TM / 16;  // 16-row warp groups in a tile
-  constexpr int WN = 4;        // column quarters of 8 n fragments
-  constexpr int NFW = 8;
-  constexpr int THREADS_W = WM * WN * 32;
+                 int vec) {
+  constexpr int TM = 64, KP = WIDE_KP64, KS = KP / 8, STAGES = WIDE_STAGES64;
+  // row pads: 4 mod 16 doubles puts an A fragment's 8 rows on distinct
+  // banks, 8 mod 32 a B fragment's rows q and q + 1 on distinct bank halves
+  constexpr int LDA = KP + 4, LDB = MAX_D_WIDE + 8;
+  constexpr int A_WORDS = TM * LDA, B_WORDS = KP * LDB;
+  constexpr int STAGE = A_WORDS + B_WORDS;  // doubles a ring buffer
+  static_assert(LDA % 16 == 4 && LDB % 32 == 8, "panel shape");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  double* a_s = reinterpret_cast<double*>(smem_raw);  // (STAGES, TM, ld)
+  double* ring = reinterpret_cast<double*>(smem_raw);  // STAGES x [A | B]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp % WM, wn = warp / WM;
+  const int wm = warp & 1, wn = warp >> 1;
   const int g = lane >> 2, q = lane & 3;
-  const int ks_n = (d + 7) / 8;
-  const int nf_w = min(NFW, (d + 7) / 8 - wn * NFW);  // this warp's n fragments
-  const long long tps = (nb + TM - 1) / TM;         // tiles a species
-  const long long total = tps * s_count;
-  const long long t_begin = total * blockIdx.x / gridDim.x;
-  const long long t_end = total * (blockIdx.x + 1) / gridDim.x;
+  const int ks_n = (d + 7) / 8;  // k steps of D, and n fragments
+  const int dp = ks_n * 8;       // D padded with zero terms
+  const int panels = (ks_n + KS - 1) / KS;
+  const int nf_w = min(8, ks_n - wn * 8);  // this warp's n fragments
+  // tile and step indices fit an int (the launcher checks tiles x panels)
+  const int tps = (int)((nb + TM - 1) / TM);  // tiles a species
+  const int total = tps * s_count;
+  const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
+  const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
+  const int steps = (t_end - t_begin) * panels;
 
-  // pad columns d .. ld-1 add exactly 0 (B is zero past D too)
-  const int pad = ld - d;
-  for (int i = tid; i < STAGES * TM * pad; i += THREADS_W)
-    a_s[(i / pad) * ld + d + i % pad] = 0.0;
+  auto tile = [&](int t) {
+    WideTile w;
+    w.s = t / tps, w.j0 = 0;
+    const long long row0 = (long long)(t - w.s * tps) * TM;
+    w.r0 = w.s * nb + row0;
+    w.rows = (int)min((long long)TM, nb - row0);
+    return w;
+  };
 
-  auto issue = [&](long long t, int buf) {
-    const long long s = t / tps, row0 = (t - s * tps) * TM;
-    const int rows = (int)min((long long)TM, nb - row0);
-    const double* src = r + ((size_t)s * nb + row0) * d;
-    double* dst = a_s + buf * TM * ld;
-    if (vec) {
-      const int half = d >> 1, n = rows * half;
-      for (int i = tid; i < n; i += THREADS_W) {
-        const int row = i / half, c = (i - row * half) * 2;
-        cp_async16(dst + row * ld + c, src + (size_t)row * d + c);
+  // A thread's chunks of a B panel are (k, n) = (i / bw, i % bw), i = tid
+  // + 256 n, bw the chunks of a row: the walk's start and step, once
+  const int bw = vec ? d / 2 : d;
+  const int bk0 = tid / bw, bn0 = tid % bw;
+  const int bdk = WIDE_THREADS / bw, bdn = WIDE_THREADS % bw;
+
+  // The copies run STAGES - 1 steps ahead of the MMAs: step iv, panel ip
+  // of tile it, goes into ring buffer iv % STAGES. k in [D, dp) and
+  // columns in [D, dp) are zero terms, in A and in B, as in
+  // project_f64_dmma.
+  int it = t_begin, ip = 0, iv = 0;
+  WideTile iw{};
+  auto issue = [&]() {
+    if (ip == 0) iw = tile(it);
+    const int k0 = ip * KP;
+    const int kv = min(KP, d - k0);   // k of D in this panel
+    const int kn = min(KP, dp - k0);  // k its MMAs run
+    double* a_s = ring + (iv % STAGES) * STAGE;
+    double* b_s = a_s + A_WORDS;
+    const double* src = r + (size_t)iw.r0 * d + k0;
+    const double* u = basis + ((size_t)iw.s * d + k0) * d;
+    if (vec) {  // D even: 16-byte pairs
+      for (int i = tid; i < TM * KP / 2; i += WIDE_THREADS) {
+        const int row = i / (KP / 2), k = i % (KP / 2) * 2;
+        if (row < iw.rows && k < kv)
+          cp_async16(a_s + row * LDA + k, src + (size_t)row * d + k);
+      }
+      for (int k = bk0, n = bn0; k < kv;) {
+        cp_async16(b_s + k * LDB + 2 * n, u + (size_t)k * d + 2 * n);
+        k += bdk, n += bdn;
+        if (n >= bw) n -= bw, ++k;
       }
     } else {
-      const int n = rows * d;
-      for (int i = tid; i < n; i += THREADS_W) {
-        const int row = i / d, c = i - row * d;
-        cp_async8(dst + row * ld + c, src + i);
+      for (int i = tid; i < TM * KP; i += WIDE_THREADS) {
+        const int row = i / KP, k = i % KP;
+        if (row < iw.rows && k < kv)
+          cp_async8(a_s + row * LDA + k, src + (size_t)row * d + k);
+      }
+      for (int k = bk0, n = bn0; k < kv;) {
+        cp_async8(b_s + k * LDB + n, u + (size_t)k * d + n);
+        k += bdk, n += bdn;
+        if (n >= bw) n -= bw, ++k;
       }
     }
+    // the zero terms: A columns [kv, kn); B rows [kv, kn) and columns [D, dp)
+    if (kn > kv) {
+      for (int i = tid; i < iw.rows * (kn - kv); i += WIDE_THREADS)
+        a_s[i / (kn - kv) * LDA + kv + i % (kn - kv)] = 0.0;
+    }
+    if (dp > d) {
+      for (int i = tid; i < kn * dp; i += WIDE_THREADS) {
+        const int k = i / dp, n = i % dp;
+        if (k >= kv || n >= d) b_s[k * LDB + n] = 0.0;
+      }
+    }
+    ++iv;
+    if (++ip == panels) ip = 0, ++it;
   };
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (t_begin + st < t_end) issue(t_begin + st, st);
+    if (st < steps) issue();
     cp_async_commit();
   }
 
-  for (long long t = t_begin; t < t_end; ++t) {
-    const int i = (int)(t - t_begin);
-    cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's copies)
-    __syncthreads();              // ... everyone's; tile t-1 is done with
-    if (t + STAGES - 1 < t_end)
-      issue(t + STAGES - 1, (i + STAGES - 1) % STAGES);
+  double acc[2][8][4];
+  WideTile w{};
+  for (int v = 0, t = t_begin, p = 0; v < steps; ++v) {
+    cp_async_wait<STAGES - 2>();  // step v has landed (this thread's copies)
+    __syncthreads();              // ... everyone's; step v-1 is done with
+    if (v + STAGES - 1 < steps) issue();
     cp_async_commit();
-    if (nf_w <= 0) continue;  // warp-uniform: D too small for this quarter
 
-    const long long s = t / tps;
-    const long long row0 = (t - s * tps) * TM;
-    const int rows = (int)min((long long)TM, nb - row0);
-    const double* u = basis + (size_t)s * d * d;
-    const double* a0 = a_s + (i % STAGES) * TM * ld + (wm * 16 + g) * ld + q;
-    const int n0 = wn * NFW * 8 + g;  // column of fragment 0 of this lane
-    auto load_b = [&](int ks, double (&b)[NFW][2]) {
-      const int k = ks * 8 + q;
+    if (p == 0) {  // a new tile: acc = +0
+      w = tile(t);
 #pragma unroll
-      for (int j = 0; j < NFW; ++j) {
-        const int n = n0 + j * 8;
-        const bool in = j < nf_w && n < d;
-        b[j][0] = in && k < d ? __ldg(u + (size_t)k * d + n) : 0.0;
-        b[j][1] = in && k + 4 < d ? __ldg(u + (size_t)(k + 4) * d + n) : 0.0;
-      }
-    };
-    double acc[NFW][4];
+      for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int j = 0; j < NFW; ++j)
-      acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0;
-    double b[NFW][2];
-    load_b(0, b);
-    for (int ks = 0; ks < ks_n; ++ks) {
-      double bn[NFW][2];
-      const bool more = ks + 1 < ks_n;
-      if (more) load_b(ks + 1, bn);  // in flight during the MMAs
-      const double* ak = a0 + ks * 8;
-      const double a[4] = {ak[0], ak[8 * ld], ak[4], ak[8 * ld + 4]};
+        for (int j = 0; j < 8; ++j)
+          acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.0;
+    }
+    if (nf_w > 0) {  // warp-uniform: D may leave this warp's columns empty
+      const double* a_s = ring + (v % STAGES) * STAGE;
+      const double* a0 = a_s + (wm * 32 + g) * LDA + q;
+      const double* b0 = a_s + A_WORDS + q * LDB + wn * 64 + g;
+      auto kstep = [&](int ks) {  // k0 + 8 ks .. +7, one MMA a fragment pair
+        double a[2][4];
 #pragma unroll
-      for (int j = 0; j < NFW; ++j)
-        if (j < nf_w) dmma(acc[j], a, b[j][0], b[j][1]);
-      if (more) {
+        for (int mi = 0; mi < 2; ++mi) {
+          const double* ak = a0 + mi * 16 * LDA + ks * 8;
+          a[mi][0] = ak[0], a[mi][1] = ak[8 * LDA];
+          a[mi][2] = ak[4], a[mi][3] = ak[8 * LDA + 4];
+        }
+        const double* bk = b0 + ks * 8 * LDB;
 #pragma unroll
-        for (int j = 0; j < NFW; ++j) b[j][0] = bn[j][0], b[j][1] = bn[j][1];
+        for (int j = 0; j < 8; ++j) {
+          if (j < nf_w) {
+            const double bx = bk[j * 8], by = bk[4 * LDB + j * 8];
+            dmma(acc[0][j], a[0], bx, by);
+            dmma(acc[1][j], a[1], bx, by);
+          }
+        }
+      };
+      const int ksn = min(KS, ks_n - p * KS);
+      if (ksn == KS) {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) kstep(ks);
+      } else {
+#pragma unroll 1
+        for (int ks = 0; ks < ksn; ++ks) kstep(ks);
       }
     }
+    if (++p < panels) continue;
+    p = 0, ++t;
+    if (nf_w <= 0) continue;
+
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = wm * 16 + h * 8 + g;
-      if (row >= rows) continue;
-      double* o = out + ((size_t)s * nb + row0 + row) * d;
+    for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-      for (int j = 0; j < NFW; ++j) {
-        const int col = (wn * NFW + j) * 8 + 2 * q;
-        if (j >= nf_w || col >= d) continue;
-        if (vec) {
-          *reinterpret_cast<double2*>(o + col) =
-              make_double2(acc[j][2 * h], acc[j][2 * h + 1]);
-        } else {
-          o[col] = acc[j][2 * h];
-          if (col + 1 < d) o[col + 1] = acc[j][2 * h + 1];
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 32 + mi * 16 + h * 8 + g;
+        if (row >= w.rows) continue;
+        double* o = out + (size_t)(w.r0 + row) * d;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = (wn * 8 + j) * 8 + 2 * q;
+          if (j >= nf_w || col >= d) continue;
+          if (vec) {
+            *reinterpret_cast<double2*>(o + col) =
+                make_double2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
+          } else {
+            o[col] = acc[mi][j][2 * h];
+            if (col + 1 < d) o[col + 1] = acc[mi][j][2 * h + 1];
+          }
         }
       }
-    }
   }
   cp_async_wait<0>();
 }
@@ -1226,228 +1315,261 @@ inline bool aligned16(const void* p) {
 
 // ---- fp32 correct and select at 128 < D <= 256 ----------------------------
 
-constexpr int WIDE_THREADS = 512;  // 8 groups of 16 columns: 128 a pass
+constexpr int WIDE_TILE = 128;   // rows and columns of a correct/select tile
+constexpr int WIDE_KP32 = 16;    // k a panel
+constexpr int WIDE_STAGES32 = 3; // panels in the ring
 
-// correct_f32_ring with the basis read from device memory. Thread tid owns
-// rows ry + 16 i (i < 4) of a tile, ry = (tid / 4) % 16, and in pass p
-// columns col .. col+3, col = 128 p + 16 (tid / 64) + 4 (tid % 4); its B
-// values for 4 k are U[col + e][k .. k+3] (e < 4; rows past D clamped to
-// the last row, their columns never stored), one 16-byte load each where
-// bvec (D % 4 == 0, U 16-byte aligned), else 4 scalar loads, zero past D.
+// A 128 x 128 tile of out. Warp w owns rows 32 (w % 4) .. +31 and columns
+// 64 (w / 4) .. +63; lane (ry, cx) = (lane / 8, lane % 8) owns rows 4 ry +
+// r + 16 h and columns 4 cx + e + 32 h (r, e < 4; h < 2) of them. A CTA
+// walks its tiles as one stream of k panels (KP k each). The cp.async ring
+// lands a step's c[rows, k0 : k0 + KP] (select: and rank) and U[j0 : j0 +
+// 128, k0 : k0 + KP] as they lie in device memory, a row's 16-byte chunks
+// XOR-swizzled so the chunks a warp reads at once fall on distinct banks;
+// the thread that copied a chunk then writes it (select: masked) into a
+// double buffer laid out [k][row] and [k][j], so each k is two 16-byte
+// loads of A and two of B for 64 FFMAs.
 template <int MODE>
-__global__ void __launch_bounds__(WIDE_THREADS, 1)
+__global__ void __launch_bounds__(WIDE_THREADS, 2)
 correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
                  const int* __restrict__ rank,  // select only, (S, NB, D)
                  const int* __restrict__ m,     // select only, (S, NB)
                  const float* __restrict__ basis, float* __restrict__ out,
-                 int s_count, long long nb, int d, int lda, int vec, int bvec) {
-  constexpr int RM = RING_RM, TM = RING_TM, STAGES = RING_STAGES;
-  constexpr int THREADS_W = WIDE_THREADS;
+                 int s_count, long long nb, int d, int vec) {
+  constexpr int T = WIDE_TILE, KP = WIDE_KP32, STAGES = WIDE_STAGES32;
+  constexpr int CH = KP / 4;   // 16-byte chunks a panel row
+  constexpr int RPL = 8 / CH;  // panel rows a 128-byte line of banks
   constexpr bool SELECT = MODE == MODE_SELECT;
+  constexpr int LAND = T * KP;                    // floats of one operand
+  constexpr int STAGE = LAND * (SELECT ? 3 : 2);  // [c | U | rank]
+  // transposed rows padded to 132 floats: the two chunks a warp stores at
+  // once, k rows 4 apart, fall on distinct banks
+  constexpr int LDT = T + 4;
+  constexpr int TBUF = 2 * KP * LDT;  // [A^T | B^T]
+  // the cuts of tile t + 1 ride with the last panel of tile t into one of
+  // two slots: safe while a tile has at least STAGES panels (9 at D > 128)
+  static_assert(KP == 16 && STAGES >= 2 && STAGES <= 9, "panel shape");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int ldk = (d + KU - 1) / KU * KU;  // k padded with zero terms
-  float* c_s = reinterpret_cast<float*>(smem_raw);  // (STAGES, TM, lda)
-  // select: one rank tile (TM, lda), then the cuts (STAGES, TM)
-  int* r_s = reinterpret_cast<int*>(c_s + STAGES * TM * lda);
-  int* m_s = r_s + (SELECT ? TM * lda : 0);
+  float* ring = reinterpret_cast<float*>(smem_raw);  // STAGES landed steps
+  float* tr = ring + STAGES * STAGE;                 // 2 transposed steps
+  int* m_s = reinterpret_cast<int*>(tr + 2 * TBUF);  // select: (2, T) cuts
 
-  const int tid = threadIdx.x;
-  const int ry = (tid >> 2) % RING_NRY;
-  const int col0 = (tid >> 6) * 16 + (tid & 3) * 4;  // in a pass of 128
-  const int passes = (d + 127) / 128;
-  // tile indices fit an int (the launcher checks S * tiles a species)
-  const int tps = (int)((nb + TM - 1) / TM);  // tiles a species
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's rows row_t + r + 16 h and columns col_t + e + 32 h
+  const int row_t = (warp & 3) * 32 + (lane >> 3) * 4;
+  const int col_t = (warp >> 2) * 64 + (lane & 7) * 4;
+  const int ldk = (d + KU - 1) / KU * KU;  // k padded with zero terms
+  const int panels = (ldk + KP - 1) / KP;
+  const int nt = (d + T - 1) / T;  // column tiles
+  // tile and step indices fit an int (the launcher checks tiles x panels)
+  const int tps = (int)((nb + T - 1) / T) * nt;  // tiles a species
   const int total = tps * s_count;
   const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
   const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
-  // a thread copies the chunks (row, k) of a tile from (row_first,
-  // k_first) on, a fixed step apart: the same chunks every tile
-  const int w = vec ? 4 : 1;  // floats a chunk
-  const int q = d / w;        // chunks a row
-  const int row_first = tid / q, k_first = tid - row_first * q;
-  const int row_step = THREADS_W / q, k_step = THREADS_W - row_step * q;
+  const int steps = (t_end - t_begin) * panels;
 
-  auto tile = [&](int t, int& s, long long& r0, int& rows) {
-    s = t / tps;
-    const long long row0 = (long long)(t - s * tps) * TM;
-    r0 = s * nb + row0;
-    rows = (int)min((long long)TM, nb - row0);
+  // species-major, then row tile, then column tile: a row tile's column
+  // tiles follow each other, so its c panels are read again from L2
+  auto tile = [&](int t) {
+    WideTile w;
+    w.s = t / tps;
+    const int rt = (t - w.s * tps) / nt;
+    w.j0 = (t - w.s * tps - rt * nt) * T;
+    const long long row0 = (long long)rt * T;
+    w.r0 = w.s * nb + row0;
+    w.rows = (int)min((long long)T, nb - row0);
+    return w;
   };
-  auto copy = [&](void* dst, const void* src) {
-    if (vec) cp_async16(dst, src);
-    else cp_async4(dst, src);
+  // landed offset of chunk ch of panel row `row`
+  auto land = [](int row, int ch) {
+    return row * KP + ((ch ^ (row / RPL % CH)) << 2);
   };
-  auto own_chunks = [&](int rows, auto f) {
-    for (int row = row_first, k = k_first; row < rows;) {
-      f(row, row * lda + k * w, (size_t)row * d + k * w);
-      row += row_step;
-      k += k_step;
-      if (k >= q) k -= q, ++row;
+  // A thread copies, and later transposes, the chunks (row, ch) of c
+  // (rank) and U given by chunk(tid + 256 n): a warp's are 16 rows by two
+  // neighbouring chunks, whole 32-byte sectors. Where D % 4 != 0 or an
+  // operand is not 16-byte aligned, the walk is over elements (row, k) =
+  // (i % T, i / T).
+  auto chunk = [](int i, int& row, int& ch) {
+    row = (i >> 5 & 7) * 16 + (i & 15);
+    ch = (i >> 8) * 2 + (i >> 4 & 1);
+  };
+
+  // The copies run STAGES - 1 steps ahead: step iv, panel ip of tile it
+  // (iw), lands in ring buffer iv % STAGES.
+  int it = t_begin, ip = 0, iv = 0;
+  WideTile iw = tile(t_begin);
+  auto issue = [&]() {
+    const int k0 = ip * KP;
+    const int kv = min(KP, d - k0);     // k of D in this panel
+    const int jn = min(T, d - iw.j0);   // columns of D in this tile
+    float* a_l = ring + (iv % STAGES) * STAGE;
+    float* b_l = a_l + LAND;
+    int* r_l = reinterpret_cast<int*>(b_l + LAND);
+    const size_t ga = (size_t)iw.r0 * d + k0;
+    const float* ub = basis + ((size_t)iw.s * d + iw.j0) * d + k0;
+    if (vec) {
+      for (int i = tid; i < T * CH; i += WIDE_THREADS) {
+        int row, ch;
+        chunk(i, row, ch);
+        if (ch * 4 >= kv) continue;
+        const int o = land(row, ch);
+        if (row < iw.rows) {
+          cp_async16(a_l + o, c + ga + (size_t)row * d + ch * 4);
+          if (SELECT) cp_async16(r_l + o, rank + ga + (size_t)row * d + ch * 4);
+        }
+        if (row < jn) cp_async16(b_l + o, ub + (size_t)row * d + ch * 4);
+      }
+    } else {
+      for (int i = tid; i < T * KP; i += WIDE_THREADS) {
+        const int row = i % T, k = i / T;
+        if (k >= kv) continue;
+        const int o = land(row, k >> 2) + (k & 3);
+        if (row < iw.rows) {
+          cp_async4(a_l + o, c + ga + (size_t)row * d + k);
+          if (SELECT) cp_async4(r_l + o, rank + ga + (size_t)row * d + k);
+        }
+        if (row < jn) cp_async4(b_l + o, ub + (size_t)row * d + k);
+      }
+    }
+    ++iv;
+    if (++ip < panels) return;
+    ip = 0;
+    if (++it < t_end) {
+      iw = tile(it);
+      if (SELECT && tid < iw.rows)  // its cuts ride with this tile's last panel
+        cp_async4(m_s + (it - t_begin) % 2 * T + tid, m + iw.r0 + tid);
     }
   };
-  auto issue_c = [&](int t, int buf) {
-    int s;
-    long long r0;
-    int rows;
-    tile(t, s, r0, rows);
-    const float* src = c + (size_t)r0 * d;
-    float* dst = c_s + buf * TM * lda;
-    own_chunks(rows, [&](int, int off, size_t g) { copy(dst + off, src + g); });
-  };
-  auto issue_rank = [&](int t) {
-    int s;
-    long long r0;
-    int rows;
-    tile(t, s, r0, rows);
-    const int* src = rank + (size_t)r0 * d;
-    own_chunks(rows, [&](int, int off, size_t g) { copy(r_s + off, src + g); });
-  };
-  auto issue_m = [&](int t, int buf) {
-    int s;
-    long long r0;
-    int rows;
-    tile(t, s, r0, rows);
-    if (tid < rows) cp_async4(m_s + buf * TM + tid, m + r0 + tid);
-  };
-  auto mask_own = [&](int t, int buf) {
-    int s;
-    long long r0;
-    int rows;
-    tile(t, s, r0, rows);
-    float* cd = c_s + buf * TM * lda;
-    const int* ms = m_s + buf * TM;
-    own_chunks(rows, [&](int row, int off, size_t) {
-      const int cut = ms[row];
-      if (vec) {
-        const int4 r = *reinterpret_cast<const int4*>(r_s + off);
-        float4 v = *reinterpret_cast<float4*>(cd + off);
-        if (!(r.x < cut)) v.x = 0.f;
-        if (!(r.y < cut)) v.y = 0.f;
-        if (!(r.z < cut)) v.z = 0.f;
-        if (!(r.w < cut)) v.w = 0.f;
-        *reinterpret_cast<float4*>(cd + off) = v;
-      } else if (!(r_s[off] < cut)) {
-        cd[off] = 0.f;
+
+  // The FMAs' step v: panel p of tile t (w). Step v's own chunks, landed,
+  // go into transposed buffer v % 2 (select: c = +0 where rank >= m); k in
+  // [D, ldk) are +0 terms in A and in B.
+  WideTile w = iw;
+  auto transpose = [&](int v, int p, int t) {
+    const int k0 = p * KP;
+    const int kv = min(KP, d - k0), kn = min(KP, ldk - k0);
+    const int jn = min(T, d - w.j0);
+    const float* a_l = ring + (v % STAGES) * STAGE;
+    const float* b_l = a_l + LAND;
+    const int* r_l = reinterpret_cast<const int*>(b_l + LAND);
+    float* at = tr + (v % 2) * TBUF;
+    float* bt = at + KP * LDT;
+    const int* ms = m_s + (t - t_begin) % 2 * T;
+    if (vec) {  // kv == kn
+      for (int i = tid; i < T * CH; i += WIDE_THREADS) {
+        int row, ch;
+        chunk(i, row, ch);
+        if (ch * 4 >= kv) continue;
+        const int o = land(row, ch);
+        float* a_k = at + ch * 4 * LDT + row;
+        float* b_k = bt + ch * 4 * LDT + row;
+        if (row < w.rows) {
+          float4 val = *reinterpret_cast<const float4*>(a_l + o);
+          if (SELECT) {
+            const int4 rk = *reinterpret_cast<const int4*>(r_l + o);
+            const int cut = ms[row];
+            if (!(rk.x < cut)) val.x = 0.f;
+            if (!(rk.y < cut)) val.y = 0.f;
+            if (!(rk.z < cut)) val.z = 0.f;
+            if (!(rk.w < cut)) val.w = 0.f;
+          }
+          a_k[0] = val.x, a_k[LDT] = val.y;
+          a_k[2 * LDT] = val.z, a_k[3 * LDT] = val.w;
+        }
+        if (row < jn) {
+          const float4 val = *reinterpret_cast<const float4*>(b_l + o);
+          b_k[0] = val.x, b_k[LDT] = val.y;
+          b_k[2 * LDT] = val.z, b_k[3 * LDT] = val.w;
+        }
       }
-    });
+    } else {
+      for (int i = tid; i < T * KP; i += WIDE_THREADS) {
+        const int row = i % T, k = i / T;
+        if (k >= kn) continue;
+        const int o = land(row, k >> 2) + (k & 3);
+        if (row < w.rows) {
+          float val = 0.f;
+          if (k < kv && (!SELECT || r_l[o] < ms[row])) val = a_l[o];
+          at[k * LDT + row] = val;
+        }
+        if (row < jn) bt[k * LDT + row] = k < kv ? b_l[o] : 0.f;
+      }
+    }
   };
 
-  // zero padding, once: k in [d, ldk) of every A row adds fmaf(0, 0, acc)
-  if (ldk > d) {
-    const int pad = ldk - d;
-    for (int i = tid; i < STAGES * TM * pad; i += THREADS_W)
-      c_s[(i / pad) * lda + d + i % pad] = 0.f;
-  }
-  if (SELECT) {  // the first tile's cuts, synchronously
-    int s;
-    long long r0;
-    int rows;
-    tile(t_begin, s, r0, rows);
-    if (tid < rows) m_s[tid] = m[r0 + tid];
-  }
+  if (SELECT && t_begin < t_end && tid < iw.rows)  // the first cuts, now
+    m_s[tid] = m[iw.r0 + tid];
   __syncthreads();
-  // the cp.async groups of correct_f32_ring, in the same order
-  if (SELECT) {
-    issue_rank(t_begin);
-    cp_async_commit();
-  }
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (t_begin + st < t_end) issue_c(t_begin + st, st);
-    if (SELECT && t_begin + st + 1 < t_end)
-      issue_m(t_begin + st + 1, (st + 1) % STAGES);
+    if (st < steps) issue();
     cp_async_commit();
   }
 
-  for (int t = t_begin; t < t_end; ++t) {
-    const int buf = (t - t_begin) % STAGES;
-    cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
-    if (SELECT) {
-      mask_own(t, buf);
-      asm volatile("" ::: "memory");
-      if (t + 1 < t_end) issue_rank(t + 1);
-      cp_async_commit();
-    }
-    __syncthreads();  // tile t whole and masked; tile t-1 done with
-    if (t + STAGES - 1 < t_end) issue_c(t + STAGES - 1, (buf + STAGES - 1) % STAGES);
-    if (SELECT && t + STAGES < t_end) issue_m(t + STAGES, buf);
+  float acc[8][8];  // [row r + 4 h][column e + 4 h]
+  for (int v = 0, t = t_begin, p = 0; v < steps; ++v) {
+    cp_async_wait<STAGES - 2>();  // this thread's copies of step v landed
+    transpose(v, p, t);
+    __syncthreads();  // step v transposed; step v-1 done with
+    if (v + STAGES - 1 < steps) issue();
     cp_async_commit();
 
-    int s;
-    long long r0;
-    int rows;
-    tile(t, s, r0, rows);
-    const size_t g0 = (size_t)r0 * d;
-    const float* u = basis + (size_t)s * d * d;
-    const float* ap = c_s + buf * TM * lda + ry * lda;
-
-    for (int p = 0; p < passes; ++p) {
-      const int col = p * 128 + col0;
-      // x of this thread's elements, in flight while the FFMAs run
-      float xv[RM][4];
+    if (p == 0) {  // a new tile: acc = +0
 #pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const int row = ry + r * RING_NRY;
-        const float* xp = x + g0 + (size_t)row * d + col;
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+    }
+
+    const float* at = tr + (v % 2) * TBUF + row_t;
+    const float* bt = tr + (v % 2) * TBUF + KP * LDT + col_t;
+    auto kstep = [&](int k) {  // acc += A[:, k] B[k, :], k ascending
+      float a[2][4], b[2][4];
+      ld4(at + k * LDT, a[0]);
+      ld4(at + k * LDT + 16, a[1]);
+      ld4(bt + k * LDT, b[0]);
+      ld4(bt + k * LDT + 32, b[1]);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 8; ++e)
+          acc[i][e] = fmaf(a[i >> 2][i & 3], b[e >> 2][e & 3], acc[i][e]);
+    };
+    const int kn = min(KP, ldk - p * KP);
+    if (kn == KP) {
+#pragma unroll 1
+      for (int k = 0; k < KP; ++k) kstep(k);
+    } else {
+#pragma unroll 4
+      for (int k = 0; k < kn; ++k) kstep(k);
+    }
+    if (++p < panels) continue;
+    p = 0;
+
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {  // out = x + acc
+      const int row = row_t + (i & 3) + 16 * (i >> 2);
+      if (row >= w.rows) continue;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int col = w.j0 + col_t + 32 * h;
+        const size_t o = (size_t)(w.r0 + row) * d + col;
+        const float* aa = acc[i] + 4 * h;
         if (vec) {
-          if (row < rows && col < d) ld4(xp, xv[r]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            xv[r][e] = (row < rows && col + e < d) ? xp[e] : 0.f;
-        }
-      }
-      const float* ub[4];  // B rows: U[col + e], clamped to the last row
-#pragma unroll
-      for (int e = 0; e < 4; ++e) ub[e] = u + (size_t)min(col + e, d - 1) * d;
-
-      float acc[RM][4];
-#pragma unroll
-      for (int r = 0; r < RM; ++r)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
-      for (int k0 = 0; k0 < ldk; k0 += 4) {
-        float a[RM][4];
-#pragma unroll
-        for (int r = 0; r < RM; ++r) ld4(ap + r * RING_NRY * lda + k0, a[r]);
-        float b[4][4];  // b[e][kk] = U[col + e][k0 + kk]
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (bvec) {
-            const float4 v = __ldg(reinterpret_cast<const float4*>(ub[e] + k0));
-            b[e][0] = v.x, b[e][1] = v.y, b[e][2] = v.z, b[e][3] = v.w;
-          } else {
-#pragma unroll
-            for (int kk = 0; kk < 4; ++kk)
-              b[e][kk] = k0 + kk < d ? __ldg(ub[e] + k0 + kk) : 0.f;
+          if (col < d) {
+            float xa[4];
+            ld4(x + o, xa);
+            *reinterpret_cast<float4*>(out + o) = make_float4(
+                xa[0] + aa[0], xa[1] + aa[1], xa[2] + aa[2], xa[3] + aa[3]);
           }
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int r = 0; r < RM; ++r)
-#pragma unroll
-            for (int e = 0; e < 4; ++e)
-              acc[r][e] = fmaf(a[r][kk], b[e][kk], acc[r][e]);
-      }
-
-#pragma unroll
-      for (int r = 0; r < RM; ++r) {
-        const int row = ry + r * RING_NRY;
-        if (row >= rows) continue;
-        float* op = out + g0 + (size_t)row * d + col;
-        if (vec) {
-          if (col < d)
-            *reinterpret_cast<float4*>(op) =
-                make_float4(xv[r][0] + acc[r][0], xv[r][1] + acc[r][1],
-                            xv[r][2] + acc[r][2], xv[r][3] + acc[r][3]);
         } else {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
-            if (col + e < d) op[e] = xv[r][e] + acc[r][e];
+            if (col + e < d) out[o + e] = x[o + e] + aa[e];
         }
       }
     }
+    if (++t < t_end) w = tile(t);
   }
   cp_async_wait<0>();
 }
@@ -1489,12 +1611,14 @@ template <int MODE>
 int launch_wide(const float* x, const float* c, const int* rank, const int* m,
                 const float* u, float* out, int s, long long nb, int d,
                 void* stream) {
-  const int lda = ring_lda(d);
-  size_t words = (size_t)RING_STAGES * RING_TM * lda;
-  if (MODE == MODE_SELECT) words += (size_t)RING_TM * lda + RING_STAGES * RING_TM;
-  const size_t smem = words * sizeof(float);
-  const long long tiles = (long long)s * ((nb + RING_TM - 1) / RING_TM);
-  if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
+  constexpr int T = WIDE_TILE, KP = WIDE_KP32;
+  const size_t smem =
+      ((size_t)WIDE_STAGES32 * T * KP * (MODE == MODE_SELECT ? 3 : 2) +
+       4 * KP * (T + 4) + 2 * T) * sizeof(float);
+  const long long tiles =
+      (long long)s * ((nb + T - 1) / T) * ((d + T - 1) / T);
+  const int panels = ((d + KU - 1) / KU * KU + KP - 1) / KP;
+  if (tiles * panels > INT32_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = correct_f32_wide<MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1510,11 +1634,10 @@ int launch_wide(const float* x, const float* c, const int* rank, const int* m,
   const long long slots = (long long)sms * per_sm;
   const long long grid = tiles < slots ? tiles : slots;
   const int vec = d % 4 == 0 && aligned16(x) && aligned16(c) &&
-                  aligned16(rank) && aligned16(out);
-  const int bvec = d % 4 == 0 && aligned16(u);
+                  aligned16(rank) && aligned16(u) && aligned16(out);
   kernel<<<(unsigned)grid, WIDE_THREADS, smem,
            static_cast<cudaStream_t>(stream)>>>(x, c, rank, m, u, out, s, nb, d,
-                                                lda, vec, bvec);
+                                                vec);
   return (int)cudaGetLastError();
 }
 
@@ -1563,13 +1686,15 @@ int launch_dmma(const double* r, const double* u, double* c, int s,
   return (int)cudaGetLastError();
 }
 
-template <int TM, int STAGES>
 int launch_dmma_wide(const double* r, const double* u, double* c, int s,
                      long long nb, int d, void* stream) {
-  constexpr int threads = TM / 16 * 4 * 32;
-  const int ld = dmma_ld(d);
-  const size_t smem = (size_t)STAGES * TM * ld * sizeof(double);
-  auto kernel = project_f64_wide<TM, STAGES>;
+  constexpr int KP = WIDE_KP64;
+  const size_t smem = (size_t)WIDE_STAGES64 *
+                      (64 * (KP + 4) + KP * (MAX_D_WIDE + 8)) * sizeof(double);
+  const long long tiles = (long long)s * ((nb + 63) / 64);
+  const int panels = ((d + 7) / 8 + KP / 8 - 1) / (KP / 8);
+  if (tiles * panels > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto kernel = project_f64_wide;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1577,16 +1702,15 @@ int launch_dmma_wide(const double* r, const double* u, double* c, int s,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads,
-                                                      smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      WIDE_THREADS, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long tiles = (long long)s * ((nb + TM - 1) / TM);
   const long long slots = (long long)sms * per_sm;
   const long long grid = tiles < slots ? tiles : slots;
-  const int vec = d % 2 == 0 && aligned16(r) && aligned16(c);
-  kernel<<<(unsigned)grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      r, u, c, s, nb, d, ld, vec);
+  const int vec = d % 2 == 0 && aligned16(r) && aligned16(u) && aligned16(c);
+  kernel<<<(unsigned)grid, WIDE_THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(r, u, c, s, nb, d, vec);
   return (int)cudaGetLastError();
 }
 
@@ -1598,7 +1722,7 @@ int launch_project_f64(const double* r, const double* u, double* c, int s,
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80) return launch_dmma<5, 64, 3>(r, u, c, s, nb, d, stream);
   if (d <= MAX_D) return launch_dmma<8, 32, 3>(r, u, c, s, nb, d, stream);
-  return launch_dmma_wide<32, 3>(r, u, c, s, nb, d, stream);
+  return launch_dmma_wide(r, u, c, s, nb, d, stream);
 }
 
 template <int NFW, int TM, int STAGES>
