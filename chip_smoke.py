@@ -26,7 +26,9 @@ Phases (each prints one JSON line; any failure exits non-zero):
    m) must also be bitwise correct on where(rank < m, c, 0), at the main
    shape and every ragged one; every bf16 flash shape (causal, windows,
    non-causal, ragged Tk, D = 8 to 256, Tq = 1) within one bf16 ulp of
-   each element's value plus 4e-5 (``bf16_ulp_ratio`` <= 1);
+   each element's value plus 4e-5 (``bf16_ulp_ratio`` <= 1), every fp32
+   one (the CUDA-core kernel to D = 32, 3xTF32 tensor cores above, a
+   ragged D among them) within 2e-5;
 4. ``main_path``  ``GBATCCodec.compress`` (fit + guarantee + container) and
    ``codec.decompress`` from the bytes alone, conv family, at the paper's
    widths on an S3D surrogate of 58 x 16 x 320 x 320, with the kernels'
@@ -117,8 +119,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    block); decode steps and the portable route launch none. The
    ``kernels`` phase holds the three kernels at this path's shapes
    (flash at head dims 64, 80, 128 and 256) in fp32 and bf16 against their
-   plain versions, bf16 within one bf16 ulp of each element's value and
-   faster than its plain version, timed beside SDPA and their bounds;
+   plain versions, bf16 within one bf16 ulp of each element's value, flash
+   in both dtypes faster than its plain version and giving the same bits
+   twice and for a batch sub-range, timed beside SDPA and their bounds
+   (fp32's is 3xTF32's, with the CUDA cores' beside it);
 12. ``lm_train_path``  the language-model training path
    (``repro_torch.train.train_loop.make_train_step``, ``launch.train.train``,
    ``train.checkpoint``) on the card, every step through the portable route
@@ -212,7 +216,9 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # published H100 SXM peaks (NVIDIA data sheet, dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12,  # fp64: tensor-core DMMA rate
-              "bfloat16": 989e12}
+              "bfloat16": 989e12,
+              # fp32 products as 3xTF32: three TF32 products at 495 TFLOP/s
+              "float32_3xtf32": 495e12 / 3}
 
 S, NB, D = 58, 20480, 80  # main-path kernel shapes (T=16, 320x320, block 4x5x4)
 RAGGED = [(3, 513, 80), (5, 513, 64), (2, 1, 80), (4, 100, 37), (2, 77, 128),
@@ -296,6 +302,10 @@ FLASH_SHAPES = [
     (3, 2, 1, 16, 16, False, 0, ("float32", "bfloat16")),
     (1, 2, 100, 37, 8, False, 0, ("float32", "bfloat16")),
     (2, 1, 70, 300, 128, False, 24, ("float32", "bfloat16")),
+    # the 3xTF32 route at a ragged D (96 in DP = 128), and at D % 4 != 0
+    # (element copies) with rows that have no live key
+    (1, 2, 130, 130, 96, True, 0, ("float32",)),
+    (2, 1, 150, 77, 37, True, 50, ("float32",)),
 ]
 # the reference's tolerances (tests/test_kernels.py::_tol), max abs diff
 FLASH_LIMIT = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -393,6 +403,8 @@ PTXAS_NAMES = {
     "flash_attention": [(
         r"flash_kernelIfLi(\d+)E",
         lambda m: "flash/f32/dp{}".format(m.group(1))), (
+        r"flash_f32_3xtf32ILi(\d+)E",
+        lambda m: "flash/f32/3xtf32/dp{}".format(m.group(1))), (
         r"flash_bf16_mmaILi(\d+)E",
         lambda m: "flash/bf16/mma/dp{}".format(m.group(1)))],
     "block_quant": [(
@@ -553,17 +565,19 @@ def compare(torch, got, want, rows, dtype) -> float:
 
 
 def kernel_row(torch, name, source, replaces, fn, plain, lib, dtype, shape,
-               nbytes, flops, launches, err, plain_launches=None, **extra):
+               nbytes, flops, launches, err, plain_launches=None, peak=None,
+               **extra):
     """One ``{"kernels": ...}`` entry: the kernel's time, its plain
     version's, the one-call library yardstick's (``lib``, or None where no
-    single call computes the function), and the card's bound for the work.
-    ``plain_launches`` times a slow plain version over fewer launches."""
+    single call computes the function), and the card's bound for the work
+    (operations at ``PEAK_FLOPS[peak or dtype]``). ``plain_launches``
+    times a slow plain version over fewer launches."""
     ms = time_ms(torch, fn, launches)
     plain_ms = (time_ms(torch, plain, plain_launches, warmup=1) if plain_launches
                 else time_ms(torch, plain, launches))
     library_ms = time_ms(torch, lib, launches) if lib is not None else None
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak or dtype] * 1e3
     return {
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{source}", "replaces": replaces,
@@ -2356,8 +2370,8 @@ def phase_mesh_path(torch, args, main_info: dict, data, main_codec) -> dict:
 # -- the language-model serving path (lm_serve_path) -------------------------
 # flash attention at the prefill shapes of the LM configs (B, H, Tq, Tk, D,
 # causal, window), heads already expanded, at batch 4 and prompt 2304:
-# Llama-3.2-1B's self-attention (D = 64), StableLM-3B's (D = 80: the DP = 128
-# instantiation with 48 zero-padded dims), Yi-9B's (D = 128; Qwen3-MoE,
+# Llama-3.2-1B's self-attention (D = 64), StableLM-3B's (D = 80, its own
+# instantiation in both dtypes), Yi-9B's (D = 128; Qwen3-MoE,
 # Qwen2-72B and DBRX run this shape with 32, 64 and 48 heads), Qwen2-VL-7B's
 # (28 heads over the prompt and its 256 patches), RecurrentGemma-2B's local
 # MQA (head dim 256, window 2048), and Whisper-base's encoder, decoder self-
@@ -2377,7 +2391,8 @@ LM_FLASH_SHAPES = {
 LM_RWKV = (LM_BATCH, LM_PROMPT, 64, 64)  # RWKV-6 7B's 64 heads of 64
 LM_RGLRU = (LM_BATCH, LM_PROMPT, 2560)   # RecurrentGemma-2B's rglru_width
 # bf16 at these shapes: within FLASH_LIMIT and bf16_ulp_ratio <= 1, like
-# every bf16 entry of FLASH_SHAPES, and faster than its plain version
+# every bf16 entry of FLASH_SHAPES; both dtypes faster than their plain
+# versions, the same bits twice and for a batch sub-range
 # step 2: kernel route against portable route in fp32, batch 2 and a prompt
 # that crosses RecurrentGemma's 2048 window (ring buffer + window mask);
 # StableLM-3B for partial RoPE at D = 80, Yi-9B for GQA at D = 128
@@ -2510,13 +2525,12 @@ def phase_lm_kernels(torch, launches: int) -> dict:
                 fail(f"flash_attention differs from its plain version at {name} "
                      f"({dn}): {errs[dn]:.3e} (limit {FLASH_LIMIT[dn]}), {scale}")
             del got, want, diff
-            if d in (80, 256):  # padded dims and the widest instantiation:
-                # same bits twice, and per batch row
-                same_twice(torch, f"flash_attention D={d} {dn}", fn)
-                same_rows(torch, f"flash_attention D={d} {dn}", fn(),
-                          [(slice(1, 3), fk.flash_attention(
-                              q[1:3].contiguous(), k[1:3].contiguous(),
-                              v[1:3].contiguous(), causal=causal, window=window))])
+            # same bits twice, and per batch row
+            same_twice(torch, f"flash_attention D={d} {dn}", fn)
+            same_rows(torch, f"flash_attention D={d} {dn}", fn(),
+                      [(slice(1, 3), fk.flash_attention(
+                          q[1:3].contiguous(), k[1:3].contiguous(),
+                          v[1:3].contiguous(), causal=causal, window=window))])
             # the library yardstick: SDPA at the same dtype; the window as a
             # boolean mask (SDPA has no window argument)
             mask = None
@@ -2527,19 +2541,25 @@ def phase_lm_kernels(torch, launches: int) -> dict:
             sdpa_kw = ({"attn_mask": mask} if mask is not None
                        else {"is_causal": causal})
             lib = lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw)  # noqa: E731
+            # fp32 at these head dims runs 3xTF32 on the tensor cores and is
+            # held to that bound; the CUDA cores' bound is reported beside it
+            fp32 = dtype == torch.float32
+            bounds = ({"bound_ffma_ms": 4 * pairs * d / PEAK_FLOPS["float32"] * 1e3}
+                      if fp32 else {})
             row = entry(
                 fn, plain, lib, dn, (b, h, tq, tk, d), 2 * b * h * (tq + tk) * d * dtype.itemsize,
-                4 * pairs * d, errs[dn], config=name, causal=causal, window=window,
+                4 * pairs * d, errs[dn], peak="float32_3xtf32" if fp32 else None,
+                config=name, causal=causal, window=window, **bounds,
                 live_pairs=pairs, library_backend=sdpa_backend(torch, q, k, v, **sdpa_kw),
                 library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
                 **scale,
                 tolerance=(f"max abs diff <= {FLASH_LIMIT[dn]}" + (
                     f" and |diff| <= 2^-7 |plain| + {2 * FLASH_LIMIT['float32']}"
-                    " at every element; ms < plain_ms" if dtype == torch.bfloat16
-                    else "")))
+                    " at every element" if dtype == torch.bfloat16 else "")
+                    + "; ms < plain_ms"))
             out["flash_attention"].append(row)
-            if dtype == torch.bfloat16 and row["ms"] >= row["plain_ms"]:
-                fail(f"flash_attention bf16 at {name}: {row['ms']:.3f} ms, not faster "
+            if row["ms"] >= row["plain_ms"]:
+                fail(f"flash_attention {dn} at {name}: {row['ms']:.3f} ms, not faster "
                      f"than its plain version ({row['plain_ms']:.3f} ms)")
             del q, k, v, mask
             torch.cuda.empty_cache()
@@ -2588,7 +2608,8 @@ def phase_lm_kernels(torch, launches: int) -> dict:
           "summary": {name: [{k: e[k] for k in ("shape", "dtype", "max_abs_err",
                                                  "bf16_ulp_ratio", "plain_max_abs",
                                                  "plain_mean_abs", "ms", "plain_ms",
-                                                 "library_ms", "bound_ms", "bound_by")
+                                                 "library_ms", "bound_ms", "bound_by",
+                                                 "bound_ffma_ms")
                               if k in e}
                              for e in entries] for name, entries in out.items()}})
     return out
@@ -2748,6 +2769,7 @@ def device_breakdown(torch, fn) -> dict:
             continue
         name = e.name.lower()
         key = next((k for k, tags in (("flash_attention", ("flash_kernel",
+                                                           "flash_f32_3xtf32",
                                                            "flash_bf16_mma")),
                                       ("rwkv6_scan", ("rwkv6_kernel",)),
                                       ("rglru_scan", ("rglru_kernel",)))

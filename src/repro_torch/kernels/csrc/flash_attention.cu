@@ -8,9 +8,11 @@
 // coordinates: causal (k <= q), sliding window (k > q - window) and the
 // ragged key tail (k >= Tk), so any Tk works, causal or not.
 //
-// Two kernels: fp32 runs flash_kernel on the CUDA cores (the design below;
-// its bits are the codec attention family's), bf16 runs flash_bf16_mma on
-// the tensor cores (its design is further down, above the kernel).
+// Three kernels: fp32 at D <= 32 runs flash_kernel on the CUDA cores (the
+// design below; its bits are the codec attention family's), fp32 at 32 < D
+// <= 256 runs flash_f32_3xtf32 on the tensor cores in 3xTF32, and bf16 runs
+// flash_bf16_mma on the tensor cores (their designs are further down, each
+// above its kernel).
 //
 // It replaces the Pallas TPU kernel flash_attention of
 // src/repro/kernels/flash_attention.py (_flash_kernel). What is kept from it
@@ -19,7 +21,7 @@
 // then the block's exp-weighted sum); the TPU's need for Tk % block_k == 0
 // when not causal is not: the ragged tail is masked here.
 //
-// fp32. Bound on this card: at the codec's shape (4096, 2, 232, 16) a
+// fp32, D <= 32. Bound on this card: at the codec's shape (4096, 2, 232, 16) a
 // (q, k) pair costs 2 * D FMAs against no device-memory traffic beyond one
 // read of q, k, v and one write of o, so the kernel is bound by fp32
 // operations on the CUDA cores (0.42 ms; TF32 tensor cores are not allowed
@@ -36,11 +38,10 @@
 //   V row feeds both rows' FMAs: two independent chains, half the loads per
 //   FMA of one row a thread. With G > 1 a score is the group's partial dot
 //   products summed by an xor butterfly of shuffles, which leaves the same
-//   bits in every thread of the group. DP, D rounded up to 16, 32, 64,
-//   128 or 256, is a template argument; dims past D are zero. At DP = 256
-//   (RecurrentGemma's local attention) a row spans G = 16 lanes, a CTA
-//   holds 16 rows and a 48 KB K/V chunk 24 keys: the same design, more
-//   K/V re-reads from L2 per row.
+//   bits in every thread of the group. DP, D rounded up to 16 or 32, is a
+//   template argument; dims past D are zero. (Wider heads, G >= 4, paid
+//   2- to 4-way bank conflicts on every K and V read and ran the LM
+//   shapes 2-6.5x behind SDPA: they go to flash_f32_3xtf32.)
 // * K and V stay resident in shared memory, converted to fp32: the whole
 //   head (28 KB at T = 232, D = 16) is loaded once, with 16-byte cp.async
 //   copies where the layout allows, behind one barrier. Where Tk * DP does
@@ -276,28 +277,6 @@ int launch_as(const T* q, const T* k, const T* v, T* o, long long bh, int tq,
       <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
           q, k, v, o, tq, tk, d, causal, window, scale, chunk, vec);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch(const T* q, const T* k, const T* v, T* o, long long bh, int tq,
-           int tk, int d, int causal, int window, float scale, void* stream) {
-  if (d < 1 || d > MAX_D || bh < 0 || tq < 0 || tk < 1 || window < 0)
-    return (int)cudaErrorInvalidValue;
-  if (bh == 0 || tq == 0) return (int)cudaSuccess;
-  if (d <= 16)
-    return launch_as<T, 16>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                            stream);
-  if (d <= 32)
-    return launch_as<T, 32>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                            stream);
-  if (d <= 64)
-    return launch_as<T, 64>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                            stream);
-  if (d <= 128)
-    return launch_as<T, 128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                             stream);
-  return launch_as<T, 256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                           stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -701,6 +680,461 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                          stream);
 }
 
+// ---------------------------------------------------------------------------
+// fp32 past D = 32 on the tensor cores: flash_f32_3xtf32
+//
+// It replaces the same Pallas kernel (_flash_kernel,
+// src/repro/kernels/flash_attention.py:29) at the LM head dims (D = 64 to
+// 256: Llama, StableLM, Yi, Qwen, RecurrentGemma, Whisper) and computes
+// what flash_kernel computes: softmax(q k^T scale + mask) v with the same
+// causal, window and ragged-tail masks (masked scores at -1e30) and the
+// output acc / max(l, 1e-30).
+//
+// Bound on this card: the products. A live (query, key) pair costs 2 D
+// multiply-adds (Q K^T, then P V), 4 pairs D FLOPs in all; in 3xTF32 the
+// tensor cores run three times that, 12 pairs D at 495 TFLOP/s (1.05 ms at
+// Yi-9B's causal (4, 32, 2304, 2304, 128)), against one read of q, k, v and
+// one write of o at 3.35 TB/s (0.09 ms there) or 4 pairs D at the CUDA
+// cores' 67 TFLOP/s (2.6 ms). Single-pass TF32 keeps about three decimal
+// digits, too few for the 2e-5 the route is held to. Design:
+//
+// * Products are TF32 mma.sync.m16n8k8 with fp32 accumulate in the 3xTF32
+//   form: each operand x = hi + lo, hi = cvt.rna.tf32(x), lo = x - hi as
+//   the tensor cores read it (split_tf32), and each product a_lo b_hi +
+//   a_hi b_lo + a_hi b_hi, the two small terms first, into one
+//   accumulator. What is dropped (a_lo b_lo and lo's rounding) is about
+//   2^-21 of a product.
+// * A CTA of 4 warps owns 64 MT query rows of one (batch, head), a warp
+//   16 MT (MT = 2 m-tiles to DP = 128, 1 at 256), and walks tiles of KN
+//   keys (64, 32, 16, 32 at DP = 64, 80, 128, 256; tf_keys). A warp's K
+//   and V fragments are loaded and split once for its MT m-tiles (with
+//   MT = 1, where all four warps split the whole K/V tile for 16 rows
+//   each, the Llama shape takes 18 % longer: tools/flash_f32_variants.py). q is pre-scaled by scale * log2(e) once, in
+//   shared memory, so p = exp2f(s - m). Q stays there and is split as its
+//   fragments are loaded, once a tile: held in registers, its split
+//   fragments spilled beside the accumulator and the scores.
+// * K and V stay fp32 in shared memory: a 2-stage cp.async ring of (K, V)
+//   tiles, so the next tile's copy overlaps this tile's products. Rows are
+//   DP + 4 floats apart, which puts the 8 rows of an ldmatrix (Q and K
+//   fragments: a b16 8x8 matrix is an 8x4 fp32 one, lane (g, q) receiving
+//   element (g, q)) and the words of a V fragment load on distinct banks.
+//   Each warp splits the fragments it loads: four warps split the same
+//   tile, but each value crosses the shared-memory port once (split copies
+//   would double the port's traffic). Dims d..DP-1 and keys past Tk are
+//   zero in shared memory, never padded in device memory; D in (64, 80]
+//   runs DP = 80, so StableLM multiplies no padded dim.
+// * P never leaves registers. A score fragment holds, per row, keys 2q and
+//   2q + 1 of each 8-key n-tile; P V's k order is permuted alike in A and B
+//   (fragment k = q is key 2q, k = q + 4 is key 2q + 1), so the score
+//   fragment is the A fragment as it stands. Output dims are permuted over
+//   pairs of n-tiles (column n of n-tile 2J is dim 16J + 2n, of 2J + 1 dim
+//   16J + 2n + 1), so a V fragment pair is one 8-byte load and a lane
+//   stores 4 consecutive dims of o.
+// * The online softmax runs on the score fragments once a tile: the row max
+//   over the quad of lanes that share a row (2 shuffles), one correction
+//   exp2f(m - m_new) of (l, acc), each exp2f once, by the lane that holds
+//   its score; l stays a lane's partial sum until the end.
+// * A tile where every key is live for every row runs no mask logic; only
+//   tiles at the diagonal, the window's edge or the ragged tail do (the
+//   tail as -inf: exactly 0 weight). Causal tiles wholly above the diagonal
+//   and window tiles wholly before the window are not visited, unless some
+//   row has no live key at all: the reference's uniform weights over every
+//   key are then reproduced by visiting every tile from key 0.
+// * Order: fixed, no atomics, no split of a row over CTAs; a row's bits
+//   depend only on its q, its head's K/V and its row tile's index, so
+//   the same inputs give the same bits on every launch and for any batch
+//   sub-range. The heaviest causal tiles (the last rows) go first.
+
+constexpr int TF_WARPS = 4;
+constexpr int TF_THREADS = 32 * TF_WARPS;
+constexpr int TF_STAGES = 2;  // K/V tiles in flight
+
+// The tile at each padded head dim: MT 16-row m-tiles a warp (a K or V
+// fragment, loaded and split once, feeds MT products) and KN keys a tile,
+// sized so that two CTAs fit an SM where the accumulator allows it: 104,
+// 86 and 101 KB of shared memory at DP = 64, 80 and 128; 200 KB and one CTA
+// at DP = 256, whose accumulator (128 registers) leaves no room for MT = 2.
+template <int DP>
+__host__ __device__ constexpr int tf_mtiles() { return DP <= 128 ? 2 : 1; }
+template <int DP>
+__host__ __device__ constexpr int tf_keys() {
+  return DP <= 64 ? 64 : DP <= 80 ? 32 : DP <= 128 ? 16 : 32;
+}
+template <int DP>
+__host__ __device__ constexpr int tf_rows() {  // query rows per CTA
+  return 16 * TF_WARPS * tf_mtiles<DP>();
+}
+
+template <int DP>
+constexpr size_t tf_smem_bytes() {
+  return (size_t)(tf_rows<DP>() + TF_STAGES * 2 * tf_keys<DP>()) * (DP + 4) *
+         sizeof(float);
+}
+
+constexpr unsigned TF32_HALF_ULP = 0x1000u, TF32_MASK = ~0x1fffu;
+
+// x = hi + lo as two tf32 operands. hi is cvt.rna.tf32(x) (to nearest,
+// ties away from zero) as an integer add of half a tf32 ulp: the tensor
+// cores read only an operand's top 19 bits, so hi goes to the MMA unmasked
+// and only its value for x - hi is masked. lo = x - hi is exact in fp32
+// and goes as it is: the MMA reads it rounded toward zero, 2^-21 of x
+// where cvt.rna would keep 2^-22, below the error of the tensor cores' own
+// fp32 accumulation (leaving lo to cvt.rna as well costs 5-13 % of the
+// time: tools/flash_f32_variants.py). Three instructions; the split is the
+// loop's largest cost, and two cvt.rna.tf32 (with their NaN and infinity
+// cases) made it several times that.
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = __float_as_uint(x) + TF32_HALF_ULP;
+  lo = __float_as_uint(x - __uint_as_float(hi & TF32_MASK));
+}
+
+// c += a b over one m16n8k8 step: a 16x8 (row), b 8x8 (col), tf32 in,
+// fp32 accumulate
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: a_lo b_hi + a_hi b_lo, then a_hi b_hi; b = (b0, b1)
+// split as bh, bl
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const unsigned (&ah)[4],
+                                           const unsigned (&al)[4],
+                                           unsigned bh0, unsigned bh1,
+                                           unsigned bl0, unsigned bl1) {
+  mma_tf32(c, al, bh0, bh1);
+  mma_tf32(c, ah, bl0, bl1);
+  mma_tf32(c, ah, bh0, bh1);
+}
+
+// ROWS rows of d floats from g (row r0 on) into shared rows DP + 4 floats
+// apart, zero past nvalid rows; vec: 16-byte cp.async copies (d % 4 == 0,
+// 16-byte aligned; dims d..DP-1 are zeroed once by the caller), else
+// element loads that also write the zero dims.
+template <int DP, int ROWS>
+__device__ __forceinline__ void load_rows_f32(float* s, const float* g,
+                                              int r0, int nvalid, int d,
+                                              int vec) {
+  constexpr int LDS = DP + 4;
+  if (vec && d == DP) {
+    constexpr int CH = DP / 4;
+#pragma unroll 4
+    for (int e = threadIdx.x; e < ROWS * CH; e += TF_THREADS) {
+      const int r = e / CH, c = (e - r * CH) * 4;
+      const bool ok = r0 + r < nvalid;
+      cp_async16_zfill(smem_u32(s + r * LDS + c),
+                       g + (ok ? (long long)(r0 + r) * DP + c : 0), ok);
+    }
+  } else if (vec) {
+    const int chunks = d / 4;
+    for (int e = threadIdx.x; e < ROWS * chunks; e += TF_THREADS) {
+      const int r = e / chunks, c = (e - r * chunks) * 4;
+      const bool ok = r0 + r < nvalid;
+      cp_async16_zfill(smem_u32(s + r * LDS + c),
+                       g + (ok ? (long long)(r0 + r) * d + c : 0), ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < ROWS * DP; e += TF_THREADS) {
+      const int r = e / DP, c = e - r * DP;
+      s[r * LDS + c] =
+          (r0 + r < nvalid && c < d) ? g[(long long)(r0 + r) * d + c] : 0.f;
+    }
+  }
+}
+
+template <int DP>
+__global__ void __launch_bounds__(TF_THREADS, DP <= 128 ? 2 : 1)
+flash_f32_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int tq,
+                 int tk, int d, int causal, int window, float scale,
+                 int skip_below_window, int vec) {
+  constexpr int MT = tf_mtiles<DP>();  // m-tiles a warp
+  constexpr int ROWS = tf_rows<DP>();  // query rows per CTA
+  constexpr int KN = tf_keys<DP>();    // keys per tile
+  constexpr int LD = DP + 4;           // shared row stride, floats
+  constexpr int KD = DP / 8;           // k-steps of Q K^T
+  constexpr int NT = KN / 8;           // key n-tiles of S
+  constexpr int DT = DP / 8;           // dim n-tiles of the accumulator
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sq = reinterpret_cast<float*>(smem_raw);  // (ROWS, LD)
+  float* skv = sq + ROWS * LD;  // TF_STAGES x {K (KN, LD), V (KN, LD)}
+
+  const long long bh = blockIdx.x;
+  // the heaviest causal tiles (the last rows) are scheduled first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, qd = lane % 4;  // the fragments' group and lane in it
+  const float* qb = q + bh * tq * d;
+  const long long kv = kv_head_offset(bh, tk, d);
+  const float* kb = k + kv;
+  const float* vb = v + kv;
+
+  const int lo = (window > 0 && skip_below_window) ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(tk, q0 + ROWS) : tk;
+  const int t_lo = lo / KN, t_hi = (hi + KN - 1) / KN;
+
+  if (vec && d < DP) {  // the padded dims of every shared row, once
+    constexpr int ROWS_ALL = ROWS + TF_STAGES * 2 * KN;
+    const int pad = DP - d;
+    for (int e = threadIdx.x; e < ROWS_ALL * pad; e += TF_THREADS) {
+      const int r = e / pad;
+      sq[r * LD + d + (e - r * pad)] = 0.f;
+    }
+  }
+  auto load_kv = [&](int stage, int t) {
+    float* sk = skv + stage * 2 * KN * LD;
+    load_rows_f32<DP, KN>(sk, kb, t * KN, tk, d, vec);
+    load_rows_f32<DP, KN>(sk + KN * LD, vb, t * KN, tk, d, vec);
+  };
+  load_rows_f32<DP, ROWS>(sq, qb, q0, tq, d, vec);
+  cp_async_commit();
+  load_kv(0, t_lo);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q's group is done; the first K/V tile may not be
+  __syncthreads();
+  const float qscale = scale * LOG2E;
+  for (int e = threadIdx.x; e < ROWS * DP; e += TF_THREADS) {
+    const int r = e / DP;
+    sq[r * LD + e - r * DP] *= qscale;
+  }
+  __syncthreads();
+
+  // this thread's rows: ra + 16 mt and ra + 16 mt + 8 of the warp's 16 MT
+  const int ra = q0 + warp * 16 * MT + g;
+  // ldmatrix row addresses: Q as the A operand (matrices: rows 0-7 and
+  // 8-15 of an m-tile, then the same at dims 4-7 of the k-step), K as the
+  // B operand of Q K^T (dims 0-3, 4-7 of key n-tile j, then of j + 1)
+  const unsigned q_addr = smem_u32(
+      sq + (warp * 16 * MT + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+      (lane >> 4) * 4);
+  const int k_row = (lane & 7) + (lane >> 4) * 8, k_col = ((lane >> 3) & 1) * 4;
+
+  float acc[MT][DT][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  }
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int stage = (t - t_lo) % TF_STAGES;
+    if (t + 1 < t_hi) {
+      load_kv((t + 1 - t_lo) % TF_STAGES, t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* sk = skv + stage * 2 * KN * LD;
+    const float* sv = sk + KN * LD;
+
+    // S = Q K^T for the warp's 16 MT rows x KN keys, in the log2 domain
+    float s[MT][NT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      unsigned ah[MT][4], al[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        unsigned a[4];
+        ldsm_x4(q_addr + (mt * 16 * LD + kd * 8) * 4, a);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(__uint_as_float(a[i]), ah[mt][i], al[mt][i]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        unsigned b[4], bh[4], bl[4];
+        ldsm_x4(smem_u32(sk + (j * 8 + k_row) * LD + kd * 8 + k_col), b);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_3xtf32(s[mt][j], ah[mt], al[mt], bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(s[mt][j + 1], ah[mt], al[mt], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+
+    // masks only on edge tiles (uniform over the CTA)
+    const int k0 = t * KN;
+    const bool edge = (causal && k0 + KN - 1 > q0) ||
+                      (window > 0 && k0 <= q0 + ROWS - 1 - window) ||
+                      k0 + KN > tk;
+    if (edge) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int key = k0 + j * 8 + 2 * qd + (i & 1);
+            const int row = ra + mt * 16 + (i >> 1) * 8;
+            if (key >= tk)
+              s[mt][j][i] = -INFINITY;
+            else if ((causal && key > row) || (window > 0 && key <= row - window))
+              s[mt][j][i] = NEG_INF;
+          }
+    }
+
+    // online softmax, rows ra + 16 mt (i = 0, 1) and ra + 16 mt + 8 (i = 2, 3)
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+        corr[r] = exp2f(m[mt][r] - mx[r]);
+        m[mt][r] = mx[r];
+        l[mt][r] *= corr[r];
+      }
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[mt][j][0] *= corr[0];
+        acc[mt][j][1] *= corr[0];
+        acc[mt][j][2] *= corr[1];
+        acc[mt][j][3] *= corr[1];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          s[mt][j][i] = exp2f(s[mt][j][i] - m[mt][i >> 1]);
+          l[mt][i >> 1] += s[mt][j][i];
+        }
+    }
+
+    // acc += P V, 8 keys a k-step: A is the score fragment itself (k = qd
+    // is key 2 qd, k = qd + 4 key 2 qd + 1), B one 8-byte load a row pair
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      unsigned ph[MT][4], pl[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        split_tf32(s[mt][kk][0], ph[mt][0], pl[mt][0]);
+        split_tf32(s[mt][kk][2], ph[mt][1], pl[mt][1]);
+        split_tf32(s[mt][kk][1], ph[mt][2], pl[mt][2]);
+        split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
+      }
+      const float* v0 = sv + (kk * 8 + 2 * qd) * LD + 2 * g;
+#pragma unroll
+      for (int jp = 0; jp < DT / 2; ++jp) {
+        const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * jp);
+        const float2 x1 = *reinterpret_cast<const float2*>(v0 + LD + 16 * jp);
+        unsigned bh[4], bl[4];
+        split_tf32(x0.x, bh[0], bl[0]);
+        split_tf32(x1.x, bh[1], bl[1]);
+        split_tf32(x0.y, bh[2], bl[2]);
+        split_tf32(x1.y, bh[3], bl[3]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_3xtf32(acc[mt][2 * jp], ph[mt], pl[mt], bh[0], bh[1], bl[0], bl[1]);
+          mma_3xtf32(acc[mt][2 * jp + 1], ph[mt], pl[mt], bh[2], bh[3], bl[2], bl[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(FULL, lr, 1);
+      lr += __shfl_xor_sync(FULL, lr, 2);
+      lr = fmaxf(lr, 1e-30f);
+      const int row = ra + mt * 16 + r * 8;
+      if (row >= tq) continue;
+      float* ob = o + (bh * tq + row) * d;
+#pragma unroll
+      for (int jp = 0; jp < DT / 2; ++jp) {
+        const int c = 16 * jp + 4 * qd;  // dims c .. c + 3
+        const float x[4] = {acc[mt][2 * jp][2 * r] / lr,
+                            acc[mt][2 * jp + 1][2 * r] / lr,
+                            acc[mt][2 * jp][2 * r + 1] / lr,
+                            acc[mt][2 * jp + 1][2 * r + 1] / lr};
+        if (vec && c + 3 < d) {
+          *reinterpret_cast<float4*>(ob + c) = make_float4(x[0], x[1], x[2], x[3]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            if (c + i < d) ob[c + i] = x[i];
+        }
+      }
+    }
+}
+
+template <int DP>
+int launch_3xtf32(const float* q, const float* k, const float* v, float* o,
+                  long long bh, int tq, int tk, int d, int causal, int window,
+                  float scale, void* stream) {
+  constexpr int ROWS = tf_rows<DP>();
+  const long long q_tiles = (tq + ROWS - 1) / ROWS;
+  if (bh > 0x7fffffffLL || q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  constexpr size_t smem = tf_smem_bytes<DP>();
+  // above 48 KB only as dynamic shared memory, once allowed (per device)
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_f32_3xtf32<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int vec = d % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(o);
+  // a row with no live key (window > 0, q - window + 1 >= Tk) takes the
+  // reference's uniform weights over every key: then visit them all
+  const int skip = !(window > 0 && (long long)tq > (long long)tk + window - 1);
+  dim3 grid((unsigned)bh, (unsigned)q_tiles);
+  flash_f32_3xtf32<DP>
+      <<<grid, TF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+          q, k, v, o, tq, tk, d, causal, window, scale, skip, vec);
+  return (int)cudaGetLastError();
+}
+
+// fp32: the CUDA-core kernel at D <= 32 (the codec's bits), 3xTF32 above
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               long long bh, int tq, int tk, int d, int causal, int window,
+               float scale, void* stream) {
+  if (d < 1 || d > MAX_D || bh < 0 || tq < 0 || tk < 1 || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (bh == 0 || tq == 0) return (int)cudaSuccess;
+  if (d <= 16)
+    return launch_as<float, 16>(q, k, v, o, bh, tq, tk, d, causal, window,
+                                scale, stream);
+  if (d <= 32)
+    return launch_as<float, 32>(q, k, v, o, bh, tq, tk, d, causal, window,
+                                scale, stream);
+  if (d <= 64)
+    return launch_3xtf32<64>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                             stream);
+  if (d <= 80)
+    return launch_3xtf32<80>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                             stream);
+  if (d <= 128)
+    return launch_3xtf32<128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                              stream);
+  return launch_3xtf32<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                            stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -714,8 +1148,8 @@ const char* flash_error_string(int code) {
 int flash_attention_f32(const float* q, const float* k, const float* v,
                         float* o, long long bh, int tq, int tk, int d,
                         int causal, int window, float scale, void* stream) {
-  return launch<float>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                       stream);
+  return launch_f32(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                    stream);
 }
 
 int flash_attention_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,

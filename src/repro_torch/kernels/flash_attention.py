@@ -5,8 +5,10 @@ Counterpart of the Pallas function ``flash_attention`` in the JAX package's
 D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, D up to 256. Unlike
 the Pallas wrapper it takes any Tk, causal or not (the kernel masks the
 ragged key tail itself), and it pads nothing in device memory. fp32 runs on
-the CUDA cores, bf16 on the tensor cores (fp32 scores and softmax, P V as a
-bf16 hi/lo pair); the source describes both.
+the CUDA cores up to D = 32 (the codec's D = 16 keeps its bits) and on the
+tensor cores above, every product in 3xTF32 (each operand split into two
+TF32 parts, three products); bf16 runs on the tensor cores (fp32 scores and
+softmax, P V as a bf16 hi/lo pair). The source describes all three kernels.
 
 The kernel has no backward: a call that would need a gradient raises (the
 attention family trains through its direct attention). See
