@@ -52,7 +52,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    rwkv6_scan) against their plain versions at those shapes, at the
    reference's sweeps and in bf16, and each for the same bits twice; the
    fp32 2D projection also for rows 100-5003 and the field's last rows,
-   and rwkv6_scan for batch 0-1, as in the full call;
+   and rwkv6_scan for batch 0-1, as in the full call; rglru_scan bitwise
+   its plain version (h and h_T, both dtypes, with and without h0, at the
+   ring's ragged and unaligned edges), and for batch 0-1 and channels
+   33-96 as in the full call;
 7. ``partial_path``  on the blobs, artifact and decoded fields of the two
    codec paths (no new fit): selective decodes of the conv blob
    (``decompress(blob, species=..., time_range=...)``) bitwise against the
@@ -333,14 +336,30 @@ RWKV_PATH = (8, 1024, 64, 64)  # RWKV-6 7B: 64 heads of 64
 # and at the reference's own sweeps (tests/test_kernels.py) plus ragged ones
 GBATC_2D_SWEEP = [(100, 80), (1000, 80), (64, 64), (513, 80), (77, 37)]
 BQ_SWEEP = [((64, 256), 64), ((3, 7, 128), 32), ((1024, 64), 64), ((5, 600), 300)]
-RGLRU_SWEEP = [(1, 64, 32), (2, 128, 256), (1, 100, 130)]
+RGLRU_SWEEP = [(1, 64, 32), (2, 128, 256), (1, 100, 130),
+               # the ring's edges (rglru_scan.cu's T_TILE steps a slot): one
+               # step, fewer steps than a tile, one past a tile of 16, 32 or
+               # 64 steps; W past a tile (160), odd (131: bf16's element
+               # copies), under one 32-channel group (20); and the shape of
+               # lm_serve_path's route check
+               (2, 1, 64), (1, 17, 96), (2, 33, 160), (1, 65, 131), (3, 40, 20),
+               (2, 2112, 2560)]
+# a and b cut from buffers one element in, so their bases are not 16-byte
+# aligned (the kernel's element copies, in both dtypes)
+RGLRU_UNALIGNED = (2, 33, 256)
+# channels of the rglru_scan sub-range checks: a range that starts inside a
+# 32-channel group
+RGLRU_CHANNELS = slice(33, 97)
 RWKV_SWEEP = [(1, 32, 1, 16), (2, 64, 2, 32), (1, 100, 2, 64), (1, 128, 4, 64),
               (2, 37, 3, 20)]
 # rows of the fp32 2D projection's sub-range checks at GBATC_2D: a range
 # that starts inside a 64-row tile and ends in a ragged one, and the last
 # rows of the field as one ragged tile
 PROJECT_2D_SUBRANGES = [(100, 5003), (GBATC_2D[0] - 37, GBATC_2D[0])]
-RGLRU_LIMIT = 1e-5  # max abs diff at unit-scale inputs
+# rglru_scan is held bitwise to its plain version (torch.equal of h and
+# h_T); its tolerance before the shared-memory ring, max abs diff at
+# unit-scale inputs, is kept for the failure message
+RGLRU_LIMIT = 1e-5
 RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
 
 
@@ -412,8 +431,9 @@ PTXAS_NAMES = {
         lambda m: "block_quant/{}/v{}".format(
             "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
     "rglru_scan": [(
-        r"rglru_kernelI(f|13__nv_bfloat16)E",
-        lambda m: "rglru/{}".format("f32" if m.group(1) == "f" else "bf16"))],
+        r"rglru_kernelI(f|13__nv_bfloat16)Li(\d)E",
+        lambda m: "rglru/{}/{}".format("f32" if m.group(1) == "f" else "bf16",
+                                       ("vec16", "elem")[int(m.group(2))]))],
     "rwkv6_scan": [(
         r"rwkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "rwkv6/{}/np{}".format(
@@ -566,13 +586,19 @@ def compare(torch, got, want, rows, dtype) -> float:
 
 def kernel_row(torch, name, source, replaces, fn, plain, lib, dtype, shape,
                nbytes, flops, launches, err, plain_launches=None, peak=None,
-               **extra):
+               device=False, **extra):
     """One ``{"kernels": ...}`` entry: the kernel's time, its plain
     version's, the one-call library yardstick's (``lib``, or None where no
     single call computes the function), and the card's bound for the work
     (operations at ``PEAK_FLOPS[peak or dtype]``). ``plain_launches``
-    times a slow plain version over fewer launches."""
+    times a slow plain version over fewer launches. ``device`` also times
+    the kernel on the device alone (``device_ms`` beside ``ms``), for a
+    kernel that can end before the host has made its next call."""
     ms = time_ms(torch, fn, launches)
+    if device:
+        extra = {"device_ms": device_ms(torch, fn), "timing": "ms: the median "
+                 "of single CUDA-event launches; device_ms: the mean of 200 "
+                 "back-to-back launches queued behind a spin kernel", **extra}
     plain_ms = (time_ms(torch, plain, plain_launches, warmup=1) if plain_launches
                 else time_ms(torch, plain, launches))
     library_ms = time_ms(torch, lib, launches) if lib is not None else None
@@ -607,6 +633,36 @@ def same_rows(torch, name: str, full, parts) -> None:
             fail(f"{name}: a call on rows {index} differs from those rows of "
                  f"the full call (max abs "
                  f"{float((got - full[index]).abs().max()):.3e})")
+
+
+def rg_bitwise(torch, rk, kref, a, bb, h0, what) -> tuple:
+    """rglru_scan on (a, bb, h0) against the plain version: finite, and h
+    and h_T bitwise. Returns (the max abs diff of the two, (h, h_T))."""
+    h, h_last = rk.rglru_scan(a, bb, h0)
+    want, want_last = kref.rglru_scan_ref(a, bb, h0)
+    if not (torch.isfinite(h).all() and torch.isfinite(h_last).all()):
+        fail(f"rglru_scan output is not finite ({what})")
+    e = max(float((h.float() - want.float()).abs().max()) if h.numel() else 0.0,
+            float((h_last - want_last).abs().max()))
+    if not (torch.equal(h, want) and torch.equal(h_last, want_last)):
+        fail(f"rglru_scan is not bitwise its plain version ({what}): max abs "
+             f"{e:.3e}, {'within' if e <= RGLRU_LIMIT else 'past'} the old "
+             f"{RGLRU_LIMIT:g} limit")
+    return e, (h, h_last)
+
+
+def rg_sub_ranges(torch, rk, a, bb, h0, what) -> None:
+    """rglru_scan gives the same bits twice, and for batches 0-1 and for
+    the channels RGLRU_CHANNELS (copied out: their first group starts
+    inside one of the full call's) as the full call, in h and in h_T."""
+    name = f"rglru_scan ({what}, {'h0' if h0 is not None else 'no h0'})"
+    same_twice(torch, name, lambda: rk.rglru_scan(a, bb, h0))
+    full = rk.rglru_scan(a, bb, h0)
+    for index in ((slice(0, 2),), (Ellipsis, RGLRU_CHANNELS)):
+        got = rk.rglru_scan(*(None if x is None else x[index].contiguous()
+                              for x in (a, bb, h0)))
+        for out, f, p in zip(("h", "h_T"), full, got):
+            same_rows(torch, f"{name} {out}", f, [(index, p)])
 
 
 def fp32_pair_bits(torch, gk, x, c, u, rank, m) -> None:
@@ -1072,43 +1128,48 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
 
     # -- rglru_scan --------------------------------------------------------
     def rg_check(a, bb, h0, what) -> tuple:
-        h, h_last = rk.rglru_scan(a, bb, h0)
-        want, want_last = kref.rglru_scan_ref(a, bb, h0)
-        if not (torch.isfinite(h).all() and torch.isfinite(h_last).all()):
-            fail(f"rglru_scan output is not finite ({what})")
-        e = max(float((h.float() - want.float()).abs().max()),
-                float((h_last - want_last).abs().max()))
-        if e > RGLRU_LIMIT:
-            fail(f"rglru_scan differs from its plain version ({what}): {e:.3e}")
+        e, (h, _) = rg_bitwise(torch, rk, kref, a, bb, h0, what)
         return e, h
 
-    def rg_inputs(b, t, w, dtype):
-        return (torch.sigmoid(2.0 + randn(b, t, w)).to(dtype),
-                randn(b, t, w, dtype=dtype), randn(b, w))
+    def rg_inputs(b, t, w, dtype, offset=0):
+        n = b * t * w
+        return (torch.sigmoid(2.0 + randn(n + offset)).to(dtype)[offset:].view(b, t, w),
+                randn(n + offset, dtype=dtype)[offset:].view(b, t, w), randn(b, w))
 
     rg_err = 0.0
     for b, t, w in RGLRU_SWEEP + [RGLRU_PATH]:
         for dtype in (f32, bf16):
-            e, _ = rg_check(*rg_inputs(b, t, w, dtype), f"{(b, t, w)} {dtype}")
-            rg_err = max(rg_err, e) if dtype == f32 else rg_err
+            a, bb, h0 = rg_inputs(b, t, w, dtype)
+            for init, how in ((h0, "h0"), (None, "no h0")):
+                e, _ = rg_check(a, bb, init, f"{(b, t, w)} {dtype} {how}")
+                rg_err = max(rg_err, e) if dtype == f32 else rg_err
+            del a, bb, h0
+    for dtype in (f32, bf16):
+        rg_check(*rg_inputs(*RGLRU_UNALIGNED, dtype, offset=1),
+                 f"{RGLRU_UNALIGNED} {dtype}, bases one element in")
     ones = torch.ones(1, 32, 16, device="cuda")
     rg_check(torch.full_like(ones, 1e-25), ones, None, "a = 1e-25")
     _, h = rg_check(torch.full_like(ones, 1.5), ones, None, "a = 1.5")
     if float(h[0, -1, 0]) != 32.0:
         fail("rglru_scan does not clamp a > 1 to 1")
     b, t, w = RGLRU_PATH
-    a, bb, h0 = rg_inputs(b, t, w, f32)
+    for dtype in (bf16, f32):
+        a, bb, h0 = rg_inputs(b, t, w, dtype)
+        for init in (h0, None):
+            rg_sub_ranges(torch, rk, a, bb, init, f"{RGLRU_PATH} {dtype}")
     e, _ = rg_check(a, bb, h0, "timed shape")
-    same_twice(torch, "rglru_scan", lambda: rk.rglru_scan(a, bb, h0))
     n = b * t * w
     rows.append(kernel_row(
         torch, "rglru_scan", "rglru_scan.cu", "src/repro/kernels/rglru_scan.py:75",
         lambda: rk.rglru_scan(a, bb, h0), lambda: kref.rglru_scan_ref(a, bb, h0),
         None, "float32", RGLRU_PATH, 3 * n * 4 + 2 * b * w * 4, 2 * n, launches,
-        max(rg_err, e), plain_launches=3, shapes_checked=RGLRU_SWEEP,
+        max(rg_err, e), plain_launches=3, device=True, shapes_checked=RGLRU_SWEEP,
         dtypes_checked=["float32", "bfloat16"],
-        extra_cases=["a = 1e-25", "a = 1.5 (clamped to 1)"],
-        tolerance="max abs diff <= 1e-5 at unit-scale inputs"))
+        extra_cases=["h0 = None at every shape", "a = 1e-25", "a = 1.5 (clamped to 1)",
+                     f"{list(RGLRU_UNALIGNED)} with bases one element in"],
+        subranges_checked=["batch 0-1", f"channels {RGLRU_CHANNELS.start}-"
+                           f"{RGLRU_CHANNELS.stop - 1}"],
+        tolerance="bitwise: torch.equal of h and h_T"))
     del a, bb, h0
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernels": [r["name"] for r in rows],
@@ -1201,7 +1262,7 @@ def phase_ops_path(torch) -> dict:
     a = host(b, t, wd, fn=lambda z: torch.sigmoid(2.0 + z))
     bb, h0 = host(b, t, wd), host(b, wd)
     call("rglru_scan_op", "rglru_scan", lambda: ops.rglru_scan_op(a, bb, h0),
-         lambda: kref.rglru_scan_ref(*dev(a, bb, h0)), lambda w: RGLRU_LIMIT)
+         lambda: kref.rglru_scan_ref(*dev(a, bb, h0)), lambda w: 0.0)  # bitwise
     del a, bb, h0
 
     qb, qh, qt, qd = FLASH_PATH
@@ -2586,30 +2647,29 @@ def phase_lm_kernels(torch, launches: int) -> dict:
         tolerance="max abs diff <= 2e-4 x max(1, max|plain|)"))
     del r, k, v, w, u, s0, args, got, got_s, want, want_s
 
-    b, t, wd = LM_RGLRU
-    a = torch.sigmoid(2.0 + torch.randn(b, t, wd, generator=g, device="cuda"))
-    bb = torch.randn(b, t, wd, generator=g, device="cuda")
-    h0 = torch.randn(b, wd, generator=g, device="cuda")
-    got, got_h = rk.rglru_scan(a, bb, h0)
-    want, want_h = kref.rglru_scan_ref(a, bb, h0)
-    err = max(float((got - want).abs().max()), float((got_h - want_h).abs().max()))
-    if not (torch.isfinite(got).all() and err <= RGLRU_LIMIT):
-        fail(f"rglru_scan differs from its plain version at {LM_RGLRU}: {err:.3e}")
-    nel = b * t * wd
-    out["rglru_scan"].append(entry(
-        lambda: rk.rglru_scan(a, bb, h0), lambda: kref.rglru_scan_ref(a, bb, h0),
-        None, "float32", LM_RGLRU, 3 * nel * 4 + 2 * b * wd * 4, 2 * nel, err,
-        plain_launches=3, config="recurrentgemma_2b",
-        tolerance="max abs diff <= 1e-5 at unit-scale inputs"))
-    del a, bb, h0, got, got_h, want, want_h
+    # RecurrentGemma-2B's scan at the serving shape and at the route check's
+    for (b, t, wd), what in ((LM_RGLRU, "serve"),
+                             ((LM_CHECK_BATCH, LM_CHECK_PROMPT, 2560), "route check")):
+        a = torch.sigmoid(2.0 + torch.randn(b, t, wd, generator=g, device="cuda"))
+        bb = torch.randn(b, t, wd, generator=g, device="cuda")
+        h0 = torch.randn(b, wd, generator=g, device="cuda")
+        err, _ = rg_bitwise(torch, rk, kref, a, bb, h0, f"{(b, t, wd)}")
+        rg_sub_ranges(torch, rk, a, bb, h0, f"{(b, t, wd)}")
+        nel = b * t * wd
+        out["rglru_scan"].append(entry(
+            lambda: rk.rglru_scan(a, bb, h0), lambda: kref.rglru_scan_ref(a, bb, h0),
+            None, "float32", (b, t, wd), 3 * nel * 4 + 2 * b * wd * 4, 2 * nel, err,
+            plain_launches=3, device=True, config="recurrentgemma_2b", use=what,
+            tolerance="bitwise: torch.equal of h and h_T"))
+        del a, bb, h0
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "lm_serve_shapes", "launches_timed": launches,
           "seconds": time.perf_counter() - t_start,
           "summary": {name: [{k: e[k] for k in ("shape", "dtype", "max_abs_err",
                                                  "bf16_ulp_ratio", "plain_max_abs",
                                                  "plain_mean_abs", "ms", "plain_ms",
-                                                 "library_ms", "bound_ms", "bound_by",
-                                                 "bound_ffma_ms")
+                                                 "device_ms", "library_ms", "bound_ms",
+                                                 "bound_by", "bound_ffma_ms")
                               if k in e}
                              for e in entries] for name, entries in out.items()}})
     return out
