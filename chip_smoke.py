@@ -42,7 +42,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    for byte, and the line reports the blocks whose cut m_eff differs;
 5. ``attention_path``  the same for the attention family (arch (32, 2, 1,
    64)) on the same data;
-6. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
+6. ``wide_block_path``  the conv family at an 8 x 8 x 8 block (D = 512,
+   every GBATC kernel past its panels) on main_path's field cut to its
+   first 8 frames (NB = 1600 a species), with main_path's gates through
+   ``drive()`` (bound after decompress(bytes), decode bitwise the
+   encoder's reconstruction, second bound with no projection launch,
+   select backends byte for byte), then one selective decode of species
+   0, 17 and 57, bitwise the full decode's slice with one replay launch;
+   the ``kernels`` phase holds all six (kernel, dtype) routes of the three
+   batched kernels at every ``ANY_D`` shape (D = 130 to 1000) against their
+   plain versions, for the same bits twice and by row and species
+   sub-range, pins their outputs' sha256 in ``ANY_D_SHA256``, and times
+   them at (58, 1600, 512); the 2D pair at D = 130 and 512 in both dtypes;
+7. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
    (the JAX package's ``kernels/ops.py``, name for name) once at its
    full-width shape, from numpy inputs on the default device, against its
    plain version, with the launch counts reset just before each call and
@@ -56,19 +68,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    its plain version (h and h_T, both dtypes, with and without h0, at the
    ring's ragged and unaligned edges), and for batch 0-1 and channels
    33-96 as in the full call;
-7. ``partial_path``  on the blobs, artifact and decoded fields of the two
+8. ``partial_path``  on the blobs, artifact and decoded fields of the two
    codec paths (no new fit): selective decodes of the conv blob
    (``decompress(blob, species=..., time_range=...)``) bitwise against the
    slice of its full decode, cold and warm, with their bytes parsed and
    exactly one replay launch each; the conv artifact written at container
    v1-v4 and read back bitwise, v1 in full, the staged
    ``decompress_reference`` bitwise the fused decode; ``verify_blob`` over
-   a few hundred seeded bit flips (all must be detected), one corrupt
+   one seeded bit flip a region of the blob (all must be detected), one corrupt
    species and one corrupt latent shard raised in raise mode and
    quarantined by salvage (bitwise elsewhere); one selective decode of the
    attention blob through flash attention;
-8. ``serve_path``  the decode service (``repro_torch.serve.DecodeService``)
-   on the two codec paths' blobs (no new fit): a seeded mix of 64
+9. ``serve_path``  the decode service (``repro_torch.serve.DecodeService``)
+   on the two codec paths' blobs (no new fit): a seeded mix of 24
    selective requests (4 duplicates, one unknown blob, one malformed)
    from 8 client threads, every answer bitwise the slice of its blob's
    full decode, exactly the planted requests failing, fewer fused
@@ -78,13 +90,13 @@ Phases (each prints one JSON line; any failure exits non-zero):
    holding a corrupt species, its batch-mates and a salvage request; and
    the gap a fused decode shows when cuDNN's TF32 is on (what
    ``strict_fp32`` prevents);
-9. ``stream_path``  ``GBATCCodec.fit_stream`` over the main field in
+10. ``stream_path``  ``GBATCCodec.fit_stream`` over the main field in
    chunks of 4 frames, one injected I/O fault in each ingest pass, then
    the 1e-3 compress: the blob must be main_path's byte for byte, with
    one projection and one select launch; then the QoI (net production
    rates, ``repro_torch.core.qoi``) of the field and of its decode on the
    card against the same map on the host;
-10. ``mesh_path``  the mesh-sharded fit and compress (``repro_torch.parallel``)
+11. ``mesh_path``  the mesh-sharded fit and compress (``repro_torch.parallel``)
    on main_path's field and fitted codec, over a mesh of 4 (``host_mesh(4)``
    on a machine with 4 cards, else ``(cuda:0,) * 4``): main_path's fitted
    state compressed through ``ShardedGuaranteeEngine`` with 4 and 116
@@ -96,7 +108,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    encode, decode bitwise); the int8 gradient exchange on ``block_quant``
    (one launch a shard a step, a sampled bucket bitwise its plain version,
    the bucket's kernel time against its bound);
-11. ``lm_serve_path``  the language-model serving path
+12. ``lm_serve_path``  the language-model serving path
    (``repro_torch.models``, ``repro_torch.serve.Server``) on the card: (a)
    Llama-3.2-1B, StableLM-3B, Yi-9B, RWKV-6 7B, RecurrentGemma-2B and
    Whisper-base in fp32
@@ -126,7 +138,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    in both dtypes faster than its plain version and giving the same bits
    twice and for a batch sub-range, timed beside SDPA and their bounds
    (fp32's is 3xTF32's, with the CUDA cores' beside it);
-12. ``lm_train_path``  the language-model training path
+13. ``lm_train_path``  the language-model training path
    (``repro_torch.train.train_loop.make_train_step``, ``launch.train.train``,
    ``train.checkpoint``) on the card, every step through the portable route
    (``use_kernels=False``: no kernel has a backward): (1) one train step of
@@ -158,7 +170,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    ``WIDE_SHA256`` (the bits of the first, row-tile build of these
    kernels), prints them on a line of their own, and times the kernels at
    (1, 65536, 256);
-13. ``dryrun_path``  the dry run (``repro_torch.launch.dryrun``, meta tensors
+14. ``dryrun_path``  the dry run (``repro_torch.launch.dryrun``, meta tensors
    only): (1) ``python -m repro_torch.launch.dryrun --arch <a> --mesh both``
    for every config, in subprocesses started together: each exits 0 with
    CUDA never initialised and writes exactly its cells (64 in all: 32 a
@@ -181,7 +193,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    port keeps on the host (likewise the decode step's arguments and its
    logits and cache), with the step's peak less the argument bytes
    reported;
-14. ``analysis_path``  the invariant checker (``repro_torch.analysis``) on
+15. ``analysis_path``  the invariant checker (``repro_torch.analysis``) on
    the card: (1) ``python -m repro_torch.analysis`` in a subprocess (the
    AST lint, the wire schema and the trace audit at its tiny shapes on the
    card) exits 0; (2) meanwhile the audit's registry of 13 hot programs
@@ -194,7 +206,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    select and correct, flash in the attention decode, ``block_quant`` in
    the quantized data-parallel step); one line a program with its ops,
    host syncs, fp64 ops, transfers and launches;
-15. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+16. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -282,6 +294,106 @@ WIDE_SHA256 = {
             "5e6cbf1ad7860a66dfc223d1081bb4c3b25bc5838950a02fd59f04424c3b5ad1",
     },
 }
+# every route at any D (the Pallas wrappers pad to any D): the reference's
+# own sweep (tests/test_kernels.py), one past a 256-column slab with ragged
+# rows, a 4 x 10 x 8 block, a single row, far past every panel, and the
+# codec's 8 x 8 x 8 block at wide_block_path's shape (timed)
+ANY_D = [(2, 513, 130), (2, 77, 257), (3, 100, 320), (1, 1, 513), (2, 65, 1000),
+         (58, 1600, 512)]
+ANY_D_SEED = 700  # ANY_D[i] takes ANY_D_SEED + i
+ANY_D_TIMED = ANY_D[-1]
+# sha256 of every route's output ("kernel/dtype") on
+# wide_digest_operands(*ANY_D[i], ANY_D_SEED + i), as the first build of the
+# any-D routes gave them on an H100
+ANY_D_SHA256 = {
+    (2, 513, 130): {
+        "gbatc_project_batched/float64":
+            "5387260400a3cb8ec4025f51e1e2918fa345c27e7a8effd2b5660bdde23b2aa7",
+        "gbatc_select_accumulate/float32":
+            "ad2ca84d34ac6b3a0ec759115132a57d099cae5bbad8ae24b386cbc69dfbb135",
+        "gbatc_correct_batched/float32":
+            "619cc8eec9267f1fac7d132983f09b4f8d783e12befb0dcfd6d771ad66118add",
+        "gbatc_project_batched/float32":
+            "f6c9af28aaaeccd6671b6a62a680fac1b11da130a91783bb0b23789b96011fa2",
+        "gbatc_select_accumulate/float64":
+            "5a8b45823f4e8ef7d4eac9733fd167ec42d4193922c441c4762996b3922a12d6",
+        "gbatc_correct_batched/float64":
+            "d2469f68d2f21e1ffa8ea8bc043b3c7dd8be721b80d52086d6cfa4774535f381",
+    },
+    (2, 77, 257): {
+        "gbatc_project_batched/float64":
+            "21db5dce05123f67e170e0b8177ddfa6959b77af671cced2b7ba3ffeaa128c5b",
+        "gbatc_select_accumulate/float32":
+            "40af947641bea70a8abb5447f6996c404ae2a12c099facfe8b711d5c3266162f",
+        "gbatc_correct_batched/float32":
+            "7374d5868a19e74f5c17c61a17b816619fb7c45314c368990f66d6c82142ef0c",
+        "gbatc_project_batched/float32":
+            "cc0ca3ec72cbbc655db3a80c07d5c5f9cfaab00114247cd0b23527e1e3c7f32a",
+        "gbatc_select_accumulate/float64":
+            "99b2e6e11f52b4dd531213a1a23ae6f33cd23201c9fef31c9cb633c6837af9fc",
+        "gbatc_correct_batched/float64":
+            "e9a339ddc3f334fe98aaf79bb1ce45d573547054d6a04373ede05ad81168eb43",
+    },
+    (3, 100, 320): {
+        "gbatc_project_batched/float64":
+            "c4241fe010b94befcc9e307ec6071089221ac87bae6a5f314f345c636ef0f9ec",
+        "gbatc_select_accumulate/float32":
+            "63732023c4e7a172f87cf451396960a14409b2c2ef7b40f0d7178889d74fa42b",
+        "gbatc_correct_batched/float32":
+            "fe79507564d19671e3a04a270002a40293bd52ffdd8b35bb9a30e3d17c05ec93",
+        "gbatc_project_batched/float32":
+            "ac6264b6c9f2443a25eab1b5368722476d155d1bdc013d12f77a11908aff1e6f",
+        "gbatc_select_accumulate/float64":
+            "fb243ea3e027a115f9999a5dad755f5acab48a43b4378266fdbbd544b2e391c8",
+        "gbatc_correct_batched/float64":
+            "41ff380d5faf16b699712a670239f349d6dd6eb210f8e2f4eac9e215c7dcb6cd",
+    },
+    (1, 1, 513): {
+        "gbatc_project_batched/float64":
+            "80e724faf11e5e304cca1f10b6f969b09c92368928c5b4656f361ed9ee255ce2",
+        "gbatc_select_accumulate/float32":
+            "e3a618e4a5fd0d803c9ab5050dbdd212feb6d4709f0f6b6aa5b415a37323bb75",
+        "gbatc_correct_batched/float32":
+            "d035e5e57c95fba769516b479fc8cc228ddffb8cdfe3ff2078844f48cc2fe1f9",
+        "gbatc_project_batched/float32":
+            "f84df7c79d9f05eb053f1e655ed6fcfdeee7627ad2753696bc728a15bee2ed69",
+        "gbatc_select_accumulate/float64":
+            "114d7ab16b139725371f6b12353937bbe3118c69b1ef6d8195bc1f51fb68c7f5",
+        "gbatc_correct_batched/float64":
+            "ed18a35cf4f70b60686111020ae4434d1a082869a62860c71e4bb297ac35c8a2",
+    },
+    (2, 65, 1000): {
+        "gbatc_project_batched/float64":
+            "285c47e08552aaf2132e63438073d211c5769ee37854b1d3c92d1a4724bcdf70",
+        "gbatc_select_accumulate/float32":
+            "a70aab8d6bab66b98908f157e29df9a34de046cc69babb5ca9b30e201fe90480",
+        "gbatc_correct_batched/float32":
+            "069d2ac48557a0c49b2b9c6b0e91700e9ca1b1f2539b1792d9c5ff15db3cb59e",
+        "gbatc_project_batched/float32":
+            "f7eef24da468ee5cd9fcbd8c72ebda3f807e08d21d926db663013486ba184b94",
+        "gbatc_select_accumulate/float64":
+            "1ebd93b8f6106a3f6092ebb678335c84d2cda580032b6c871b1a558826f5a775",
+        "gbatc_correct_batched/float64":
+            "bb51ee63a279b3c9e3383857051f8d4da6613005b953968a01ee160c63c61212",
+    },
+    (58, 1600, 512): {
+        "gbatc_project_batched/float64":
+            "1091fe3242e219234ec8cc3ab7de86e87e4927d7605295120bec7ec287660627",
+        "gbatc_select_accumulate/float32":
+            "ca3c97bffa183b03634435b70b540cc6eb588dedd70cea3148245bb6903e383f",
+        "gbatc_correct_batched/float32":
+            "f67428a6b4b9da6065bca38d50aaf2874d17fb03dab9dea156a54de97bbbeb46",
+        "gbatc_project_batched/float32":
+            "ac13f59b441fadd073854166673e953da1c7e16fe3891bc8ce23b5f3e52bf80f",
+        "gbatc_select_accumulate/float64":
+            "3464e5f37aae8fd5a88be5266a76ad2d0bd99ca1cbdcd045e02ae9ad4ec511d0",
+        "gbatc_correct_batched/float64":
+            "8f362c866ce5c308b2396934a457190e610d65f9e18f603107ec360d75d01818",
+    },
+}
+# the 2D pair past D = 128: the reference's own 130, and wide_block_path's
+# blocks under one basis (timed)
+GBATC_2D_ANY_D = [(513, 130), (1600, 512), (58 * 1600, 512)]
 # the replay's shapes on partial_path's selective decodes: (species
 # selected, the window's block rows at 5120 a block group)
 PARTIAL_CORRECT_SHAPES = [(3, 10240), (1, 20480), (58, 5120), (1, 5120)]
@@ -416,9 +528,10 @@ PTXAS_NAMES = {
             *m.groups()[1:])), (
         r"project_f64_wideE",
         lambda m: "f64/project/wide"), (
-        r"correct_f32_wideILi(\d)E",
-        lambda m: "f32/{}/wide".format(
-            ("project", "correct", "select", "masked")[int(m.group(1))]))],
+        r"gbatc_wideI([fd])Li(\d)ELi(\d)E",
+        lambda m: "{}/{}/wide".format(
+            {"f": "f32", "d": "f64"}[m.group(1)],
+            ("project", "correct", "select", "masked")[int(m.group(2))]))],
     "flash_attention": [(
         r"flash_kernelIfLi(\d+)E",
         lambda m: "flash/f32/dp{}".format(m.group(1))), (
@@ -665,13 +778,25 @@ def rg_sub_ranges(torch, rk, a, bb, h0, what) -> None:
             same_rows(torch, f"{name} {out}", f, [(index, p)])
 
 
+def route_bits(torch, what: str, fn, args, full) -> None:
+    """A batched route gives the same bits twice, and for row sub-ranges
+    (PROJECT_SUBRANGES, clipped to NB) and species 1-2 as the full call
+    ``full``: a row's bits do not depend on where the grid computes it.
+    The basis is ``args``' last operand; the others are (S, NB, ...)."""
+    s, nb = full.shape[:2]
+    same_twice(torch, what, lambda: fn(*args))
+    ranges = [(a, min(b, nb)) for a, b in PROJECT_SUBRANGES if a < nb] or [(0, nb)]
+    parts = [((slice(None), slice(a, b)), fn(
+        *(t[:, a:b].contiguous() for t in args[:-1]), args[-1])) for a, b in ranges]
+    if s > 1:
+        sp = slice(1, min(3, s))
+        parts.append(((sp,), fn(*(t[sp].contiguous() for t in args))))
+    same_rows(torch, what, full, parts)
+
+
 def fp32_pair_bits(torch, gk, x, c, u, rank, m) -> None:
-    """The fp32 select and correct modes keep one order of arithmetic, and
-    a row's bits do not depend on where the persistent grid computes it:
-    select on (c, rank, m) is bitwise correct on where(rank < m, c, 0);
-    both give the same bits twice, and for row sub-ranges
-    (PROJECT_SUBRANGES, clipped to NB) and species 1-2 as the full call."""
-    s, nb, _ = x.shape
+    """The fp32 select and correct modes keep one order of arithmetic:
+    select on (c, rank, m) is bitwise correct on where(rank < m, c, 0)."""
     kept = torch.where(rank < m[..., None], c,
                        torch.zeros((), dtype=c.dtype, device=c.device))
     sel = gk.gbatc_select_accumulate(x, c, rank, m, u)
@@ -679,35 +804,14 @@ def fp32_pair_bits(torch, gk, x, c, u, rank, m) -> None:
     if not torch.equal(sel, cor):
         fail(f"fp32 select differs from correct on the masked coefficients at "
              f"{tuple(x.shape)} (max abs {float((sel - cor).abs().max()):.3e})")
-    same_twice(torch, "gbatc_select_accumulate (fp32)",
-               lambda: gk.gbatc_select_accumulate(x, c, rank, m, u))
-    same_twice(torch, "gbatc_correct_batched (fp32)",
-               lambda: gk.gbatc_correct_batched(x, kept, u))
-    ranges = [(a, min(b, nb)) for a, b in PROJECT_SUBRANGES if a < nb] or [(0, nb)]
-    sp = slice(1, min(3, s))
-
-    def part(index, *ts):
-        return [t[index].contiguous() for t in ts]
-
-    same_rows(torch, "gbatc_select_accumulate (fp32)", sel,
-              [((slice(None), slice(a, b)), gk.gbatc_select_accumulate(
-                  *part((slice(None), slice(a, b)), x, c, rank, m), u))
-               for a, b in ranges]
-              + [((sp,), gk.gbatc_select_accumulate(*part(sp, x, c, rank, m, u)))])
-    same_rows(torch, "gbatc_correct_batched (fp32)", cor,
-              [((slice(None), slice(a, b)), gk.gbatc_correct_batched(
-                  *part((slice(None), slice(a, b)), x, kept), u))
-               for a, b in ranges]
-              + [((sp,), gk.gbatc_correct_batched(*part(sp, x, kept, u)))])
 
 
 def batched_checks(torch, s, nb, d, seed, err: dict) -> None:
-    """Every check of the three batched kernels at (s, nb, d), on each
-    (kernel, dtype) route that takes this D: against its plain version
-    (FP64_REL_LIMIT, FP32_LIMIT; the largest difference kept in
-    ``err[name, dtype]``); the fp64 projection the same bits twice and for
-    row (PROJECT_SUBRANGES, clipped to nb) and species sub-ranges; the fp32
-    select and correct under fp32_pair_bits."""
+    """Every check of the three batched kernels at (s, nb, d), on every
+    (kernel, dtype) route: against its plain version (FP64_REL_LIMIT,
+    FP32_LIMIT; the largest difference kept in ``err[name, dtype]``), the
+    same bits twice and for row and species sub-ranges (route_bits); the
+    fp32 select and correct under fp32_pair_bits."""
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
 
@@ -716,75 +820,80 @@ def batched_checks(torch, s, nb, d, seed, err: dict) -> None:
         for name, args, rows in (("gbatc_project_batched", (x, u), x),
                                  ("gbatc_correct_batched", (x, c, u), c),
                                  ("gbatc_select_accumulate", (x, c, rank, m, u), c)):
-            if d > gk.MAX_D and (name, dtype) not in gk._WIDE:
-                continue
-            e = compare(torch, getattr(gk, name)(*args),
-                        getattr(kref, name + "_ref")(*args), rows, dtype)
+            fn = getattr(gk, name)
+            full = fn(*args)
+            e = compare(torch, full, getattr(kref, name + "_ref")(*args), rows, dtype)
             err[name, dtype] = max(err.get((name, dtype), 0.0), e)
+            route_bits(torch, f"{name} ({str(dtype).split('.')[-1]}, {(s, nb, d)})",
+                       fn, args, full)
+            del full
         if dtype == torch.float32:
             fp32_pair_bits(torch, gk, x, c, u, rank, m)
-            continue
-        what = f"gbatc_project_batched (fp64, {(s, nb, d)})"
-        full = gk.gbatc_project_batched(x, u)
-        same_twice(torch, what, lambda: gk.gbatc_project_batched(x, u))
-        ranges = [(a, min(b, nb)) for a, b in PROJECT_SUBRANGES if a < nb]
-        same_rows(torch, what, full,
-                  [((slice(None), slice(a, b)), gk.gbatc_project_batched(
-                      x[:, a:b].contiguous(), u)) for a, b in ranges]
-                  + ([((slice(1, 3),), gk.gbatc_project_batched(
-                      x[1:3].contiguous(), u[1:3].contiguous()))] if s > 1 else []))
-        del full
     del x, c, u, rank, m
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
 
-def batched_rows(torch, shape, seed, launches, err: dict, **extra) -> list[dict]:
-    """The fp64 projection and the fp32 select and correct timed at
-    ``shape`` beside their plain versions, bounds and library yardsticks
-    (``torch.bmm``, ``torch.baddbmm``; no one call computes the select);
-    ``max_abs_err`` is ``err``'s, from batched_checks."""
+# the file line of each batched kernel's pallas_call in the JAX package's
+# kernels/gbatc_project.py
+GBATC_LINES = {"gbatc_project_batched": 207, "gbatc_select_accumulate": 288,
+               "gbatc_correct_batched": 240}
+# the routes the codec paths run (and WIDE_SHA256 pins), and all six
+MAIN_ROUTES = (("gbatc_project_batched", "float64"),
+               ("gbatc_select_accumulate", "float32"),
+               ("gbatc_correct_batched", "float32"))
+ALL_ROUTES = MAIN_ROUTES + (("gbatc_project_batched", "float32"),
+                            ("gbatc_select_accumulate", "float64"),
+                            ("gbatc_correct_batched", "float64"))
+
+
+def batched_rows(torch, shape, seed, launches, err: dict, routes=MAIN_ROUTES,
+                 **extra) -> list[dict]:
+    """The batched routes timed at ``shape`` beside their plain versions,
+    bounds and library yardsticks (``torch.bmm`` for the projection,
+    ``torch.baddbmm`` for correct; no one call computes the select);
+    ``max_abs_err`` is ``err``'s, from batched_checks. The projection's
+    operands come from ``seed``, select's and correct's from ``seed + 1``."""
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
 
     s, nb, d = shape
     n = s * nb * d
     rows = []
-
-    def row(name, line, dtype, fn, plain, lib, nbytes, flops):
+    for name, dt in routes:
+        dtype = getattr(torch, dt)
+        size = 8 if dtype == torch.float64 else 4
+        project = name == "gbatc_project_batched"
+        x, c, u, rank, m = make_inputs(torch, s, nb, d, dtype, seed if project else seed + 1)
+        if project:
+            args, lib = (x, u), (lambda: torch.bmm(x, u))
+            nbytes, flops = (2 * n + s * d * d) * size, 2 * n * d
+        elif name == "gbatc_correct_batched":
+            ut = u.transpose(1, 2)
+            args, lib = (x, c, u), (lambda: torch.baddbmm(x, c, ut))
+            nbytes, flops = (3 * n + s * d * d) * size, 2 * n * d
+        else:
+            kept = int((rank < m[..., None]).sum())
+            args, lib = (x, c, rank, m, u), None
+            nbytes = (3 * n + s * d * d) * size + (n + s * nb) * 4
+            flops = 2 * kept * d
+        fn, plain = getattr(gk, name), getattr(kref, name + "_ref")
         rows.append(kernel_row(
             torch, name, "gbatc_kernels.cu",
-            f"src/repro/kernels/gbatc_project.py:{line}", fn, plain, lib,
-            str(dtype).split(".")[-1], shape, nbytes, flops, launches,
-            err[name, dtype],
+            f"src/repro/kernels/gbatc_project.py:{GBATC_LINES[name]}",
+            lambda: fn(*args), lambda: plain(*args), lib, dt, shape, nbytes, flops,
+            launches, err[name, dtype],
             tolerance=("max abs diff <= 1e-12 x row l2 norm"
                        if dtype == torch.float64 else "max abs diff <= 1e-5"),
             **extra))
-
-    x, _, u, _, _ = make_inputs(torch, s, nb, d, torch.float64, seed)
-    row("gbatc_project_batched", 207, torch.float64,
-        lambda: gk.gbatc_project_batched(x, u),
-        lambda: kref.gbatc_project_batched_ref(x, u),
-        lambda: torch.bmm(x, u), (2 * n + s * d * d) * 8, 2 * n * d)
-    del x, u
-    torch.cuda.empty_cache()
-    x, c, u, rank, m = make_inputs(torch, s, nb, d, torch.float32, seed + 1)
-    kept = int((rank < m[..., None]).sum())
-    row("gbatc_select_accumulate", 288, torch.float32,
-        lambda: gk.gbatc_select_accumulate(x, c, rank, m, u),
-        lambda: kref.gbatc_select_accumulate_ref(x, c, rank, m, u), None,
-        (4 * n + s * nb + s * d * d) * 4, 2 * kept * d)
-    ut = u.transpose(1, 2)
-    row("gbatc_correct_batched", 240, torch.float32,
-        lambda: gk.gbatc_correct_batched(x, c, u),
-        lambda: kref.gbatc_correct_batched_ref(x, c, u),
-        lambda: torch.baddbmm(x, c, ut), (3 * n + s * d * d) * 4, 2 * n * d)
-    del x, c, u, rank, m, ut
-    torch.cuda.empty_cache()
+        del x, c, u, rank, m, args, lib
+        torch.cuda.empty_cache()
     return rows
 
 
-def phase_kernels(torch, launches: int) -> list[dict]:
+def phase_kernels(torch, launches: int) -> tuple[list[dict], list]:
+    """The batched GBATC kernels' checks and timed rows; returns (rows, the
+    ANY_D shapes whose digests missed ANY_D_SHA256)."""
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
 
@@ -811,20 +920,23 @@ def phase_kernels(torch, launches: int) -> list[dict]:
                         ragged_shapes_checked=RAGGED)
     rows[2]["partial_shapes_checked"] = PARTIAL_CORRECT_SHAPES
     wide = phase_wide_kernels(torch, launches)
+    any_d, missed = phase_any_d_kernels(torch, launches)
     for r in rows:
         r["wide_shapes"] = wide[r["name"]]
+        r["any_d"] = any_d[r["name"]]
     emit({"phase": "kernels", "launches_timed": launches,
           "summary": [{k: r[k] for k in ("name", "dtype", "max_abs_err", "ms",
                                          "plain_ms", "library_ms", "bound_ms")}
                       for r in rows],
-          "wide": wide})
-    return rows
+          "wide": wide, "any_d": any_d})
+    return rows, missed
 
 
 def wide_digest_operands(torch, s, nb, d, seed) -> dict:
-    """Each wide route's operands at (s, nb, d), drawn on the host with
+    """Each batched route's operands at (s, nb, d), drawn on the host with
     numpy from ``seed`` (the cuts' ranks sorted stably on the card), so
-    their bits hang on no library of the card's: {kernel: operands}."""
+    their bits hang on no library of the card's: {(kernel, dtype):
+    operands}."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
@@ -836,31 +948,44 @@ def wide_digest_operands(torch, s, nb, d, seed) -> dict:
     def dev(a):
         return torch.from_numpy(np.ascontiguousarray(a)).cuda()
 
-    rank = torch.argsort(dev(keys), dim=-1, stable=True).to(torch.int32)
+    rank, m = torch.argsort(dev(keys), dim=-1, stable=True).to(torch.int32), dev(m)
+    x64, c64, u64 = dev(x), dev(c), dev(u)
     x32, c32, u32 = (dev(a.astype(np.float32)) for a in (x, c, u))
-    return {"gbatc_project_batched": (dev(x), dev(u)),
-            "gbatc_select_accumulate": (x32, c32, rank, dev(m), u32),
-            "gbatc_correct_batched": (x32, c32, u32)}
+    return {("gbatc_project_batched", "float64"): (x64, u64),
+            ("gbatc_select_accumulate", "float32"): (x32, c32, rank, m, u32),
+            ("gbatc_correct_batched", "float32"): (x32, c32, u32),
+            ("gbatc_project_batched", "float32"): (x32, u32),
+            ("gbatc_select_accumulate", "float64"): (x64, c64, rank, m, u64),
+            ("gbatc_correct_batched", "float64"): (x64, c64, u64)}
+
+
+def route_digests(torch, shapes, seed, routes) -> dict:
+    """{shape: {"kernel/dtype": sha256 of its output}} on
+    wide_digest_operands(*shapes[i], seed + i)."""
+    from repro_torch.kernels import gbatc_project as gk
+
+    got = {}
+    for i, shape in enumerate(shapes):
+        ops = wide_digest_operands(torch, *shape, seed + i)
+        got[shape] = {f"{name}/{dt}": hashlib.sha256(
+            getattr(gk, name)(*ops[name, dt]).cpu().numpy().tobytes()).hexdigest()
+            for name, dt in routes}
+        del ops
+    torch.cuda.empty_cache()
+    return got
 
 
 def wide_digests(torch) -> dict:
     """The sha256 of each wide route's output at every WIDE shape, on
     wide_digest_operands(WIDE[i], WIDE_SEED + i); fails unless each is
     WIDE_SHA256's. Returns {kernel: digest at WIDE[0]}."""
-    from repro_torch.kernels import gbatc_project as gk
-
     t0 = time.perf_counter()
-    got = {}
-    for i, shape in enumerate(WIDE):
-        ops = wide_digest_operands(torch, *shape, WIDE_SEED + i)
-        got[shape] = {name: hashlib.sha256(
-            getattr(gk, name)(*args).cpu().numpy().tobytes()).hexdigest()
-            for name, args in ops.items()}
-        del ops
+    got = {shape: {k.split("/")[0]: v for k, v in digests.items()}
+           for shape, digests in route_digests(torch, WIDE, WIDE_SEED, MAIN_ROUTES).items()}
+    for shape in WIDE:
         if got[shape] != WIDE_SHA256[shape]:
             fail(f"the wide kernels' outputs at {shape} moved: {got[shape]} "
                  f"against {WIDE_SHA256[shape]}")
-    torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "wide_digests", "seed": WIDE_SEED,
           "sha256": {str(list(k)): v for k, v in got.items()},
           "equal_to_pinned": True, "seconds": time.perf_counter() - t0})
@@ -868,8 +993,8 @@ def wide_digests(torch) -> dict:
 
 
 def phase_wide_kernels(torch, launches: int) -> dict:
-    """The wide instantiations (128 < D <= 256: the fp64 projection, the
-    fp32 select and correct) under batched_checks and wide_digests at
+    """The wide instantiations (128 < D <= 256) of the fp64 projection and
+    the fp32 select and correct under batched_checks and wide_digests at
     every WIDE shape, and timed at WIDE[0]. Returns {kernel: entry}."""
     err: dict = {}
     for i, (s, nb, d) in enumerate(WIDE):
@@ -882,6 +1007,34 @@ def phase_wide_kernels(torch, launches: int) -> dict:
         r["sha256"] = sha[r["name"]]
         out[r.pop("name")] = r
     return out
+
+
+def phase_any_d_kernels(torch, launches: int) -> tuple[dict, list]:
+    """Every (kernel, dtype) route at every ANY_D shape under
+    batched_checks; the sha256 of every route's output at every ANY_D shape
+    against ANY_D_SHA256; each route timed at ANY_D_TIMED. Returns
+    ({kernel: {dtype: entry}}, the shapes whose digests missed: a miss
+    fails the run before its result lines)."""
+    t0 = time.perf_counter()
+    err: dict = {}
+    for i, (s, nb, d) in enumerate(ANY_D):
+        batched_checks(torch, s, nb, d, ANY_D_SEED + i, err)
+    checks_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = route_digests(torch, ANY_D, ANY_D_SEED, ALL_ROUTES)
+    missed = [shape for shape in ANY_D if got[shape] != ANY_D_SHA256.get(shape)]
+    emit({"phase": "kernels", "kernel": "any_d_digests", "seed": ANY_D_SEED,
+          "sha256": {str(list(k)): v for k, v in got.items()},
+          "equal_to_pinned": not missed, "missed": [list(k) for k in missed],
+          "seconds": time.perf_counter() - t0, "checks_s": checks_s})
+    out: dict = {}
+    for r in batched_rows(torch, ANY_D_TIMED, 790, launches, err, routes=ALL_ROUTES,
+                          shapes_checked=ANY_D):
+        for k in ("route", "source", "replaces", "launches"):
+            r.pop(k)
+        r["sha256"] = got[ANY_D_TIMED][f"{r['name']}/{r['dtype']}"]
+        out.setdefault(r.pop("name"), {})[r["dtype"]] = r
+    return out, missed
 
 
 def phase_flash(torch, launches: int) -> dict:
@@ -1013,6 +1166,44 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
             if dtype == f32:
                 err["gbatc_project"] = max(err["gbatc_project"], e_p)
                 err["gbatc_correct"] = max(err["gbatc_correct"], e_c)
+    # past D = 128, both dtypes, one launch of its own counter a call
+    for nb, d in GBATC_2D_ANY_D[:-1]:
+        for dtype in (f32, torch.float64):
+            x, c, u, mask = gbatc_inputs(nb, d, dtype)
+            for kernel, call, plain, rows_of in (
+                    ("gbatc_project", lambda: gk.gbatc_project(x, u),
+                     lambda: kref.gbatc_project_ref(x, u), x),
+                    ("gbatc_correct", lambda: gk.gbatc_correct(x, c, mask, u),
+                     lambda: kref.gbatc_correct_ref(x, c, mask, u), c)):
+                got, _, counts = counted(torch, call)
+                if counts[kernel] != 1 or any(v for k, v in counts.items() if k != kernel):
+                    fail(f"{kernel} at {(nb, d)} {dtype} launched {counts}; expected "
+                         f"one launch of {kernel} and nothing else")
+                e = compare(torch, got, plain(), rows_of, dtype)
+                if dtype == f32:
+                    err[kernel] = max(err[kernel], e)
+    del x, c, u, mask
+    any_d = {}
+    nb, d = GBATC_2D_ANY_D[-1]
+    n = nb * d
+    x, c, u, mask = gbatc_inputs(nb, d, f32)
+    e_p = compare(torch, gk.gbatc_project(x, u), kref.gbatc_project_ref(x, u), x, f32)
+    e_c = compare(torch, gk.gbatc_correct(x, c, mask, u),
+                  kref.gbatc_correct_ref(x, c, mask, u), c, f32)
+    for name, fn, plain, lib, nbytes, flops, e in (
+            ("gbatc_project", lambda: gk.gbatc_project(x, u),
+             lambda: kref.gbatc_project_ref(x, u), lambda: torch.mm(x, u),
+             (2 * n + d * d) * 4, 2 * n * d, e_p),
+            ("gbatc_correct", lambda: gk.gbatc_correct(x, c, mask, u),
+             lambda: kref.gbatc_correct_ref(x, c, mask, u), None,
+             (4 * n + d * d) * 4, 2 * int(mask.sum()) * d, e_c)):
+        r = kernel_row(torch, name, "gbatc_kernels.cu", "", fn, plain, lib, "float32",
+                       (nb, d), nbytes, flops, launches, e,
+                       tolerance="max abs diff <= 1e-5")
+        for k in ("name", "route", "source", "replaces", "launches"):
+            r.pop(k)
+        any_d[name] = {"float32": r}
+    del x, c, u, mask
     nb, d = GBATC_2D
     n = nb * d
     x, c, u, mask = gbatc_inputs(nb, d, f32)
@@ -1024,7 +1215,8 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
               [(slice(a, b), gk.gbatc_project(x[a:b].contiguous(), u))
                for a, b in PROJECT_2D_SUBRANGES])
     same_twice(torch, "gbatc_correct", lambda: gk.gbatc_correct(x, c, mask, u))
-    gbatc_extra = {"shapes_checked": GBATC_2D_SWEEP, "dtypes_checked": ["float32", "float64"],
+    gbatc_extra = {"shapes_checked": GBATC_2D_SWEEP + GBATC_2D_ANY_D,
+                   "dtypes_checked": ["float32", "float64"],
                    "subranges_checked": PROJECT_2D_SUBRANGES,
                    "tolerance": "max abs diff <= 1e-5 (fp32); <= 1e-12 x row l2 norm (fp64)"}
     rows.append(kernel_row(
@@ -1032,7 +1224,8 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         "src/repro/kernels/gbatc_project.py:105",
         lambda: gk.gbatc_project(x, u), lambda: kref.gbatc_project_ref(x, u),
         lambda: torch.mm(x, u), "float32", GBATC_2D, (2 * n + d * d) * 4,
-        2 * n * d, launches, max(e_p, err["gbatc_project"]), **gbatc_extra))
+        2 * n * d, launches, max(e_p, err["gbatc_project"]),
+        any_d=any_d["gbatc_project"], **gbatc_extra))
     kept = int(mask.sum())
     rows.append(kernel_row(
         torch, "gbatc_correct", "gbatc_kernels.cu",
@@ -1040,7 +1233,8 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         lambda: gk.gbatc_correct(x, c, mask, u),
         lambda: kref.gbatc_correct_ref(x, c, mask, u), None, "float32",
         GBATC_2D, (4 * n + d * d) * 4, 2 * kept * d, launches,
-        max(e_c, err["gbatc_correct"]), mask_kept=kept, **gbatc_extra))
+        max(e_c, err["gbatc_correct"]), mask_kept=kept,
+        any_d=any_d["gbatc_correct"], **gbatc_extra))
     del x, c, u, mask
 
     # -- block_quant: bitwise, fp32 and bf16 -------------------------------
@@ -1403,6 +1597,7 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
         "second_timings_s": {k: gb.pipeline.timings[k] for k in (
             "select", "encode", "report", "compress_total")},
         "max_nrmse": float(nrmse.max()), "target_nrmse": target,
+        "per_species_nrmse": nrmse.tolist(),
         "compression_ratio": rep.compression_ratio, "blob_bytes": len(blob),
         "breakdown": rep.bytes_breakdown,
         "second_blob_bytes": len(blob2),
@@ -1507,14 +1702,65 @@ def phase_attention_path(torch, args, data) -> dict:
     return info, blob, field, artifact
 
 
+# wide_block_path: the conv codec at a block past every panel of the
+# kernels, 8 x 8 x 8 (D = 512), on main_path's field cut to its first 8
+# frames (NB = 1600 blocks a species), and one selective decode of it
+WIDE_BLOCK = (8, 8, 8)
+WIDE_BLOCK_FRAMES = 8
+WIDE_BLOCK_SPECIES = [0, 17, 57]
+
+
+def phase_wide_block_path(torch, args, data) -> dict:
+    """Fit + compress + decompress at an 8 x 8 x 8 block through drive()
+    (every gate of main_path: the bound after decompress(bytes), the
+    decode bitwise the encoder's reconstruction, the second bound without
+    a projection launch, the select backends byte for byte), then one cold
+    selective decode of WIDE_BLOCK_SPECIES, bitwise the full decode's
+    slice with exactly one replay launch and no other kernel."""
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.core.blocking import BlockGeometry
+    from repro_torch.core.pipeline import PipelineConfig
+
+    field8 = np.ascontiguousarray(data[:, :WIDE_BLOCK_FRAMES])
+    cfg = PipelineConfig(geometry=BlockGeometry(*WIDE_BLOCK), latent=36,
+                         conv_channels=(32, 64), use_correction=True,
+                         ae_steps=args.ae_steps, corr_steps=args.corr_steps,
+                         seed=args.seed)
+    info, blob, _, field, gb = drive(torch, field8, cfg, args, "wide_block_path", {
+        "species": 58, "block": list(WIDE_BLOCK), "block_size": cfg.geometry.block_size,
+        "latent": 36, "conv_channels": [32, 64], "correction": [232, 464, 232]},
+        args.ae_steps)
+    del gb
+    info["cut"]["frames"] = WIDE_BLOCK_FRAMES
+    info["nb"] = field8.shape[1] // WIDE_BLOCK[0] * (field8.shape[2] // WIDE_BLOCK[1]) \
+        * (field8.shape[3] // WIDE_BLOCK[2])
+    codec.clear_decode_cache()
+    out, secs, counts = counted(torch, lambda: codec.decompress(
+        blob, species=WIDE_BLOCK_SPECIES))
+    want = sliced(field, WIDE_BLOCK_SPECIES, None)
+    if out.shape != want.shape or out.dtype != want.dtype or out.tobytes() != want.tobytes():
+        fail(f"wide_block_path: decompress(species={WIDE_BLOCK_SPECIES}) is not "
+             "bitwise the full decode's slice")
+    if counts["gbatc_correct_batched"] != 1 or any(
+            n for k, n in counts.items() if k != "gbatc_correct_batched"):
+        fail(f"wide_block_path: the selective decode launched {counts}; expected "
+             "one gbatc_correct_batched and no other kernel")
+    info["selective"] = {"species": WIDE_BLOCK_SPECIES, "cold_s": secs}
+    info["launches_selective"] = counts
+    emit(info)
+    return info
+
+
 # partial_path: the conv blob's selections (species, frame window); None
 # is every species or every frame. Then PARTIAL_RANDOM seeded random pairs
 # of at most PARTIAL_RANDOM_SPECIES species, so that a cold decode's host
 # entropy work stays a fraction of a full decode's.
 PARTIAL_SELECTIONS = [([0, 29, 57], (4, 12)), (5, None), (-1, None),
                       (None, (0, 4)), ([3], (13, 16))]
-PARTIAL_RANDOM, PARTIAL_RANDOM_SPECIES = 8, 8
-FLIPS_PER_REGION = 2  # seeded single-bit flips per region of the blob
+PARTIAL_RANDOM, PARTIAL_RANDOM_SPECIES = 3, 8
+FLIPS_PER_REGION = 1  # seeded single-bit flips per region of the blob
 GBATC_KERNELS = ("gbatc_project_batched", "gbatc_select_accumulate",
                  "gbatc_correct_batched", "gbatc_project", "gbatc_correct")
 
@@ -1792,7 +2038,7 @@ def phase_partial_path(torch, conv: tuple, attention: tuple) -> dict:
 # attention blob one time in SERVE_ATTENTION. Planted among them:
 # SERVE_DUPLICATES exact duplicates, one unknown blob id, one malformed
 # request (species=99).
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_MAX_BATCH = 8, 8, 32
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_MAX_BATCH = 8, 3, 32
 SERVE_ALL_SPECIES, SERVE_ATTENTION, SERVE_DUPLICATES = 16, 8, 4
 # a serving box holding the two hot blobs keeps every species' decoded
 # guarantee artifacts (about 0.5 GB for a 1e-3 blob of 58 x 20480 blocks)
@@ -2355,6 +2601,7 @@ def phase_mesh_path(torch, args, main_info: dict, data, main_codec) -> dict:
         "losses": fits, "replicas_bitwise_equal": True,
         "latents_equal_one_device": True, "decode_bitwise": True,
         "max_nrmse": float(nrmse.max()), "target_nrmse": target,
+        "per_species_nrmse": nrmse.tolist(),
         "compression_ratio": rep.compression_ratio, "blob_bytes": len(blob),
         "blob_sha256": hashlib.sha256(blob).hexdigest()}
     del gb, dp, blob, rep, field, shards
@@ -3829,7 +4076,8 @@ def phase_analysis_path(torch, main_codec, attention_artifact) -> dict:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
-                    default="env,build,kernels,main_path,attention_path,ops_path,"
+                    default="env,build,kernels,main_path,attention_path,wide_block_path,"
+                            "ops_path,"
                             "partial_path,serve_path,stream_path,mesh_path,lm_serve_path,"
                             "lm_train_path,dryrun_path,analysis_path")
     ap.add_argument("--launches", type=int, default=20,
@@ -3868,10 +4116,10 @@ def run(torch, args, phases) -> None:
         phase_env(torch)
     if "build" in phases:
         phase_build()
-    rows = []
+    rows, missed = [], []
     if "kernels" in phases:
         launches = max(20, args.launches)
-        batched = phase_kernels(torch, launches)
+        batched, missed = phase_kernels(torch, launches)
         flash = phase_flash(torch, launches)
         ops_rows = phase_ops_kernels(torch, launches)
         # the order of PERF.md's table of TPU kernels
@@ -3890,7 +4138,7 @@ def run(torch, args, phases) -> None:
     if "analysis_path" in phases and not {"main_path", "attention_path"} <= set(phases):
         fail("analysis_path needs the main_path and attention_path phases")
     data = temperature = main_codec = attention_artifact = None
-    if "main_path" in phases or "attention_path" in phases:
+    if {"main_path", "attention_path", "wide_block_path"} & set(phases):
         data, temperature, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
         if "main_path" in phases:
@@ -3899,6 +4147,8 @@ def run(torch, args, phases) -> None:
         if "attention_path" in phases:
             paths["attention_path"], *outputs["attention_path"], attention_artifact = \
                 phase_attention_path(torch, args, data)
+        if "wide_block_path" in phases:
+            paths["wide_block_path"] = phase_wide_block_path(torch, args, data)
     ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
     partial = (phase_partial_path(torch, outputs["main_path"],
                                   outputs["attention_path"])
@@ -3925,9 +4175,9 @@ def run(torch, args, phases) -> None:
                 if "analysis_path" in phases else None)
     analysis_inputs = None
     for r in rows:
-        by_path = {p: {"compress": info["launches_compress"][r["name"]],
-                       "decompress": info["launches_decompress"][r["name"]],
-                       "second_compress": info["launches_second_compress"][r["name"]]}
+        by_path = {p: {part: info[f"launches_{part}"][r["name"]]
+                       for part in ("compress", "decompress", "second_compress",
+                                    "selective") if f"launches_{part}" in info}
                    for p, info in paths.items()}
         if ops_calls:
             by_path["ops_path"] = {op: c["launches"][r["name"]]
@@ -3950,11 +4200,13 @@ def run(torch, args, phases) -> None:
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
-                                         "attention_path", "ops_path",
+                                         "attention_path", "wide_block_path", "ops_path",
                                          "partial_path", "serve_path",
                                          "stream_path", "mesh_path",
                                          "lm_serve_path", "lm_train_path",
                                          "dryrun_path", "analysis_path"))
+    if missed:
+        fail(f"the batched routes' outputs at {missed} differ from ANY_D_SHA256's")
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

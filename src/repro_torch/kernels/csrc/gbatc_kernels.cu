@@ -19,7 +19,8 @@
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
 //
-// Four kernels serve these modes.
+// Six kernels serve these modes: four up to D = 128, and past it two that
+// stage the basis in k panels ("Wide blocks" below).
 //
 // fp64 project (project_f64_dmma): at the main path's (58, 20480, 80) the
 // work is 760 MB read, 760 MB written and 15.2 GFLOP, so bytes bound it
@@ -140,7 +141,7 @@
 //   of shared memory for select, 67 KB for correct), one at D <= 128 (164
 //   KB for select).
 //
-// The masked mode and the fp64 correct and select modes
+// The masked mode and the fp64 correct and select modes up to D = 128
 // (gbatc_tile_kernel; the masked mode replaces the Pallas gbatc_correct,
 // src/repro/kernels/gbatc_project.py:140, and reaches over half its byte
 // bound): at D = 80 each output element costs 80 FMAs against 8 (fp32) or
@@ -172,53 +173,64 @@
 //   mask in there. Neither the mask nor the masked coefficients are ever
 //   written to device memory.
 //
-// Wide blocks, 128 < D <= 256 (project_f64_wide, correct_f32_wide): the
-// fp64 projection and the fp32 correct and select modes also take the
-// weight checkpoint's 256-long blocks (train/checkpoint.py). A species'
-// basis is 512 KB in fp64 and 256 KB in fp32 there, more than the 227 KB
-// of shared memory a CTA may hold, so both kernels stage it in k panels
-// beside the matching panel of the row tile, one ring of panels a CTA that
-// runs on across its tiles. At (1, 65536, 256) the projection moves 268 MB
-// (0.080 ms at 3.35 TB/s) for 8.6 GFLOP (0.128 ms on the fp64 tensor
-// cores), and correct 201 MB for 4.3 G FFMA (0.128 ms at 67 TFLOP/s): the
-// operations bound both. Select moves 268 MB (0.080 ms) and needs FFMAs
-// only for the kept terms, about half of them at uniform cuts: its bytes
-// bound it. Design:
+// Wide blocks, D > 128 (project_f64_wide, gbatc_wide): every mode takes
+// any D, as the Pallas wrappers do by padding. The weight checkpoint's
+// blocks are 256 long (train/checkpoint.py) and a codec's 8 x 8 x 8 block
+// is 512. A species' basis is 512 KB in fp64 and 256 KB in fp32 at D =
+// 256, more than the 227 KB of shared memory a CTA may hold, so both
+// kernels stage it in k panels beside the matching panel of the row tile,
+// one ring of panels a CTA that runs on across its tiles. At (1, 65536,
+// 256) the projection moves 268 MB (0.080 ms at 3.35 TB/s) for 8.6 GFLOP
+// (0.128 ms on the fp64 tensor cores), and correct 201 MB for 4.3 G FFMA
+// (0.128 ms at 67 TFLOP/s): the operations bound both. Select moves 268 MB
+// (0.080 ms) and needs FFMAs only for the kept terms, about half of them at
+// uniform cuts: its bytes bound it. At a codec's (58, 1600, 512) every mode
+// does 2 x 58 x 1600 x 512^2 = 48.7 GFLOP (0.73 ms at 67 TFLOP/s) against
+// 0.13-0.26 ms of bytes: the operations bound all of them. Design:
 //
-// * project_f64_wide: DMMA m16n8k8 in fp64 as project_f64_dmma. A 64-row
-//   tile takes all 256 columns: 8 warps of 32 rows by 64 columns, 64 fp64
+// * project_f64_wide (the fp64 projection): DMMA m16n8k8 in fp64 as
+//   project_f64_dmma. A 64-row tile takes a slab of 256 columns (all of
+//   them at D <= 256): 8 warps of 32 rows by 64 columns, 64 fp64
 //   accumulators a lane. A panel is 32 k: the tile's A[:, k0 : k0 + 32]
-//   (18 KB, rows padded to 36 doubles) and U[k0 : k0 + 32, :] as it lies
-//   in device memory (66 KB, rows padded to 264 doubles), both copied 16
-//   bytes at a time; 2 stages, 168 KB, one CTA an SM. Each basis byte
-//   fetched from L2 serves 64 rows, so the L2-to-SM stream is 537 MB of
-//   basis and 134 MB of A. A B fragment is two 8-byte loads a lane (rows
-//   q and q + 4), which take the 4 wavefronts of one 16-byte load: a
-//   panel in fragment order would take 8-byte copies, and filling it that
-//   way measured slower than the loads it saves.
-// * correct_f32_wide: 128 x 128 tiles (a row tile's two column tiles
-//   follow each other, so its c panels come from L2 the second time), 8
-//   warps of 32 rows by 64 columns, an 8 x 8 register tile a thread. A
-//   panel is 16 k: c[rows, k0 : k0 + 16] (select: and rank) and U[j0 : j0
-//   + 128, k0 : k0 + 16] land as they lie in device memory through a
-//   3-stage cp.async ring, and the thread that copied a chunk writes it
-//   (select: c = +0 where rank >= m) into a double buffer laid out [k][row]
-//   and [k][j]; each k is then 2 + 2 16-byte loads for 64 FFMAs. Each
-//   basis byte serves 128 rows: 134 MB of basis and 134 MB of c through
-//   L2. 82 KB (correct) or 106 KB (select) a CTA, two CTAs an SM under 128
-//   registers; what spills under that cap (16-24 bytes a thread) is
-//   stored and loaded around the copies, the transposes and the epilogue,
-//   never in the FFMA loop. x is read once an element, in the epilogue.
+//   (18 KB, rows padded to 36 doubles) and U[k0 : k0 + 32, j0 : j0 + 256]
+//   as it lies in device memory (66 KB, rows padded to 264 doubles), both
+//   copied 16 bytes at a time; 2 stages, 168 KB, one CTA an SM. Each basis
+//   byte fetched from L2 serves 64 rows. A B fragment is two 8-byte loads
+//   a lane (rows q and q + 4), which take the 4 wavefronts of one 16-byte
+//   load: a panel in fragment order would take 8-byte copies, and filling
+//   it that way measured slower than the loads it saves. Past D = 256 a
+//   row tile's slabs follow each other, each looping k over all of D.
+// * gbatc_wide<T, MODE> (fp32 correct and select, fp64 correct and select,
+//   the masked mode in both dtypes, and the fp32 projection): 128 x 128
+//   tiles (a row tile's column tiles follow each other, so its A panels
+//   come from L2 the second time), 8 warps of 32 rows by 64 columns, an
+//   8 x 8 register tile a thread. A panel is 16 k: A[rows, k0 : k0 + 16]
+//   (c or the residual; select: and rank; masked: and the mask) and the
+//   basis' piece land as they lie in device memory through a 3-stage
+//   cp.async ring, and the thread that copied a chunk writes it (select: c
+//   = +0 where rank >= m; masked: c times the mask) into a double buffer
+//   laid out [k][row] and [k][j]; each k is then 2 + 2 16-byte loads (fp64:
+//   4 + 4) for 64 FMAs. The correct modes read U[j0 : j0 + 128, k0 : k0 +
+//   16] and transpose it; the projection reads U[k0 : k0 + 16, j0 : j0 +
+//   128], already [k][j], and adds no x. fp32: 82 KB (correct, project) or
+//   106 KB (select, masked) a CTA, two CTAs an SM under 128 registers;
+//   what spills under that cap is stored and loaded around the copies, the
+//   transposes and the epilogue, never in the FFMA loop. fp64: 162, 187 or
+//   210 KB and one CTA an SM under 255 registers (64 fp64 accumulators a
+//   thread). x is read once an element, in the epilogue.
 // * The order of arithmetic is fixed, so no bit depends on the tiling.
-//   fp32: acc = +0, acc = fmaf(c'_k, U[j][k], acc) for k ascending up to
-//   ceil(D / 4) * 4 with +0 terms past D, out = x + acc, c' = +0 where
-//   rank >= m; select on (c, rank, m) stays bitwise correct on where(rank
-//   < m, c, 0). fp64: each fragment's m16n8k8 steps ascending from +0, no
-//   step past ceil(D / 8), +0 in A and B past D. A panel only changes
-//   which thread computes an element and when its operands arrive; no
-//   split-k, no TF32, no fast-math. The kernels phase of chip_smoke.py
-//   holds their outputs' sha256 at every WIDE shape to pinned values
-//   (WIDE_SHA256).
+//   gbatc_wide: acc = +0, acc = fma(c'_k, B[k][j], acc) for k ascending up
+//   to ceil(D / E) * E (E = 4 fp32, 2 fp64 values a 16-byte chunk) with +0
+//   terms past D, out = x + acc (the projection: acc), c' = +0 where rank
+//   >= m, c' = c * mask in the masked mode; select on (c, rank, m) stays
+//   bitwise correct on where(rank < m, c, 0). project_f64_wide: each
+//   fragment's m16n8k8 steps ascending from +0, no step past ceil(D / 8),
+//   +0 in A and B past D. A panel or a slab only changes which thread
+//   computes an element and when its operands arrive; no split-k, no TF32,
+//   no fast-math. The kernels phase of chip_smoke.py holds their outputs'
+//   sha256 at every WIDE shape to pinned values (WIDE_SHA256, the fp32
+//   correct and select and the fp64 projection since their first build),
+//   and every route's at every ANY_D shape (ANY_D_SHA256).
 //
 // fp64 at D = 80 needs 51.2 KB for the basis alone, above the 48 KB static
 // limit: all shared memory is dynamic and every launcher raises the
@@ -235,9 +247,9 @@ constexpr int TY = 16;                   // row lanes
 constexpr int THREADS = TX * TY;         // 256
 constexpr int RM = TILE_ROWS / TY;       // rows per thread
 constexpr int KU = 4;                    // k unroll = shared row padding
-constexpr int MAX_D = 128;       // the tile kernel, the fp32 projection
-constexpr int MAX_D_WIDE = 256;  // the fp64 projection, fp32 correct/select
+constexpr int MAX_D = 128;  // the tile, ring and 3xTF32 kernels; wide past it
 
+constexpr int MODE_PROJECT = 0;
 constexpr int MODE_CORRECT = 1;
 constexpr int MODE_SELECT = 2;
 constexpr int MODE_MASKED = 3;
@@ -650,7 +662,7 @@ project_f64_dmma(const double* __restrict__ r, const double* __restrict__ basis,
   cp_async_wait<0>();
 }
 
-// ---- fp64 projection at 128 < D <= 256 -------------------------------------
+// ---- fp64 projection past D = 128 ------------------------------------------
 
 constexpr int WIDE_THREADS = 256;  // 8 warps, both wide kernels
 
@@ -660,24 +672,29 @@ struct WideTile {
   long long r0;
 };
 
-// A 64-row tile against all of a species' columns. Warp (wm, wn) owns rows
-// 32 wm .. +31 (two A fragments) and n fragments 8 wn .. +7. A CTA walks
-// its tiles as one stream of k panels (WIDE_KP64 k each): a panel is the
-// tile's A[:, k0 : k0 + KP] (rows padded to KP + 4 doubles) and U[k0 : k0
-// + KP, :] as it lies in device memory (rows padded to 264 doubles), both
-// copied by all threads with cp.async; lane (g, q) reads its B fragment as
-// U[k0 + 8 ks + q][n] and U[k0 + 8 ks + q + 4][n], n = 8 f + g.
+// A 64-row tile against a slab of up to WIDE_SLAB64 of a species' columns
+// (one slab at D <= 256; past it a row tile's slabs follow each other, so
+// its A panels come from L2 the second time). Warp (wm, wn) owns rows
+// 32 wm .. +31 (two A fragments) and n fragments 8 wn .. +7 of the slab.
+// A CTA walks its tiles as one stream of k panels (WIDE_KP64 k each): a
+// panel is the tile's A[:, k0 : k0 + KP] (rows padded to KP + 4 doubles)
+// and U[k0 : k0 + KP, j0 : j0 + 256] as it lies in device memory (rows
+// padded to 264 doubles), both copied by all threads with cp.async; lane
+// (g, q) reads its B fragment as U[k0 + 8 ks + q][n] and U[k0 + 8 ks + q +
+// 4][n], n = j0 + 8 f + g.
 constexpr int WIDE_KP64 = 32;     // k a panel of the fp64 projection
 constexpr int WIDE_STAGES64 = 2;  // panels in its ring
+constexpr int WIDE_SLAB64 = 256;  // columns a tile
 
 __global__ void __launch_bounds__(WIDE_THREADS, 1)
 project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
                  double* __restrict__ out, int s_count, long long nb, int d,
                  int vec) {
   constexpr int TM = 64, KP = WIDE_KP64, KS = KP / 8, STAGES = WIDE_STAGES64;
+  constexpr int SLAB = WIDE_SLAB64;
   // row pads: 4 mod 16 doubles puts an A fragment's 8 rows on distinct
   // banks, 8 mod 32 a B fragment's rows q and q + 1 on distinct bank halves
-  constexpr int LDA = KP + 4, LDB = MAX_D_WIDE + 8;
+  constexpr int LDA = KP + 4, LDB = SLAB + 8;
   constexpr int A_WORDS = TM * LDA, B_WORDS = KP * LDB;
   constexpr int STAGE = A_WORDS + B_WORDS;  // doubles a ring buffer
   static_assert(LDA % 16 == 4 && LDB % 32 == 8, "panel shape");
@@ -687,36 +704,33 @@ project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wm = warp & 1, wn = warp >> 1;
   const int g = lane >> 2, q = lane & 3;
-  const int ks_n = (d + 7) / 8;  // k steps of D, and n fragments
+  const int ks_n = (d + 7) / 8;  // k steps of D
   const int dp = ks_n * 8;       // D padded with zero terms
   const int panels = (ks_n + KS - 1) / KS;
-  const int nf_w = min(8, ks_n - wn * 8);  // this warp's n fragments
+  const int nsl = (d + SLAB - 1) / SLAB;  // column slabs
   // tile and step indices fit an int (the launcher checks tiles x panels)
-  const int tps = (int)((nb + TM - 1) / TM);  // tiles a species
+  const int tps = (int)((nb + TM - 1) / TM) * nsl;  // tiles a species
   const int total = tps * s_count;
   const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
   const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
   const int steps = (t_end - t_begin) * panels;
 
+  // species-major, then row tile, then column slab
   auto tile = [&](int t) {
     WideTile w;
-    w.s = t / tps, w.j0 = 0;
-    const long long row0 = (long long)(t - w.s * tps) * TM;
+    w.s = t / tps;
+    const int rt = (t - w.s * tps) / nsl;
+    w.j0 = (t - w.s * tps - rt * nsl) * SLAB;
+    const long long row0 = (long long)rt * TM;
     w.r0 = w.s * nb + row0;
     w.rows = (int)min((long long)TM, nb - row0);
     return w;
   };
 
-  // A thread's chunks of a B panel are (k, n) = (i / bw, i % bw), i = tid
-  // + 256 n, bw the chunks of a row: the walk's start and step, once
-  const int bw = vec ? d / 2 : d;
-  const int bk0 = tid / bw, bn0 = tid % bw;
-  const int bdk = WIDE_THREADS / bw, bdn = WIDE_THREADS % bw;
-
   // The copies run STAGES - 1 steps ahead of the MMAs: step iv, panel ip
   // of tile it, goes into ring buffer iv % STAGES. k in [D, dp) and
-  // columns in [D, dp) are zero terms, in A and in B, as in
-  // project_f64_dmma.
+  // columns in [jw, jwp) of a slab jw wide are zero terms, in A and in B,
+  // as in project_f64_dmma.
   int it = t_begin, ip = 0, iv = 0;
   WideTile iw{};
   auto issue = [&]() {
@@ -724,17 +738,23 @@ project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
     const int k0 = ip * KP;
     const int kv = min(KP, d - k0);   // k of D in this panel
     const int kn = min(KP, dp - k0);  // k its MMAs run
+    const int jw = min(SLAB, d - iw.j0);  // columns of D in this slab
+    const int jwp = (jw + 7) / 8 * 8;     // and its MMAs
     double* a_s = ring + (iv % STAGES) * STAGE;
     double* b_s = a_s + A_WORDS;
     const double* src = r + (size_t)iw.r0 * d + k0;
-    const double* u = basis + ((size_t)iw.s * d + k0) * d;
+    const double* u = basis + ((size_t)iw.s * d + k0) * d + iw.j0;
+    // a thread's chunks of the B panel are (k, n) = (i / bw, i % bw), i =
+    // tid + 256 n, bw the chunks of a row: the walk's start and step
+    const int bw = vec ? jw / 2 : jw;
+    const int bdk = WIDE_THREADS / bw, bdn = WIDE_THREADS % bw;
     if (vec) {  // D even: 16-byte pairs
       for (int i = tid; i < TM * KP / 2; i += WIDE_THREADS) {
         const int row = i / (KP / 2), k = i % (KP / 2) * 2;
         if (row < iw.rows && k < kv)
           cp_async16(a_s + row * LDA + k, src + (size_t)row * d + k);
       }
-      for (int k = bk0, n = bn0; k < kv;) {
+      for (int k = tid / bw, n = tid % bw; k < kv;) {
         cp_async16(b_s + k * LDB + 2 * n, u + (size_t)k * d + 2 * n);
         k += bdk, n += bdn;
         if (n >= bw) n -= bw, ++k;
@@ -745,21 +765,21 @@ project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
         if (row < iw.rows && k < kv)
           cp_async8(a_s + row * LDA + k, src + (size_t)row * d + k);
       }
-      for (int k = bk0, n = bn0; k < kv;) {
+      for (int k = tid / bw, n = tid % bw; k < kv;) {
         cp_async8(b_s + k * LDB + n, u + (size_t)k * d + n);
         k += bdk, n += bdn;
         if (n >= bw) n -= bw, ++k;
       }
     }
-    // the zero terms: A columns [kv, kn); B rows [kv, kn) and columns [D, dp)
+    // the zero terms: A columns [kv, kn); B rows [kv, kn) and columns [jw, jwp)
     if (kn > kv) {
       for (int i = tid; i < iw.rows * (kn - kv); i += WIDE_THREADS)
         a_s[i / (kn - kv) * LDA + kv + i % (kn - kv)] = 0.0;
     }
-    if (dp > d) {
-      for (int i = tid; i < kn * dp; i += WIDE_THREADS) {
-        const int k = i / dp, n = i % dp;
-        if (k >= kv || n >= d) b_s[k * LDB + n] = 0.0;
+    if (jwp > jw || kn > kv) {
+      for (int i = tid; i < kn * jwp; i += WIDE_THREADS) {
+        const int k = i / jwp, n = i % jwp;
+        if (k >= kv || n >= jw) b_s[k * LDB + n] = 0.0;
       }
     }
     ++iv;
@@ -774,6 +794,7 @@ project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
 
   double acc[2][8][4];
   WideTile w{};
+  int jw = 0, nf_w = 0;  // the tile's columns, and this warp's n fragments
   for (int v = 0, t = t_begin, p = 0; v < steps; ++v) {
     cp_async_wait<STAGES - 2>();  // step v has landed (this thread's copies)
     __syncthreads();              // ... everyone's; step v-1 is done with
@@ -782,13 +803,15 @@ project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
 
     if (p == 0) {  // a new tile: acc = +0
       w = tile(t);
+      jw = min(SLAB, d - w.j0);
+      nf_w = min(8, (jw + 7) / 8 - wn * 8);
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
         for (int j = 0; j < 8; ++j)
           acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.0;
     }
-    if (nf_w > 0) {  // warp-uniform: D may leave this warp's columns empty
+    if (nf_w > 0) {  // warp-uniform: the slab may leave this warp's columns empty
       const double* a_s = ring + (v % STAGES) * STAGE;
       const double* a0 = a_s + (wm * 32 + g) * LDA + q;
       const double* b0 = a_s + A_WORDS + q * LDB + wn * 64 + g;
@@ -829,17 +852,17 @@ project_f64_wide(const double* __restrict__ r, const double* __restrict__ basis,
       for (int h = 0; h < 2; ++h) {
         const int row = wm * 32 + mi * 16 + h * 8 + g;
         if (row >= w.rows) continue;
-        double* o = out + (size_t)(w.r0 + row) * d;
+        double* o = out + (size_t)(w.r0 + row) * d + w.j0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int col = (wn * 8 + j) * 8 + 2 * q;
-          if (j >= nf_w || col >= d) continue;
+          if (j >= nf_w || col >= jw) continue;
           if (vec) {
             *reinterpret_cast<double2*>(o + col) =
                 make_double2(acc[mi][j][2 * h], acc[mi][j][2 * h + 1]);
           } else {
             o[col] = acc[mi][j][2 * h];
-            if (col + 1 < d) o[col + 1] = acc[mi][j][2 * h + 1];
+            if (col + 1 < jw) o[col + 1] = acc[mi][j][2 * h + 1];
           }
         }
       }
@@ -1313,82 +1336,119 @@ inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// ---- fp32 correct and select at 128 < D <= 256 ----------------------------
+// ---- every mode past D = 128: k panels through a cp.async ring ---------------
 
-constexpr int WIDE_TILE = 128;   // rows and columns of a correct/select tile
-constexpr int WIDE_KP32 = 16;    // k a panel
-constexpr int WIDE_STAGES32 = 3; // panels in the ring
+constexpr int WIDE_TILE = 128;   // rows and columns of a tile
+constexpr int WIDE_KP = 16;      // k a panel
+constexpr int WIDE_STAGES = 3;   // panels in the ring
+
+template <int BYTES>
+__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
+  if constexpr (BYTES == 16) cp_async16(dst, src);
+  else if constexpr (BYTES == 8) cp_async8(dst, src);
+  else cp_async4(dst, src);
+}
+
+// KU consecutive values to a 16-byte aligned address
+template <typename T>
+__device__ __forceinline__ void store_ku(T* p, const T (&v)[KU]) {
+  constexpr int N = Pack<T>::N;
+#pragma unroll
+  for (int q = 0; q < KU / N; ++q) {
+    Pack<T> t;
+#pragma unroll
+    for (int c = 0; c < N; ++c) t.v[c] = v[q * N + c];
+    reinterpret_cast<Pack<T>*>(p)[q] = t;
+  }
+}
 
 // A 128 x 128 tile of out. Warp w owns rows 32 (w % 4) .. +31 and columns
 // 64 (w / 4) .. +63; lane (ry, cx) = (lane / 8, lane % 8) owns rows 4 ry +
 // r + 16 h and columns 4 cx + e + 32 h (r, e < 4; h < 2) of them. A CTA
 // walks its tiles as one stream of k panels (KP k each). The cp.async ring
-// lands a step's c[rows, k0 : k0 + KP] (select: and rank) and U[j0 : j0 +
-// 128, k0 : k0 + KP] as they lie in device memory, a row's 16-byte chunks
-// XOR-swizzled so the chunks a warp reads at once fall on distinct banks;
-// the thread that copied a chunk then writes it (select: masked) into a
-// double buffer laid out [k][row] and [k][j], so each k is two 16-byte
-// loads of A and two of B for 64 FFMAs.
-template <int MODE>
-__global__ void __launch_bounds__(WIDE_THREADS, 2)
-correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
-                 const int* __restrict__ rank,  // select only, (S, NB, D)
-                 const int* __restrict__ m,     // select only, (S, NB)
-                 const float* __restrict__ basis, float* __restrict__ out,
-                 int s_count, long long nb, int d, int vec) {
-  constexpr int T = WIDE_TILE, KP = WIDE_KP32, STAGES = WIDE_STAGES32;
-  constexpr int CH = KP / 4;   // 16-byte chunks a panel row
-  constexpr int RPL = 8 / CH;  // panel rows a 128-byte line of banks
-  constexpr bool SELECT = MODE == MODE_SELECT;
-  constexpr int LAND = T * KP;                    // floats of one operand
-  constexpr int STAGE = LAND * (SELECT ? 3 : 2);  // [c | U | rank]
-  // transposed rows padded to 132 floats: the two chunks a warp stores at
-  // once, k rows 4 apart, fall on distinct banks
-  constexpr int LDT = T + 4;
+// lands a step's A[rows, k0 : k0 + KP] (c, or the residual R of the
+// projection; select: and rank; masked: and the mask) and the matching
+// piece of the basis as they lie in device memory: U[j0 : j0 + 128, k0 :
+// k0 + KP] for the U^T product, U[k0 : k0 + KP, j0 : j0 + 128] for the
+// projection's R U. The A rows' 16-byte chunks are XOR-swizzled so the
+// chunks a warp reads at once fall on distinct banks; the thread that
+// copied a chunk then writes it (select: masked; masked: times the mask)
+// into a double buffer laid out [k][row] and [k][j], so each k is two
+// 16-byte loads of A and two of B (fp64: four and four) for 64 FMAs.
+template <typename T, int MODE, int MINB>
+__global__ void __launch_bounds__(WIDE_THREADS, MINB)
+gbatc_wide(const T* __restrict__ x,         // x_rec; none in the projection
+           const T* __restrict__ c,         // coefficients, or the residual
+           const int* __restrict__ rank,    // select only, (S, NB, D)
+           const int* __restrict__ m,       // select only, (S, NB)
+           const T* __restrict__ mk,        // masked only, (S, NB, D)
+           const T* __restrict__ basis, T* __restrict__ out, int s_count,
+           long long nb, int d, int vec) {
+  constexpr int TT = WIDE_TILE, KP = WIDE_KP, STAGES = WIDE_STAGES;
+  constexpr int E = Pack<T>::N;  // values a 16-byte chunk
+  constexpr int CH = KP / E;     // chunks a panel row
+  constexpr int RPL = CH < 8 ? 8 / CH : 1;  // panel rows a 128-byte line of banks
+  constexpr bool SELECT = MODE == MODE_SELECT, MASKED = MODE == MODE_MASKED;
+  constexpr bool PROJECT = MODE == MODE_PROJECT;
+  constexpr int LAND = TT * KP;  // values of one operand a step
+  // bytes a ring buffer: [A | B | rank or mask]
+  constexpr int STAGE_BYTES =
+      LAND * (2 * (int)sizeof(T) + (SELECT ? 4 : MASKED ? (int)sizeof(T) : 0));
+  // transposed rows padded to 132 values: the two chunks a warp stores at
+  // once, k rows apart, fall on distinct banks
+  constexpr int LDT = TT + 4;
   constexpr int TBUF = 2 * KP * LDT;  // [A^T | B^T]
   // the cuts of tile t + 1 ride with the last panel of tile t into one of
   // two slots: safe while a tile has at least STAGES panels (9 at D > 128)
   static_assert(KP == 16 && STAGES >= 2 && STAGES <= 9, "panel shape");
+  static_assert(TT * CH % WIDE_THREADS == 0 && STAGE_BYTES % 16 == 0, "chunks");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ring = reinterpret_cast<float*>(smem_raw);  // STAGES landed steps
-  float* tr = ring + STAGES * STAGE;                 // 2 transposed steps
-  int* m_s = reinterpret_cast<int*>(tr + 2 * TBUF);  // select: (2, T) cuts
+  T* tr = reinterpret_cast<T*>(smem_raw + STAGES * STAGE_BYTES);  // 2 steps
+  int* m_s = reinterpret_cast<int*>(tr + 2 * TBUF);  // select: (2, TT) cuts
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // this thread's rows row_t + r + 16 h and columns col_t + e + 32 h
   const int row_t = (warp & 3) * 32 + (lane >> 3) * 4;
   const int col_t = (warp >> 2) * 64 + (lane & 7) * 4;
-  const int ldk = (d + KU - 1) / KU * KU;  // k padded with zero terms
+  const int ldk = (d + E - 1) / E * E;  // k padded with zero terms
   const int panels = (ldk + KP - 1) / KP;
-  const int nt = (d + T - 1) / T;  // column tiles
+  const int nt = (d + TT - 1) / TT;  // column tiles
   // tile and step indices fit an int (the launcher checks tiles x panels)
-  const int tps = (int)((nb + T - 1) / T) * nt;  // tiles a species
+  const int tps = (int)((nb + TT - 1) / TT) * nt;  // tiles a species
   const int total = tps * s_count;
   const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
   const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
   const int steps = (t_end - t_begin) * panels;
 
   // species-major, then row tile, then column tile: a row tile's column
-  // tiles follow each other, so its c panels are read again from L2
+  // tiles follow each other, so its A panels are read again from L2
   auto tile = [&](int t) {
     WideTile w;
     w.s = t / tps;
     const int rt = (t - w.s * tps) / nt;
-    w.j0 = (t - w.s * tps - rt * nt) * T;
-    const long long row0 = (long long)rt * T;
+    w.j0 = (t - w.s * tps - rt * nt) * TT;
+    const long long row0 = (long long)rt * TT;
     w.r0 = w.s * nb + row0;
-    w.rows = (int)min((long long)T, nb - row0);
+    w.rows = (int)min((long long)TT, nb - row0);
     return w;
   };
-  // landed offset of chunk ch of panel row `row`
-  auto land = [](int row, int ch) {
-    return row * KP + ((ch ^ (row / RPL % CH)) << 2);
+  auto stage = [&](int v, T*& a_l, T*& b_l, int*& r_l, T*& m_l) {
+    unsigned char* base = smem_raw + (v % STAGES) * STAGE_BYTES;
+    a_l = reinterpret_cast<T*>(base);
+    b_l = a_l + LAND;
+    r_l = reinterpret_cast<int*>(b_l + LAND);
+    m_l = reinterpret_cast<T*>(b_l + LAND);
   };
-  // A thread copies, and later transposes, the chunks (row, ch) of c
-  // (rank) and U given by chunk(tid + 256 n): a warp's are 16 rows by two
-  // neighbouring chunks, whole 32-byte sectors. Where D % 4 != 0 or an
-  // operand is not 16-byte aligned, the walk is over elements (row, k) =
-  // (i % T, i / T).
+  // landed offset of chunk ch of A panel row `row` (and of U^T's row j)
+  auto land = [](int row, int ch) {
+    return row * KP + (ch ^ (row / RPL % CH)) * E;
+  };
+  // A thread copies, and later transposes, the chunks (row, ch) of the A
+  // operands and U given by chunk(tid + 256 n): a warp's are 16 rows by two
+  // neighbouring chunks, whole 32-byte sectors. The projection's U panel
+  // (KP rows of 128 columns) is walked as (k, jc) = (i / (TT / E), i % (TT
+  // / E)) and lands unswizzled. Where D % E != 0 or an operand is not
+  // 16-byte aligned, the walk is over values (row, k) = (i % TT, i / TT).
   auto chunk = [](int i, int& row, int& ch) {
     row = (i >> 5 & 7) * 16 + (i & 15);
     ch = (i >> 8) * 2 + (i >> 4 & 1);
@@ -1401,34 +1461,47 @@ correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
   auto issue = [&]() {
     const int k0 = ip * KP;
     const int kv = min(KP, d - k0);     // k of D in this panel
-    const int jn = min(T, d - iw.j0);   // columns of D in this tile
-    float* a_l = ring + (iv % STAGES) * STAGE;
-    float* b_l = a_l + LAND;
-    int* r_l = reinterpret_cast<int*>(b_l + LAND);
+    const int jn = min(TT, d - iw.j0);  // columns of D in this tile
+    T *a_l, *b_l, *m_l;
+    int* r_l;
+    stage(iv, a_l, b_l, r_l, m_l);
     const size_t ga = (size_t)iw.r0 * d + k0;
-    const float* ub = basis + ((size_t)iw.s * d + iw.j0) * d + k0;
+    const T* ub = PROJECT ? basis + ((size_t)iw.s * d + k0) * d + iw.j0
+                          : basis + ((size_t)iw.s * d + iw.j0) * d + k0;
     if (vec) {
-      for (int i = tid; i < T * CH; i += WIDE_THREADS) {
+      for (int i = tid; i < TT * CH; i += WIDE_THREADS) {
         int row, ch;
         chunk(i, row, ch);
-        if (ch * 4 >= kv) continue;
-        const int o = land(row, ch);
-        if (row < iw.rows) {
-          cp_async16(a_l + o, c + ga + (size_t)row * d + ch * 4);
-          if (SELECT) cp_async16(r_l + o, rank + ga + (size_t)row * d + ch * 4);
+        if (ch * E < kv) {
+          const int o = land(row, ch);
+          const size_t g = ga + (size_t)row * d + ch * E;
+          if (row < iw.rows) {
+            cp_async16(a_l + o, c + g);
+            if (SELECT) cp_async_n<4 * E>(r_l + o, rank + g);
+            if (MASKED) cp_async16(m_l + o, mk + g);
+          }
+          if (!PROJECT && row < jn) cp_async16(b_l + o, ub + (size_t)row * d + ch * E);
         }
-        if (row < jn) cp_async16(b_l + o, ub + (size_t)row * d + ch * 4);
+        if (PROJECT) {
+          const int k = i / (TT / E), jc = i % (TT / E) * E;
+          if (k < kv && jc < jn) cp_async16(b_l + k * TT + jc, ub + (size_t)k * d + jc);
+        }
       }
     } else {
-      for (int i = tid; i < T * KP; i += WIDE_THREADS) {
-        const int row = i % T, k = i / T;
+      for (int i = tid; i < TT * KP; i += WIDE_THREADS) {
+        const int row = i % TT, k = i / TT;
         if (k >= kv) continue;
-        const int o = land(row, k >> 2) + (k & 3);
+        const int o = land(row, k / E) + k % E;
+        const size_t g = ga + (size_t)row * d + k;
         if (row < iw.rows) {
-          cp_async4(a_l + o, c + ga + (size_t)row * d + k);
-          if (SELECT) cp_async4(r_l + o, rank + ga + (size_t)row * d + k);
+          cp_async_n<(int)sizeof(T)>(a_l + o, c + g);
+          if (SELECT) cp_async4(r_l + o, rank + g);
+          if (MASKED) cp_async_n<(int)sizeof(T)>(m_l + o, mk + g);
         }
-        if (row < jn) cp_async4(b_l + o, ub + (size_t)row * d + k);
+        if (row < jn) {
+          if (PROJECT) cp_async_n<(int)sizeof(T)>(b_l + k * TT + row, ub + (size_t)k * d + row);
+          else cp_async_n<(int)sizeof(T)>(b_l + o, ub + (size_t)row * d + k);
+        }
       }
     }
     ++iv;
@@ -1437,62 +1510,73 @@ correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
     if (++it < t_end) {
       iw = tile(it);
       if (SELECT && tid < iw.rows)  // its cuts ride with this tile's last panel
-        cp_async4(m_s + (it - t_begin) % 2 * T + tid, m + iw.r0 + tid);
+        cp_async4(m_s + (it - t_begin) % 2 * TT + tid, m + iw.r0 + tid);
     }
   };
 
   // The FMAs' step v: panel p of tile t (w). Step v's own chunks, landed,
-  // go into transposed buffer v % 2 (select: c = +0 where rank >= m); k in
-  // [D, ldk) are +0 terms in A and in B.
+  // go into transposed buffer v % 2 (select: c = +0 where rank >= m;
+  // masked: c times the mask); k in [D, ldk) are +0 terms in A and in B.
   WideTile w = iw;
   auto transpose = [&](int v, int p, int t) {
     const int k0 = p * KP;
     const int kv = min(KP, d - k0), kn = min(KP, ldk - k0);
-    const int jn = min(T, d - w.j0);
-    const float* a_l = ring + (v % STAGES) * STAGE;
-    const float* b_l = a_l + LAND;
-    const int* r_l = reinterpret_cast<const int*>(b_l + LAND);
-    float* at = tr + (v % 2) * TBUF;
-    float* bt = at + KP * LDT;
-    const int* ms = m_s + (t - t_begin) % 2 * T;
+    const int jn = min(TT, d - w.j0);
+    T *a_l, *b_l, *m_l;
+    int* r_l;
+    stage(v, a_l, b_l, r_l, m_l);
+    T* at = tr + (v % 2) * TBUF;
+    T* bt = at + KP * LDT;
+    const int* ms = m_s + (t - t_begin) % 2 * TT;
     if (vec) {  // kv == kn
-      for (int i = tid; i < T * CH; i += WIDE_THREADS) {
+      for (int i = tid; i < TT * CH; i += WIDE_THREADS) {
         int row, ch;
         chunk(i, row, ch);
-        if (ch * 4 >= kv) continue;
-        const int o = land(row, ch);
-        float* a_k = at + ch * 4 * LDT + row;
-        float* b_k = bt + ch * 4 * LDT + row;
-        if (row < w.rows) {
-          float4 val = *reinterpret_cast<const float4*>(a_l + o);
-          if (SELECT) {
-            const int4 rk = *reinterpret_cast<const int4*>(r_l + o);
-            const int cut = ms[row];
-            if (!(rk.x < cut)) val.x = 0.f;
-            if (!(rk.y < cut)) val.y = 0.f;
-            if (!(rk.z < cut)) val.z = 0.f;
-            if (!(rk.w < cut)) val.w = 0.f;
+        if (ch * E < kv) {
+          const int o = land(row, ch);
+          if (row < w.rows) {
+            Pack<T> val = *reinterpret_cast<const Pack<T>*>(a_l + o);
+            if (SELECT) {
+              const IntPack<E> rk = *reinterpret_cast<const IntPack<E>*>(r_l + o);
+              const int cut = ms[row];
+#pragma unroll
+              for (int e = 0; e < E; ++e)
+                if (!(rk.v[e] < cut)) val.v[e] = T(0);
+            }
+            if (MASKED) {
+              const Pack<T> mv = *reinterpret_cast<const Pack<T>*>(m_l + o);
+#pragma unroll
+              for (int e = 0; e < E; ++e) val.v[e] = val.v[e] * mv.v[e];
+            }
+#pragma unroll
+            for (int e = 0; e < E; ++e) at[(ch * E + e) * LDT + row] = val.v[e];
           }
-          a_k[0] = val.x, a_k[LDT] = val.y;
-          a_k[2 * LDT] = val.z, a_k[3 * LDT] = val.w;
+          if (!PROJECT && row < jn) {
+            const Pack<T> val = *reinterpret_cast<const Pack<T>*>(b_l + o);
+#pragma unroll
+            for (int e = 0; e < E; ++e) bt[(ch * E + e) * LDT + row] = val.v[e];
+          }
         }
-        if (row < jn) {
-          const float4 val = *reinterpret_cast<const float4*>(b_l + o);
-          b_k[0] = val.x, b_k[LDT] = val.y;
-          b_k[2 * LDT] = val.z, b_k[3 * LDT] = val.w;
+        if (PROJECT) {  // U[k][j] as it lies: a copy, not a transpose
+          const int k = i / (TT / E), jc = i % (TT / E) * E;
+          if (k < kv && jc < jn)
+            *reinterpret_cast<Pack<T>*>(bt + k * LDT + jc) =
+                *reinterpret_cast<const Pack<T>*>(b_l + k * TT + jc);
         }
       }
     } else {
-      for (int i = tid; i < T * KP; i += WIDE_THREADS) {
-        const int row = i % T, k = i / T;
+      for (int i = tid; i < TT * KP; i += WIDE_THREADS) {
+        const int row = i % TT, k = i / TT;
         if (k >= kn) continue;
-        const int o = land(row, k >> 2) + (k & 3);
+        const int o = land(row, k / E) + k % E;
         if (row < w.rows) {
-          float val = 0.f;
+          T val = T(0);
           if (k < kv && (!SELECT || r_l[o] < ms[row])) val = a_l[o];
+          if (MASKED && k < kv) val = val * m_l[o];
           at[k * LDT + row] = val;
         }
-        if (row < jn) bt[k * LDT + row] = k < kv ? b_l[o] : 0.f;
+        if (row < jn)
+          bt[k * LDT + row] = k >= kv ? T(0) : PROJECT ? b_l[k * TT + row] : b_l[o];
       }
     }
   };
@@ -1506,7 +1590,7 @@ correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
     cp_async_commit();
   }
 
-  float acc[8][8];  // [row r + 4 h][column e + 4 h]
+  T acc[8][8];  // [row r + 4 h][column e + 4 h]
   for (int v = 0, t = t_begin, p = 0; v < steps; ++v) {
     cp_async_wait<STAGES - 2>();  // this thread's copies of step v landed
     transpose(v, p, t);
@@ -1518,22 +1602,22 @@ correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][e] = 0.f;
+        for (int e = 0; e < 8; ++e) acc[i][e] = T(0);
     }
 
-    const float* at = tr + (v % 2) * TBUF + row_t;
-    const float* bt = tr + (v % 2) * TBUF + KP * LDT + col_t;
+    const T* at = tr + (v % 2) * TBUF + row_t;
+    const T* bt = tr + (v % 2) * TBUF + KP * LDT + col_t;
     auto kstep = [&](int k) {  // acc += A[:, k] B[k, :], k ascending
-      float a[2][4], b[2][4];
-      ld4(at + k * LDT, a[0]);
-      ld4(at + k * LDT + 16, a[1]);
-      ld4(bt + k * LDT, b[0]);
-      ld4(bt + k * LDT + 32, b[1]);
+      T a[2][KU], b[2][KU];
+      load_ku(at + k * LDT, a[0]);
+      load_ku(at + k * LDT + 16, a[1]);
+      load_ku(bt + k * LDT, b[0]);
+      load_ku(bt + k * LDT + 32, b[1]);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int e = 0; e < 8; ++e)
-          acc[i][e] = fmaf(a[i >> 2][i & 3], b[e >> 2][e & 3], acc[i][e]);
+          acc[i][e] = fma_t(a[i >> 2][i & 3], b[e >> 2][e & 3], acc[i][e]);
     };
     const int kn = min(KP, ldk - p * KP);
     if (kn == KP) {
@@ -1547,25 +1631,29 @@ correct_f32_wide(const float* __restrict__ x, const float* __restrict__ c,
     p = 0;
 
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {  // out = x + acc
+    for (int i = 0; i < 8; ++i) {  // out = x + acc (the projection: acc)
       const int row = row_t + (i & 3) + 16 * (i >> 2);
       if (row >= w.rows) continue;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int col = w.j0 + col_t + 32 * h;
         const size_t o = (size_t)(w.r0 + row) * d + col;
-        const float* aa = acc[i] + 4 * h;
-        if (vec) {
-          if (col < d) {
-            float xa[4];
-            ld4(x + o, xa);
-            *reinterpret_cast<float4*>(out + o) = make_float4(
-                xa[0] + aa[0], xa[1] + aa[1], xa[2] + aa[2], xa[3] + aa[3]);
+        const T* aa = acc[i] + 4 * h;
+        if (vec && col + KU <= d) {
+          T y[KU];
+          if (PROJECT) {
+#pragma unroll
+            for (int e = 0; e < KU; ++e) y[e] = aa[e];
+          } else {
+            load_ku(x + o, y);
+#pragma unroll
+            for (int e = 0; e < KU; ++e) y[e] = y[e] + aa[e];
           }
+          store_ku(out + o, y);
         } else {
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            if (col + e < d) out[o + e] = x[o + e] + aa[e];
+          for (int e = 0; e < KU; ++e)
+            if (col + e < d) out[o + e] = PROJECT ? aa[e] : x[o + e] + aa[e];
         }
       }
     }
@@ -1607,19 +1695,22 @@ int launch_ring(const float* x, const float* c, const int* rank, const int* m,
   return (int)cudaGetLastError();
 }
 
-template <int MODE>
-int launch_wide(const float* x, const float* c, const int* rank, const int* m,
-                const float* u, float* out, int s, long long nb, int d,
+// every mode past D = 128, either dtype; x is null in the projection
+template <typename T, int MODE>
+int launch_wide(const T* x, const T* c, const int* rank, const int* m,
+                const T* mk, const T* u, T* out, int s, long long nb, int d,
                 void* stream) {
-  constexpr int T = WIDE_TILE, KP = WIDE_KP32;
-  const size_t smem =
-      ((size_t)WIDE_STAGES32 * T * KP * (MODE == MODE_SELECT ? 3 : 2) +
-       4 * KP * (T + 4) + 2 * T) * sizeof(float);
+  constexpr int TT = WIDE_TILE, KP = WIDE_KP, E = 16 / (int)sizeof(T);
+  constexpr int MINB = sizeof(T) == 4 ? 2 : 1;  // CTAs an SM
+  const size_t third = MODE == MODE_SELECT ? 4 : MODE == MODE_MASKED ? sizeof(T) : 0;
+  const size_t smem = (size_t)WIDE_STAGES * TT * KP * (2 * sizeof(T) + third) +
+                      (size_t)4 * KP * (TT + 4) * sizeof(T) +
+                      (MODE == MODE_SELECT ? 2 * TT * sizeof(int) : 0);
   const long long tiles =
-      (long long)s * ((nb + T - 1) / T) * ((d + T - 1) / T);
-  const int panels = ((d + KU - 1) / KU * KU + KP - 1) / KP;
+      (long long)s * ((nb + TT - 1) / TT) * ((d + TT - 1) / TT);
+  const int panels = ((d + E - 1) / E * E + KP - 1) / KP;
   if (tiles * panels > INT32_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = correct_f32_wide<MODE>;
+  auto kernel = gbatc_wide<T, MODE, MINB>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1633,28 +1724,28 @@ int launch_wide(const float* x, const float* c, const int* rank, const int* m,
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long slots = (long long)sms * per_sm;
   const long long grid = tiles < slots ? tiles : slots;
-  const int vec = d % 4 == 0 && aligned16(x) && aligned16(c) &&
-                  aligned16(rank) && aligned16(u) && aligned16(out);
+  const int vec = d % E == 0 && aligned16(x) && aligned16(c) && aligned16(rank) &&
+                  aligned16(mk) && aligned16(u) && aligned16(out);
   kernel<<<(unsigned)grid, WIDE_THREADS, smem,
-           static_cast<cudaStream_t>(stream)>>>(x, c, rank, m, u, out, s, nb, d,
-                                                vec);
+           static_cast<cudaStream_t>(stream)>>>(x, c, rank, m, mk, u, out, s,
+                                                nb, d, vec);
   return (int)cudaGetLastError();
 }
 
-// two CTAs an SM at D <= 80, one at D <= 128, the wide kernel above
+// two CTAs an SM at D <= 80, one at D <= 128, the wide kernel past it
 template <int MODE>
 int launch_correct_f32(const float* x, const float* c, const int* rank,
                        const int* m, const float* u, float* out, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || d > MAX_D_WIDE || s < 0 || s > 65535 || nb < 0 ||
-      tiles_per_cta < 1)
+  if (d < 1 || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80)
     return launch_ring<MODE, 5, 2>(x, c, rank, m, u, out, s, nb, d, stream);
   if (d <= MAX_D)
     return launch_ring<MODE, 8, 1>(x, c, rank, m, u, out, s, nb, d, stream);
-  return launch_wide<MODE>(x, c, rank, m, u, out, s, nb, d, stream);
+  return launch_wide<float, MODE>(x, c, rank, m, nullptr, u, out, s, nb, d,
+                                  stream);
 }
 
 template <int NFW, int TM, int STAGES>
@@ -1690,8 +1781,9 @@ int launch_dmma_wide(const double* r, const double* u, double* c, int s,
                      long long nb, int d, void* stream) {
   constexpr int KP = WIDE_KP64;
   const size_t smem = (size_t)WIDE_STAGES64 *
-                      (64 * (KP + 4) + KP * (MAX_D_WIDE + 8)) * sizeof(double);
-  const long long tiles = (long long)s * ((nb + 63) / 64);
+                      (64 * (KP + 4) + KP * (WIDE_SLAB64 + 8)) * sizeof(double);
+  const long long tiles = (long long)s * ((nb + 63) / 64) *
+                          ((d + WIDE_SLAB64 - 1) / WIDE_SLAB64);
   const int panels = ((d + 7) / 8 + KP / 8 - 1) / (KP / 8);
   if (tiles * panels > INT32_MAX) return (int)cudaErrorInvalidValue;
   auto kernel = project_f64_wide;
@@ -1716,7 +1808,7 @@ int launch_dmma_wide(const double* r, const double* u, double* c, int s,
 
 int launch_project_f64(const double* r, const double* u, double* c, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || d > MAX_D_WIDE || s < 0 || s > 65535 || nb < 0 ||
+  if (d < 1 || s < 0 || s > 65535 || nb < 0 ||
       tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
@@ -1757,11 +1849,13 @@ int launch_3xtf32(const float* r, const float* u, float* c, int s, long long nb,
 
 int launch_project_f32(const float* r, const float* u, float* c, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80) return launch_3xtf32<5, 64, 2>(r, u, c, s, nb, d, stream);
-  return launch_3xtf32<8, 32, 3>(r, u, c, s, nb, d, stream);
+  if (d <= MAX_D) return launch_3xtf32<8, 32, 3>(r, u, c, s, nb, d, stream);
+  return launch_wide<float, MODE_PROJECT>(nullptr, r, nullptr, nullptr, nullptr,
+                                          u, c, s, nb, d, stream);
 }
 
 template <typename T, int MODE, int CMAX>
@@ -1789,9 +1883,11 @@ template <typename T, int MODE>
 int launch(const T* a, const T* basis, const T* x, const int* rank,
            const int* m, const T* mk, T* out, int s, long long nb, int d,
            int tiles_per_cta, void* stream) {
-  if (d < 1 || d > MAX_D || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
+  if (d > MAX_D)
+    return launch_wide<T, MODE>(x, a, rank, m, mk, basis, out, s, nb, d, stream);
   if (d <= 5 * TX)
     return launch_as<T, MODE, 5>(a, basis, x, rank, m, mk, out, s, nb, d,
                                  tiles_per_cta, stream);

@@ -3,13 +3,21 @@
 Counterparts of the Pallas functions ``gbatc_project_batched``,
 ``gbatc_correct_batched``, ``gbatc_select_accumulate`` and the 2D
 single-species pair ``gbatc_project`` / ``gbatc_correct`` in the JAX
-package's ``kernels/gbatc_project.py``. D's limit is per route: the fp64
-batched projection and the fp32 batched select and correct take D <= 256
-(the weight checkpoint's blocks); every other (kernel, dtype) — the fp32
-batched projection, the fp64 select and correct, the 2D pair — D <= 128,
-where the kernels keep a species' (D, D) basis in shared memory. The
-Pallas wrappers pad to any D. See :mod:`repro_torch.kernels._wrap` for
-what every wrapper checks and how it launches.
+package's ``kernels/gbatc_project.py``. Every route takes any block size
+D >= 1, as the Pallas wrappers do by padding. The kernel a launch runs
+depends on D (``csrc/gbatc_kernels.cu``):
+
+* D <= 128 keeps a species' (D, D) basis in shared memory: the fp64
+  projection on the fp64 tensor cores (``project_f64_dmma``), the fp32
+  projection as 3xTF32 (``project_f32_3xtf32``), fp32 select and correct
+  on a cp.async ring (``correct_f32_ring``), and the fp64 select and
+  correct and the masked 2D correct on ``gbatc_tile_kernel``;
+* past 128 the basis is staged in k panels: the fp64 projection on the
+  fp64 tensor cores in 256-column slabs (``project_f64_wide``), and every
+  other (kernel, dtype) in 128 x 128 tiles (``gbatc_wide``).
+
+See :mod:`repro_torch.kernels._wrap` for what every wrapper checks and how
+it launches.
 """
 
 from __future__ import annotations
@@ -29,11 +37,6 @@ LAUNCHES: dict[str, int] = {
     "gbatc_correct": 0,
 }
 
-MAX_D = 128  # = MAX_D in csrc/gbatc_kernels.cu
-MAX_D_WIDE = 256  # = MAX_D_WIDE there: the routes of _WIDE
-_WIDE = {("gbatc_project_batched", torch.float64),
-         ("gbatc_select_accumulate", torch.float32),
-         ("gbatc_correct_batched", torch.float32)}
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 _TILES_PER_CTA = 8  # row tiles one CTA walks with its basis resident: short
 # runs keep the grid many waves deep, so no SM idles through a long tail
@@ -67,24 +70,20 @@ def _lib():
     return lib
 
 
-def _check_d(d: int, kernel: str = "", dtype=None) -> None:
-    """D within its route's limit (checked before the device, so the CPU
-    tests see it too)."""
-    limit = MAX_D_WIDE if (kernel, dtype) in _WIDE else MAX_D
-    if not 1 <= d <= limit:
-        route = f"{kernel} ({str(dtype).split('.')[-1]})" if kernel else "2D"
-        raise ValueError(f"block size D={d} outside the {route} kernel's "
-                         f"range 1..{limit}")
+def _check_d(d: int) -> None:
+    """D >= 1 (checked before the device, so the CPU tests see it too)."""
+    if d < 1:
+        raise ValueError(f"block size D={d}: the kernels take D >= 1")
 
 
-def _lead(kernel: str, name: str, t):
+def _lead(name: str, t):
     """Validate the leading (S, NB, D) operand; returns (s, nb, d)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.dim() != 3:
         raise ValueError(f"{name} must be (S, NB, D), got shape {tuple(t.shape)}")
     s, nb, d = t.shape
-    _check_d(d, kernel, t.dtype)
+    _check_d(d)
     cuda_operand(name, t, _DTYPES)
     return s, nb, d
 
@@ -101,7 +100,7 @@ def gbatc_project_batched(residual: torch.Tensor,
                           basis: torch.Tensor) -> torch.Tensor:
     """Per-species ``C_s = R_s @ U_s`` in one launch; fp32 or fp64."""
     refuse_grad("gbatc_project_batched", residual, basis)
-    s, nb, d = _lead("gbatc_project_batched", "residual", residual)
+    s, nb, d = _lead("residual", residual)
     check("residual", residual, (s, nb, d), residual.dtype, residual.device)
     check("basis", basis, (s, d, d), residual.dtype, residual.device)
     out = torch.empty_like(residual)
@@ -116,7 +115,7 @@ def gbatc_correct_batched(x_rec: torch.Tensor, coeffs: torch.Tensor,
                           basis: torch.Tensor) -> torch.Tensor:
     """Per-species ``x_s + C_s @ U_s^T`` in one launch (decode replay)."""
     refuse_grad("gbatc_correct_batched", x_rec, coeffs, basis)
-    s, nb, d = _lead("gbatc_correct_batched", "x_rec", x_rec)
+    s, nb, d = _lead("x_rec", x_rec)
     dt, dev = x_rec.dtype, x_rec.device
     check("x_rec", x_rec, (s, nb, d), dt, dev)
     check("coeffs", coeffs, (s, nb, d), dt, dev)
@@ -135,7 +134,7 @@ def gbatc_select_accumulate(x_rec: torch.Tensor, coeff_vals: torch.Tensor,
     """Fused Algorithm-1 tail ``x + (c . [rank < m]) @ U_s^T``; the keep
     mask exists only in registers."""
     refuse_grad("gbatc_select_accumulate", x_rec, coeff_vals, basis)
-    s, nb, d = _lead("gbatc_select_accumulate", "x_rec", x_rec)
+    s, nb, d = _lead("x_rec", x_rec)
     dt, dev = x_rec.dtype, x_rec.device
     check("x_rec", x_rec, (s, nb, d), dt, dev)
     check("coeff_vals", coeff_vals, (s, nb, d), dt, dev)

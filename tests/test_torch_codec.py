@@ -12,7 +12,8 @@
   the port's staged ``decompress_reference`` is bitwise its
   ``decompress``.
 
-Fits are tiny (S=4, T=8, 20x20 -> 40 blocks, conv (8,16), <= 10 steps).
+Fits are tiny (S=4, T=8, 20x20 -> 40 blocks, conv (8,16), <= 10 steps);
+the 8 x 8 x 8 block (D = 512) crosses on S=4, T=8, 32x32 (16 blocks).
 """
 
 import jax
@@ -21,6 +22,7 @@ import pytest
 from test_torch_gae import reference_x64  # noqa: F401  (module-scoped shim fixture)
 
 from repro import codec as r_codec
+from repro.core import blocking as r_blocking
 from repro.core import gae as r_gae
 from repro.core import metrics
 from repro.core.pipeline import PipelineConfig as RefConfig
@@ -147,6 +149,38 @@ def test_port_blob_decodes_in_reference(reference_x64, port_blob, data):  # noqa
     assert (nrmse <= TARGET * (1 + 1e-3)).all(), nrmse
     np.testing.assert_allclose(field, rep.recon, rtol=0,
                                atol=1e-4 * np.abs(rep.recon).max())
+
+
+# a codec block past every panel of the kernels: 8 x 8 x 8, D = 512
+WIDE_DATA = dict(n_species=S, n_time=8, height=32, width=32, seed=4)
+
+
+@pytest.fixture(scope="module")
+def wide_data():
+    return s3d.generate(s3d.S3DConfig(**WIDE_DATA))["species"]
+
+
+def _wide_nrmse(data, field):
+    assert field.shape == data.shape and field.dtype == np.float32
+    return np.array([metrics.nrmse(data[s], field[s]) for s in range(S)])
+
+
+def test_reference_blob_decodes_in_port_at_8x8x8(reference_x64, wide_data):  # noqa: F811
+    gb = r_codec.GBATCCodec(RefConfig(
+        geometry=r_blocking.BlockGeometry(8, 8, 8), **KW))
+    blob, _ = gb.compress_report(wide_data, target_nrmse=TARGET)
+    nrmse = _wide_nrmse(wide_data, t_codec.decompress(blob, device="cpu"))
+    assert (nrmse <= TARGET * (1 + 1e-3)).all(), nrmse
+
+
+def test_port_blob_decodes_in_reference_at_8x8x8(reference_x64, wide_data):  # noqa: F811
+    gb = GBATCCodec(PipelineConfig(
+        geometry=t_blocking.BlockGeometry(8, 8, 8), **KW), device="cpu")
+    blob, _ = gb.compress_report(wide_data, target_nrmse=TARGET)
+    assert t_wire._unpack_meta(ContainerReader(blob)["meta"], version=5)[0] \
+        .geometry.block_size == 512
+    nrmse = _wide_nrmse(wide_data, r_codec.decompress(blob))
+    assert (nrmse <= TARGET * (1 + 1e-3)).all(), nrmse
 
 
 def test_port_and_reference_blobs_share_stream_tables(reference_blob, port_blob):

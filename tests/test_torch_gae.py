@@ -129,6 +129,32 @@ def test_matches_reference_engine(reference_x64, backend):
         assert _max_block_residual(x, c) <= tau * (1 + 1e-6)
 
 
+@pytest.mark.parametrize("backend", ["host", "device"])
+def test_matches_reference_engine_at_d512(reference_x64, backend):
+    """A codec's 8 x 8 x 8 block (D = 512): the basis, the ranks and every
+    artifact equal the reference engine's, the coefficients to rtol 1e-12.
+    More blocks than D, as a codec has (1600 a species on the card's
+    path): with fewer, most coefficients are rounding noise and their
+    ranks are not defined."""
+    x, x_rec = _case(5, s=2, nb=600, d=512)
+    ref_eng = r_gae.GuaranteeEngine()
+    ref_prep = ref_eng.prepare(x, x_rec)
+    eng = t_gae.GuaranteeEngine("cpu", select_backend=backend)
+    prep = eng.prepare(x, x_rec)
+    assert prep.shape == (2, 600, 512)
+    np.testing.assert_array_equal(prep.basis, ref_prep.basis)
+    np.testing.assert_array_equal(prep.inv_rank, ref_prep.inv_rank)
+    np.testing.assert_allclose(prep.coeffs, ref_prep.coeffs, rtol=1e-12,
+                               atol=1e-14)
+    for tau in (0.5, 2.0):
+        ref_c, ref_arts = ref_eng.select(ref_prep, tau)
+        c, arts = eng.select(prep, tau)
+        for a, b in zip(arts, ref_arts, strict=True):
+            _assert_same_artifact(a, b)
+        np.testing.assert_allclose(c, ref_c, atol=1e-6)
+        assert _max_block_residual(x, c) <= tau * (1 + 1e-6)
+
+
 def test_shim_is_scoped_to_the_fixture():
     """Outside the fixture's module scope nothing is patched: the shim
     context restores ``jax.experimental`` to what it was."""

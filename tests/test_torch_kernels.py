@@ -156,21 +156,86 @@ def test_wide_correct_matches_pallas(s, nb, d):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
 
 
-@pytest.mark.parametrize("kernel,dtype,limit", [
-    ("gbatc_project_batched", torch.float64, 256),
-    ("gbatc_select_accumulate", torch.float32, 256),
-    ("gbatc_correct_batched", torch.float32, 256),
-    ("gbatc_project_batched", torch.float32, 128),
-    ("gbatc_select_accumulate", torch.float64, 128),
-    ("gbatc_correct_batched", torch.float64, 128),
+# -- any D: past every panel and slab of the kernels ----------------------
+# (2, 33, 130) is the reference's own 130, (1, 20, 257) one past a
+# 256-column slab, (2, 9, 512) a codec's 8 x 8 x 8 block
+ANY_D = [(2, 33, 130), (1, 20, 257), (2, 9, 512)]
+
+
+def _batched(kernel, arrays, pallas):
+    """The batched kernel on (x, c, u, rank, m): the reference's Pallas
+    function in interpret mode, or the port's plain version."""
+    x, c, u, rank, m = (jnp.asarray(a) for a in arrays) if pallas else _t(*arrays)
+    if pallas:
+        fn = {"project": lambda: ref_kernels.gbatc_project_batched(x, u, interpret=True),
+              "correct": lambda: ref_kernels.gbatc_correct_batched(x, c, u, interpret=True),
+              "select": lambda: ref_kernels.gbatc_select_accumulate(
+                  x, c, rank, m, u, interpret=True)}[kernel]
+        return np.asarray(fn())
+    return {"project": lambda: ref.gbatc_project_batched_ref(x, u),
+            "correct": lambda: ref.gbatc_correct_batched_ref(x, c, u),
+            "select": lambda: ref.gbatc_select_accumulate_ref(x, c, rank, m, u)}[kernel]()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kernel", ["project", "correct", "select"])
+@pytest.mark.parametrize("s,nb,d", ANY_D)
+def test_any_d_matches_pallas(s, nb, d, kernel, dtype):
+    """fp64 under x64 to rtol 1e-12, fp32 to atol 1e-5, as at D <= 256."""
+    arrays = _inputs(s, nb, d, dtype=dtype)
+    got = _batched(kernel, arrays, pallas=False)
+    assert got.dtype == torch.from_numpy(np.zeros(1, dtype)).dtype
+    if dtype == np.float64:
+        with jax.enable_x64():
+            want = _batched(kernel, arrays, pallas=True)
+        assert want.dtype == np.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    else:
+        want = _batched(kernel, arrays, pallas=True)
+        np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("kernel", ["project", "correct"])
+@pytest.mark.parametrize("nb,d", [(33, 130), (9, 512)])
+def test_2d_pair_any_d_matches_pallas(nb, d, kernel, dtype):
+    x, c, u, _, _ = (a[0] for a in _inputs(1, nb, d, dtype=dtype))
+    mask = (np.random.default_rng(d).random((nb, d)) < 0.5).astype(dtype)
+
+    def pallas():
+        if kernel == "project":
+            return np.asarray(ref_kernels.gbatc_project(
+                jnp.asarray(x), jnp.asarray(u), interpret=True))
+        return np.asarray(ref_kernels.gbatc_correct(
+            *(jnp.asarray(a) for a in (x, c, mask, u)), interpret=True))
+
+    got = (ref.gbatc_project_ref(*_t(x, u)) if kernel == "project"
+           else ref.gbatc_correct_ref(*_t(x, c, mask, u)))
+    if dtype == np.float64:
+        with jax.enable_x64():
+            want = pallas()
+        assert got.dtype == torch.float64 and want.dtype == np.float64
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-12)
+    else:
+        np.testing.assert_allclose(got.numpy(), pallas(), atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("d", [129, 257, 513, 1000])
+@pytest.mark.parametrize("kernel,dtype", [
+    ("gbatc_project_batched", torch.float64),
+    ("gbatc_select_accumulate", torch.float32),
+    ("gbatc_correct_batched", torch.float32),
+    ("gbatc_project_batched", torch.float32),
+    ("gbatc_select_accumulate", torch.float64),
+    ("gbatc_correct_batched", torch.float64),
 ])
-def test_wrapper_d_limit_per_route(kernel, dtype, limit):
-    """Past its route's limit a wrapper raises ValueError (before the
-    device check, so on the CPU too); at the limit it goes on to refuse
-    the CPU tensor."""
+def test_wrapper_d_limit_per_route(kernel, dtype, d):
+    """Every route takes any D >= 1: past 128, 256 and 512 a wrapper goes
+    on to refuse the CPU tensor, and D = 0 raises ValueError (before the
+    device check, so on the CPU too)."""
     def call(d):
-        x, c, u, rank, m = _t(*_inputs(1, 4, d, dtype=np.float64 if dtype == torch.float64
-                                       else np.float32))
+        x, c, u, rank, m = (t.to(dtype) if t.is_floating_point() else t
+                            for t in _t(*_inputs(1, 4, d)))
         fn = getattr(cuda_wrappers, kernel)
         if kernel == "gbatc_project_batched":
             return fn(x, u)
@@ -178,18 +243,28 @@ def test_wrapper_d_limit_per_route(kernel, dtype, limit):
             return fn(x, c, u)
         return fn(x, c, rank, m, u)
 
-    with pytest.raises(ValueError, match=rf"range 1\.\.{limit}$"):
-        call(limit + 1)
     with pytest.raises(ValueError, match="CUDA tensors only"):
-        call(limit)
+        call(d)
+    with pytest.raises(ValueError, match=r"D=0: the kernels take D >= 1$"):
+        call(0)
+    assert cuda_wrappers.launch_counts()[kernel] == 0
 
 
 def test_2d_pair_stays_at_128_in_fp64():
-    x, c, u, _, _ = _t(*_inputs(1, 4, 129, dtype=np.float64))
-    with pytest.raises(ValueError, match=r"range 1\.\.128$"):
-        cuda_wrappers.gbatc_project(x[0], u[0])
-    with pytest.raises(ValueError, match=r"range 1\.\.128$"):
-        cuda_wrappers.gbatc_correct(x[0], c[0], torch.ones_like(x[0]), u[0])
+    """The 2D pair no longer stops at D = 128, in fp64 or fp32: past 128,
+    256 and 512 it goes on to refuse the CPU tensor, and D = 0 raises
+    ValueError."""
+    for dtype in (torch.float64, torch.float32):
+        for d in (129, 257, 513, 1000, 0):
+            x, c, u = (t[0].to(dtype) for t in _t(*_inputs(1, 4, d)[:3]))
+            want = ("CUDA tensors only" if d else
+                    r"D=0: the kernels take D >= 1$")
+            with pytest.raises(ValueError, match=want):
+                cuda_wrappers.gbatc_project(x, u)
+            with pytest.raises(ValueError, match=want):
+                cuda_wrappers.gbatc_correct(x, c, torch.ones_like(x), u)
+    counts = cuda_wrappers.launch_counts()
+    assert counts["gbatc_project"] == counts["gbatc_correct"] == 0
 
 
 def test_ops_on_cpu_run_the_plain_versions():

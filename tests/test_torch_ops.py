@@ -368,11 +368,12 @@ def test_new_cuda_wrappers_refuse_cpu_tensors():
 
 
 def test_out_of_range_shapes_raise():
-    x, x_rec, q = _t(*_gbatc_inputs(8, 130, seed=4))
-    with pytest.raises(ValueError, match="1..128"):
+    # the 2D pair takes any D >= 1; an empty block is refused
+    x, q = torch.zeros(8, 0), torch.zeros(0, 0)
+    with pytest.raises(ValueError, match="D=0: the kernels take D >= 1"):
         gbatc_wrapper.gbatc_project(x, q)
-    with pytest.raises(ValueError, match="1..128"):
-        gbatc_wrapper.gbatc_correct(x_rec, x, torch.ones_like(x), q)
+    with pytest.raises(ValueError, match="D=0: the kernels take D >= 1"):
+        gbatc_wrapper.gbatc_correct(x, x, torch.ones_like(x), q)
     with pytest.raises(ValueError, match="1..64"):
         rwkv6_wrapper.rwkv6_scan(*_t(*_rwkv_inputs(1, 4, 1, 65, seed=5)))
     xq = _bq_input((4, 96), seed=6)
