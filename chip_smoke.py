@@ -54,6 +54,19 @@ Phases (each prints one JSON line; any failure exits non-zero):
    plain versions, for the same bits twice and by row and species
    sub-range, pins their outputs' sha256 in ``ANY_D_SHA256``, and times
    them at (58, 1600, 512); the 2D pair at D = 130 and 512 in both dtypes;
+   then ``wide_head_path``: the attention family with one 512-wide head
+   (arch (512, 1, 1, 1024), head dim 512: flash past D = 256, launched in
+   compress and in decompress) on the same 8 frames
+   through ``drive()`` with the same gates, and one selective decode of
+   species 2, 31 and 57, bitwise, with one replay launch and flash. The
+   ``kernels`` phase holds every widened domain: flash past D = 256 and
+   past 65,535 query tiles, ``rwkv6_scan`` past N = 64, ``rglru_scan``
+   past 65,535 batch rows and every GBATC route past 65,535 species (fp32
+   project and correct at a basis past 2^31 elements), each against its
+   plain version, the same bits twice and for a sub-range, the rows or
+   species the CTAs take on a second pass bitwise their own call; and it
+   holds every kernel inside its old domain to the sha256s of the build
+   before that widening (``OLD_DOMAIN_SHA256``);
 7. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
    (the JAX package's ``kernels/ops.py``, name for name) once at its
    full-width shape, from numpy inputs on the default device, against its
@@ -80,7 +93,7 @@ Phases (each prints one JSON line; any failure exits non-zero):
    quarantined by salvage (bitwise elsewhere); one selective decode of the
    attention blob through flash attention;
 9. ``serve_path``  the decode service (``repro_torch.serve.DecodeService``)
-   on the two codec paths' blobs (no new fit): a seeded mix of 24
+   on the two codec paths' blobs (no new fit): a seeded mix of 16
    selective requests (4 duplicates, one unknown blob, one malformed)
    from 8 client threads, every answer bitwise the slice of its blob's
    full decode, exactly the planted requests failing, fewer fused
@@ -111,7 +124,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
 12. ``lm_serve_path``  the language-model serving path
    (``repro_torch.models``, ``repro_torch.serve.Server``) on the card: (a)
    Llama-3.2-1B, StableLM-3B, Yi-9B, RWKV-6 7B, RecurrentGemma-2B and
-   Whisper-base in fp32
+   Whisper-base in fp32 (and two ``.smoke()`` configs widened past the
+   kernels' old domains: Llama with 320-wide heads, RWKV-6 with 128-wide)
    under ``strict_fp32`` at full width and depth from one seed's
    parameters, batch 2, prompt 2112 (past RecurrentGemma's 2048 window):
    the kernel route (``use_kernels=True``: flash, ``rwkv6_scan``,
@@ -153,11 +167,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    peak memory (this step alone allocates in expandable segments), and a
    profiler split (forward+backward / ``compress_tree`` / AdamW, device
    idle share) over 4 more steps, whose seconds give the step time,
-   tokens/s and MFU; (3) the same model cut to 2 layers, seq 512, 10 steps under
-   ``run_with_recovery`` with a checkpoint every 4 steps, once with a
-   ``StepFailure`` at step 6 and once without: final parameters and
-   optimizer state bitwise equal, the restore bitwise what was saved, each
-   save timed; (4) ``compress_state_bytes`` at tau_rel 1e-3 of the layer-0
+   tokens/s and MFU; (3) the same model cut to 2 layers, seq 512, 6 steps under
+   ``run_with_recovery`` with a checkpoint every 3 steps, once with a
+   ``StepFailure`` at step 5 and once without (keeping no checkpoint):
+   final parameters and optimizer state bitwise equal, the restore bitwise
+   what was saved, each save timed; (4) ``compress_state_bytes`` at tau_rel 1e-3 of the layer-0
    slice of every stacked leaf of (2)'s trained model: one fp64 projection
    and one fp32 select launch a leaf at D = 256, each held against its
    plain version on the engine's operands, every 256-block within its
@@ -216,6 +230,7 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -474,6 +489,241 @@ PROJECT_2D_SUBRANGES = [(100, 5003), (GBATC_2D[0] - 37, GBATC_2D[0])]
 RGLRU_LIMIT = 1e-5
 RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
 
+# Past the kernels' old domains: flash past D = 256 (flash_wide), both
+# dtypes, at these (b, h, tq, tk, d, causal, window), held to FLASH_LIMIT
+# and bf16_ulp_ratio <= 1, the same bits twice and for a batch or head
+# sub-range where the shape has one; FLASH_WIDE_PATH, wide_head_path's
+# flash chunk (4096 blocks, 1 head of 512 over 232 tokens), is timed
+FLASH_WIDE = [(1, 2, 130, 130, 257, True, 0), (2, 1, 232, 232, 320, False, 0),
+              (1, 1, 77, 300, 384, True, 50), (1, 2, 128, 128, 1000, True, 0)]
+FLASH_WIDE_PATH = (4096, 1, 232, 512)
+# one query-tile count past the grid's 65,535 for each dtype's route at D =
+# 64, with the rows a CTA of that route owns (flash_bf16_mma: 64;
+# flash_f32_3xtf32: tf_rows<64> = 128): the tiles the CTAs take on their
+# second pass, and the last ones, are bitwise a call of their own
+FLASH_MANY_TILES = {"bfloat16": ((1, 1, 65536 * 64 + 1, 8, 64, False, 0), 64),
+                    "float32": ((1, 1, 65536 * 128 + 1, 8, 64, False, 0), 128)}
+# rwkv6_scan past N = 64 (64-column slabs to N = 256, rwkv6_wide past it),
+# both dtypes, with a random s0; RWKV_WIDE_PATH, RWKV-6 7B's d_model 4096
+# as 32 heads of 128, is timed
+RWKV_WIDE = [(1, 100, 2, 65), (2, 37, 3, 96), (1, 64, 1, 256), (2, 20, 2, 300)]
+RWKV_WIDE_PATH = (8, 1024, 32, 128)
+# grids past 65,535 in y: rglru_scan's batch rows, the GBATC tile kernel's
+# species (all six batched routes), and fp32 project and correct at a
+# basis of 65,537 x 182 x 182 = 2.17e9 elements (8.7 GB, offsets past
+# 2^31); the last row or species is bitwise its own call
+RGLRU_MANY_ROWS = (65537, 3, 8)
+GRID_Y_GBATC = (65537, 3, 80)
+GRID_Y_GBATC_WIDE = (65537, 2, 182)
+
+# Pins of the kernels inside their domains as they stood before flash took
+# D > 256, rwkv6_scan N > 64 and every launcher a grid past 65,535 in y:
+# the sha256 of each output on numpy-made inputs (old_domain_digests), as
+# the build before that widening gave them on an H100. Flash at every
+# FLASH_SHAPES entry, FLASH_PATH and FLASH_PIN_EXTRA (D = 80 and 256, which
+# FLASH_SHAPES lacks), both dtypes; rwkv6_scan at RWKV_SWEEP and RWKV_PATH
+# with a random s0 (out, S_T), both dtypes; rglru_scan at RGLRU_SWEEP with
+# h0 (h, h_T), both dtypes; the tile kernel's routes (fp64 select and
+# correct at D <= 128, the masked 2D pair in both dtypes) at the kernels
+# phase's D <= 128 shapes. A widening moves no bit of a shape that ran.
+FLASH_PIN_EXTRA = [(2, 2, 100, 130, 80, True, 0), (1, 2, 70, 90, 256, False, 0),
+                   (1, 1, 130, 130, 256, True, 40)]
+OLD_DOMAIN_SEED = 900
+OLD_DOMAIN_SHA256 = {
+    "flash_attention": {
+        "[1, 1, 128, 128, 64, True, 0]/float32":
+            "8b94ef33dd34d7930c379314cdd47b629a54f7cfd319f366ff20f0898d9bbff7",
+        "[1, 1, 128, 128, 64, True, 0]/bfloat16":
+            "d9b6856ac2e01cd21a1a9ac7835ce2ac85fd28a2b8527793ee8ec8f4abde775e",
+        "[2, 3, 256, 256, 64, True, 0]/float32":
+            "cdfbce519e509a12c1eb56787e83d237b3117bb017c46fba1151fdafd8ba0060",
+        "[2, 3, 256, 256, 64, True, 0]/bfloat16":
+            "9548bbfb94ce5e4cc3a6b3fcea663b3baa9a11b323fbbd545d9e24431fd21495",
+        "[1, 2, 128, 384, 128, True, 0]/float32":
+            "c2117788bcd1093fdf86142c49061c3cc17c7973820a75fa7e78614d26433408",
+        "[1, 2, 128, 384, 128, True, 0]/bfloat16":
+            "f46171814df0341aede4545cd8ecb2bd5fcc5914c9ea3ecc01feb8bbcee6a67e",
+        "[1, 1, 200, 200, 64, True, 0]/float32":
+            "870676e993bdc3d45ba0239be52d1070df9c9b9c9fde0419070f87de346be259",
+        "[1, 1, 200, 200, 64, True, 0]/bfloat16":
+            "f17ba48c3de552f66754461f1b6b133ccb4ac1aac21d322eaede86ec12fd8662",
+        "[2, 2, 64, 64, 32, True, 0]/float32":
+            "f06abd633ae2bcf5bc71cdc4c64dd58ca2acfce3a897d87e5e9324be32eb2de2",
+        "[2, 2, 64, 64, 32, True, 0]/bfloat16":
+            "4f852ae06b93ad21415e9fdafaa5933aa1ac9a26f86d2e2806d0e2f45f488848",
+        "[1, 2, 256, 256, 64, True, 16]/float32":
+            "60607d825ca33d7c9caf63136fbe92512333cb3188f016dc1d13901b8150e819",
+        "[1, 2, 256, 256, 64, True, 16]/bfloat16":
+            "df926b696f268b7fea1f17d95db3cdbfded75ef44d3319e948caffd03744caf1",
+        "[1, 2, 256, 256, 64, True, 64]/float32":
+            "c872a6b37ca3ca5f354c5d8a14eb81ea1360d28a5015b170a7fb07fdcdd458e2",
+        "[1, 2, 256, 256, 64, True, 64]/bfloat16":
+            "d9c7bbb3681d9d86ab79c46cb286fd4a4be8ee5fc827eb98d9cf7e381003255b",
+        "[1, 2, 256, 256, 64, True, 1000]/float32":
+            "6b47b9a2b270c5042d5669489aa69ff03883557cd3625abbf0ba33fcd7205e32",
+        "[1, 2, 256, 256, 64, True, 1000]/bfloat16":
+            "34689338a98dbed1162322213b7b6cc2e7981d6b6a4073a648797a3b711094d0",
+        "[1, 1, 128, 256, 64, False, 0]/float32":
+            "a82e89eb7f41092a347b65ee1680a46f24a4934dff95a44e750f1d668d2db8f0",
+        "[1, 1, 128, 256, 64, False, 0]/bfloat16":
+            "6185f689976cdf2d0e8ebd22fdda86945ff3ea041307f6168ea93879fef83cd5",
+        "[2, 2, 232, 232, 16, False, 0]/float32":
+            "afefc99ff99550503c3aa784469164b102d3dd40a159493a3a76fff643734208",
+        "[2, 2, 232, 232, 16, False, 0]/bfloat16":
+            "fbaa4f41d1fffcd5e4f076401748e741470fc3307e30e6a9a58bdaa5e1ed0328",
+        "[3, 2, 1, 16, 16, False, 0]/float32":
+            "a657191dd5ec190ca328ad6da7458a06fb3185fa39e70932372f02276f0f43e2",
+        "[3, 2, 1, 16, 16, False, 0]/bfloat16":
+            "99a65eb51d3b1ff9f52f618d1f98712a11afe2b6ccee31b9ef47467b3e408ade",
+        "[1, 2, 100, 37, 8, False, 0]/float32":
+            "9291ba7fb1c318945218b1995bd03bfbc5042465b283ba3d63f1989f58dd8ee6",
+        "[1, 2, 100, 37, 8, False, 0]/bfloat16":
+            "a2037d825b60f912a547fc5de0d57e49c91bc2ee65849eb865f411d07b895289",
+        "[2, 1, 70, 300, 128, False, 24]/float32":
+            "69f952fbdc704665e65ff58e119c8b40f3a611358b43bd5c0e33b4013f451c51",
+        "[2, 1, 70, 300, 128, False, 24]/bfloat16":
+            "28da58983972e5c63209938343637d5f75ec1de971363d0bb96f3a80cbf612a5",
+        "[1, 2, 130, 130, 96, True, 0]/float32":
+            "5640b2a1d91e6fdefd5f3560940e0f01ebe53691ba6281a861cefa93c8074b22",
+        "[1, 2, 130, 130, 96, True, 0]/bfloat16":
+            "15dbbdaad0017f532f2fddfcf8d7389ebdf14892babdff1a1deb6c7eec196a93",
+        "[2, 1, 150, 77, 37, True, 50]/float32":
+            "c3038597ad9b8667872941e80272b86afe57d0d8bb0e7ae9559d670b945efb8e",
+        "[2, 1, 150, 77, 37, True, 50]/bfloat16":
+            "ad312644f0dfa25be7571877bb863039f0d879186ee3fcfbd33acbd62aa82b97",
+        "[2, 2, 100, 130, 80, True, 0]/float32":
+            "c31beae74653f5f9c18f265f023850fddb72ab8b3639dd1e8fdad0649dc38396",
+        "[2, 2, 100, 130, 80, True, 0]/bfloat16":
+            "c9333eeaaa08897b871c0e021f263d5e6957c0effaa6c917928361a53148d9b8",
+        "[1, 2, 70, 90, 256, False, 0]/float32":
+            "169c56c064256ed79b74e703003951406ae0a80e22cb0228bc39f0ca8bc9655b",
+        "[1, 2, 70, 90, 256, False, 0]/bfloat16":
+            "d7f9dbac1f04be317d46cef36d3b3b9d14809bf46e82c2562518e359baa85197",
+        "[1, 1, 130, 130, 256, True, 40]/float32":
+            "0e070779d707a9dc04cf076430d2dac465a15b17e8fc0b89c4c6403139d4b1bf",
+        "[1, 1, 130, 130, 256, True, 40]/bfloat16":
+            "7dd5589e297088059c3493fa407b734b627ecc28ca25126f62ad9f98c5a6dc15",
+        "[4096, 2, 232, 232, 16, False, 0]/float32":
+            "d24604ce335ca1c0360f4e3cf655181e48b7cc6a78911ba49dd62acac68928d6",
+        "[4096, 2, 232, 232, 16, False, 0]/bfloat16":
+            "3e7e8d722fd79eaf3be3e4db4707abd010163158fd01cf276c4477ae2cde5cc7",
+    },
+    "rwkv6_scan": {
+        "[1, 32, 1, 16]/float32":
+            "05419c1173a5644bd21627ddf9a56914daa3d90d5cd58c2210141b84b8eca347",
+        "[1, 32, 1, 16]/bfloat16":
+            "7d6d899a890ccd0c73c809520a714d75b593bd6e158697292393c97e79af5f6b",
+        "[2, 64, 2, 32]/float32":
+            "0597343e378cd0c40035558fbfd41fa7ae7f41ce5da184b8afc84e51ec49a8ee",
+        "[2, 64, 2, 32]/bfloat16":
+            "1224b62232cbac4e9ea872593f414d5bbbb1a0cca0584d44a7986b73a8d730aa",
+        "[1, 100, 2, 64]/float32":
+            "17552f8d21e4d89a403030a0f404dd3fc6d1a2ec332c65db5a92fb4af0dd876e",
+        "[1, 100, 2, 64]/bfloat16":
+            "1f55a529e55beb3c281c76c757af40b4a3011fcc1dbc331f52d2a04bbcc0e77f",
+        "[1, 128, 4, 64]/float32":
+            "f37750a87b5a7cd60c3c61e75db37f56ab8b6194d98de6ef9fdaa579b048db4d",
+        "[1, 128, 4, 64]/bfloat16":
+            "46d1c9313e6b9814aee8bcc57d7b26e3d43cd0d6868833056b41cf59c554115e",
+        "[2, 37, 3, 20]/float32":
+            "b40a4706d960ca7724f602ea24c7033bf986ef6d08dba6b8fbd300fca780629b",
+        "[2, 37, 3, 20]/bfloat16":
+            "0b61e9c91832b367238ede62e1363ca2831bd434218bb9315df1f49f2032ed05",
+        "[8, 1024, 64, 64]/float32":
+            "5e4e4541eb4aa783fdb8381f2161f5550a692b0d9b4c5b9b1b3225bbf25634cb",
+        "[8, 1024, 64, 64]/bfloat16":
+            "87fc6dbf93a0079d44852966c9eaa23dc4ea1c7a33fbefdc51b5a749767548f2",
+    },
+    "rglru_scan": {
+        "[1, 64, 32]/float32":
+            "6de2dae84151922441e31f4693ff05e06387ad354582d9e5e963d0c3d0fe5259",
+        "[1, 64, 32]/bfloat16":
+            "6508d8a4467ff315245c6be1299ab5a911452ae0beadb49b53b9222b9bcf710a",
+        "[2, 128, 256]/float32":
+            "6f167a56abe8aa55957de1c009b5a6430c860eb97656c38028bb773584946c4b",
+        "[2, 128, 256]/bfloat16":
+            "7476c176262067cf2577c9d7de4c7598fb7d163580743970596c0c21ac5d2157",
+        "[1, 100, 130]/float32":
+            "77633b9a0eed7b4cd5a2c2b776b514d3a213e975e1d88af95a7fb84935c7c92f",
+        "[1, 100, 130]/bfloat16":
+            "8994307752c4ae7f9f3bc44b586183863482087278cf3fa4c17bb331d67f8783",
+        "[2, 1, 64]/float32":
+            "d24eb0088e9d7fd8df4af514150063ff57f564e1d42a0eb6d4fffc9f8517b45b",
+        "[2, 1, 64]/bfloat16":
+            "ee9f5a0fa06eb4d9f178628489cdc9bc34d98da78620a757b5d452f1d9c44516",
+        "[1, 17, 96]/float32":
+            "afa56a36d41d4948c1aeffaf39da225a47395e107252c350d87f18e65af69a1b",
+        "[1, 17, 96]/bfloat16":
+            "d9b5bcd42fb93bb0fef3ad89ab3eaa23ee803f41b77c2b8e8adc05d2c10b6034",
+        "[2, 33, 160]/float32":
+            "34e93f6e797843add309fbb867ea361c45188805a8a0c21bc7747736f23cfe67",
+        "[2, 33, 160]/bfloat16":
+            "e6711ecb6b7090ab494ac58dff14fca1b27dd336869e63077b432c463e7d2b29",
+        "[1, 65, 131]/float32":
+            "aa8a679c6c27e89c07878b29a438b05879b494deb52a70f23a50542ae0f6c216",
+        "[1, 65, 131]/bfloat16":
+            "21ea28bed2793d99a868de4beb93167a0e4160abe0121deef7461fb4013a8a95",
+        "[3, 40, 20]/float32":
+            "19fe7f98fd023a7c4a757513b3273603b66ff1fac36fb2f06dda4c092e25ce13",
+        "[3, 40, 20]/bfloat16":
+            "5b2330163630eeaece424ed1ca0ec8cce26fee4a8d6ce75c370c8bbf6b671882",
+        "[2, 2112, 2560]/float32":
+            "1157a30492e52ba9e7487ba3c8a0a4ea6da9c7cd0ea44a07ce6f8f6b0a5325ef",
+        "[2, 2112, 2560]/bfloat16":
+            "e72f152bcbc90d7f1bbc48229a092b942ba205ce22c1b8bcdd45c23401e54ec1",
+    },
+    "gbatc_tile": {
+        "[58, 20480, 80]/gbatc_select_accumulate/float64":
+            "1c2b2e36cf6416a7ea4845303ffe439ba9f21c2bf9684c93fe1a02478308a193",
+        "[58, 20480, 80]/gbatc_correct_batched/float64":
+            "5d1a3fd723c8376298ed3b6d886c5ca189f17bc6adba2b4fb45b1e681653322d",
+        "[3, 513, 80]/gbatc_select_accumulate/float64":
+            "1544b069e11669ef752d2d8faec321a0e43aec209ebc567b874f278705872ad4",
+        "[3, 513, 80]/gbatc_correct_batched/float64":
+            "87fe0a660dc47ffb3789be2dabf1cb65baf86ad60c97f71e7ee13fadd7cf1fc3",
+        "[5, 513, 64]/gbatc_select_accumulate/float64":
+            "2233f40654637271c6ccec3634d8921b48b476ffbd653a6e9a729c3b4b6dd2d9",
+        "[5, 513, 64]/gbatc_correct_batched/float64":
+            "1530b3bd8b04b626c813495c06ffe1589cc8b4164cce66ef887b4ff3b84f5be3",
+        "[2, 1, 80]/gbatc_select_accumulate/float64":
+            "b63c108b1980c4094cde07a6814a88aff12d4ec8eda1f21a4edc309baa9a8b04",
+        "[2, 1, 80]/gbatc_correct_batched/float64":
+            "d9ba217ae0c98ad43bbc77b5e588290733e052fefe2df14060266135159c2e15",
+        "[4, 100, 37]/gbatc_select_accumulate/float64":
+            "6fafa8e3f8ec573436d5218fc51d7b213d98a2958b568907d48353e0d19b8754",
+        "[4, 100, 37]/gbatc_correct_batched/float64":
+            "7408648844420d06c5ee8401bba2e4a5e9b16d8cefc62f10b10de95a64cc8d5c",
+        "[2, 77, 128]/gbatc_select_accumulate/float64":
+            "67caa7f6c1946b40a0e3e421888d429c77fe71c7880cc94534b0bf36fc4d04dc",
+        "[2, 77, 128]/gbatc_correct_batched/float64":
+            "d40776d8dbfb4407d0b01ad70645310d2e4109f7101b132260dffe882da239fa",
+        "[3, 45, 97]/gbatc_select_accumulate/float64":
+            "34f42ddea03956f7894b620b8888827787368b9aec7e86106272b4ffe3087389",
+        "[3, 45, 97]/gbatc_correct_batched/float64":
+            "7d4fa48315769385dc868cdf82be070cc68e0a97cbc27afac47f470006150101",
+        "[100, 80]/gbatc_correct/float32":
+            "911abc8ddac50a5284c3421b8f9f0f539b71630b5c4e7404b7766b703477bd0d",
+        "[100, 80]/gbatc_correct/float64":
+            "e079727988e1bafe7e97397eb09f92955e50a3345494877fefa6511427eeddd6",
+        "[1000, 80]/gbatc_correct/float32":
+            "b369ed3149da304c9a145216c9be36f001387f87f9c14d2c4bccde8788fefeb1",
+        "[1000, 80]/gbatc_correct/float64":
+            "b4bc0d3eed4222a9854788a002af2ade100242d94f8d167079462c0d5552663a",
+        "[64, 64]/gbatc_correct/float32":
+            "0a60e5dd172f9998c76e26153b464ddcad8f69102cf80085ba990842566e0fce",
+        "[64, 64]/gbatc_correct/float64":
+            "8581677a2fa46002b0b23e8ec3cbe250009084f934fefbc3f8f48cad409372f4",
+        "[513, 80]/gbatc_correct/float32":
+            "91516b7a206e69c629163e5ab4a0c15a0c0f85b6a7ce476d2618cf6824e814ea",
+        "[513, 80]/gbatc_correct/float64":
+            "29a8038437268d0b6fb66bdfb300d4ecfbd43a7bc3bc148fcdfa64e3b57eec5e",
+        "[77, 37]/gbatc_correct/float32":
+            "307ae8996ad9183dff1e48bd1f80be7e1aff7f2664456038835e17f188001018",
+        "[77, 37]/gbatc_correct/float64":
+            "02c1c2e76da2d776ae13c6482e9a7e5f57232af10c2ce75662b3fb2f13847631",
+    },
+}
+
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
@@ -538,7 +788,9 @@ PTXAS_NAMES = {
         r"flash_f32_3xtf32ILi(\d+)E",
         lambda m: "flash/f32/3xtf32/dp{}".format(m.group(1))), (
         r"flash_bf16_mmaILi(\d+)E",
-        lambda m: "flash/bf16/mma/dp{}".format(m.group(1)))],
+        lambda m: "flash/bf16/mma/dp{}".format(m.group(1))), (
+        r"flash_wideI(f|13__nv_bfloat16)E",
+        lambda m: "flash/{}/wide".format("f32" if m.group(1) == "f" else "bf16"))],
     "block_quant": [(
         r"block_quant_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "block_quant/{}/v{}".format(
@@ -550,7 +802,9 @@ PTXAS_NAMES = {
     "rwkv6_scan": [(
         r"rwkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "rwkv6/{}/np{}".format(
-            "f32" if m.group(1) == "f" else "bf16", m.group(2)))],
+            "f32" if m.group(1) == "f" else "bf16", m.group(2))), (
+        r"rwkv6_wideI(f|13__nv_bfloat16)E",
+        lambda m: "rwkv6/{}/wide".format("f32" if m.group(1) == "f" else "bf16"))],
 }
 
 
@@ -921,15 +1175,69 @@ def phase_kernels(torch, launches: int) -> tuple[list[dict], list]:
     rows[2]["partial_shapes_checked"] = PARTIAL_CORRECT_SHAPES
     wide = phase_wide_kernels(torch, launches)
     any_d, missed = phase_any_d_kernels(torch, launches)
+    grid_y = grid_y_gbatc(torch)
     for r in rows:
         r["wide_shapes"] = wide[r["name"]]
         r["any_d"] = any_d[r["name"]]
+        r["grid_y"] = grid_y[r["name"]]
     emit({"phase": "kernels", "launches_timed": launches,
           "summary": [{k: r[k] for k in ("name", "dtype", "max_abs_err", "ms",
                                          "plain_ms", "library_ms", "bound_ms")}
                       for r in rows],
-          "wide": wide, "any_d": any_d})
+          "wide": wide, "any_d": any_d, "grid_y": grid_y})
     return rows, missed
+
+
+def grid_y_gbatc(torch) -> dict:
+    """Every batched route at GRID_Y_GBATC and fp32 project and correct at
+    GRID_Y_GBATC_WIDE (species past the grid's 65,535 in y, the wide one at
+    a basis past 2^31 elements): against the plain version (FP32_LIMIT,
+    FP64_REL_LIMIT), route_bits, and species 65,535 on bitwise a call of
+    their own. Operands from the card's generator, the basis N(0, 1/D) (no
+    QR over 65,537 bases). Returns {kernel: {dtype: entry}}."""
+    from repro_torch.kernels import gbatc_project as gk
+    from repro_torch.kernels import ref as kref
+
+    g = torch.Generator(device="cuda").manual_seed(960)
+    out: dict = {}
+    wide = (("gbatc_project_batched", "float32"), ("gbatc_correct_batched", "float32"))
+    for shape, routes in ((GRID_Y_GBATC, ALL_ROUTES), (GRID_Y_GBATC_WIDE, wide)):
+        s, nb, d = shape
+        for dt in ("float32", "float64"):
+            names = [name for name, r_dt in routes if r_dt == dt]
+            if not names:
+                continue
+            t0 = time.perf_counter()
+            dtype = getattr(torch, dt)
+            x, c = (torch.randn(s, nb, d, generator=g, device="cuda", dtype=dtype)
+                    for _ in range(2))
+            u = torch.randn(s, d, d, generator=g, device="cuda", dtype=dtype)
+            u /= math.sqrt(d)
+            rank = torch.argsort(torch.rand(s, nb, d, generator=g, device="cuda"),
+                                 dim=-1).to(torch.int32)
+            m = torch.randint(0, d + 1, (s, nb), generator=g, device="cuda",
+                              dtype=torch.int32)
+            for name in names:
+                args = {"gbatc_project_batched": (x, u),
+                        "gbatc_correct_batched": (x, c, u),
+                        "gbatc_select_accumulate": (x, c, rank, m, u)}[name]
+                fn = getattr(gk, name)
+                full = fn(*args)
+                e = compare(torch, full, getattr(kref, name + "_ref")(*args),
+                            x if name == "gbatc_project_batched" else c, dtype)
+                what = f"{name} ({dt}, {shape})"
+                route_bits(torch, what, fn, args, full)
+                last = slice(65535, s)
+                same_rows(torch, what, full,
+                          [((last,), fn(*(a[last].contiguous() for a in args)))])
+                out.setdefault(name, {})[dt] = {
+                    "shape": list(shape), "max_abs_err": e,
+                    "species_past_65535_bitwise": True,
+                    "basis_elements": s * d * d, "seconds": time.perf_counter() - t0}
+                del full
+            del x, c, u, rank, m
+            torch.cuda.empty_cache()
+    return out
 
 
 def wide_digest_operands(torch, s, nb, d, seed) -> dict:
@@ -1037,6 +1345,107 @@ def phase_any_d_kernels(torch, launches: int) -> tuple[dict, list]:
     return out, missed
 
 
+def digest(torch, *tensors) -> str:
+    """sha256 of the tensors' bytes, in order (any dtype)."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().reshape(-1).view(torch.uint8).numpy())
+    return h.hexdigest()
+
+
+def old_domain_digests(torch) -> dict:
+    """{kernel: {case: sha256}} at every shape OLD_DOMAIN_SHA256 pins (see
+    there); case keys name the shape and dtype. Each case draws its
+    operands once, in fp32 with numpy (case i from OLD_DOMAIN_SEED + i),
+    and casts them on the card to each dtype it runs."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import gbatc_project as gk
+    from repro_torch.kernels import rglru_scan as rk
+    from repro_torch.kernels import rwkv6_scan as wk
+
+    out: dict = {"flash_attention": {}, "rwkv6_scan": {}, "rglru_scan": {},
+                 "gbatc_tile": {}}
+    seeds = iter(range(OLD_DOMAIN_SEED, OLD_DOMAIN_SEED + 1000))
+
+    def draws():
+        rng = np.random.default_rng(next(seeds))
+        return rng, lambda *shape: rng.standard_normal(shape, dtype=np.float32)
+
+    def dev(a, dtype=None):
+        t = torch.from_numpy(a).cuda()
+        return t if dtype is None else t.to(dtype)
+
+    dts = (torch.float32, torch.bfloat16)
+    flash = [c[:7] for c in FLASH_SHAPES] + FLASH_PIN_EXTRA + [
+        FLASH_PATH[:3] + FLASH_PATH[2:] + (False, 0)]
+    for case in flash:
+        b, h, tq, tk, d, causal, window = case
+        _, normal = draws()
+        qkv = [normal(b, h, t, d) for t in (tq, tk, tk)]
+        for dt in dts:
+            q, k, v = (dev(a, dt) for a in qkv)
+            out["flash_attention"][f"{list(case)}/{str(dt)[6:]}"] = digest(
+                torch, fk.flash_attention(q, k, v, causal=causal, window=window))
+            del q, k, v
+    for case in RWKV_SWEEP + [RWKV_PATH]:
+        b, t, h, n = case
+        _, normal = draws()
+        rkv = [normal(b, t, h, n) for _ in range(3)]
+        w = dev(normal(b, t, h, n)).mul_(3.0).sigmoid_().clamp_(1e-6, 1 - 1e-6)
+        u, s0 = 0.5 * normal(h, n), dev(normal(b, h, n, n))
+        for dt in dts:
+            args = [dev(a, dt) for a in rkv] + [w.to(dt), dev(u, dt), s0]
+            out["rwkv6_scan"][f"{list(case)}/{str(dt)[6:]}"] = digest(
+                torch, *wk.rwkv6_scan(*args))
+            del args
+    for case in RGLRU_SWEEP:
+        b, t, w = case
+        _, normal = draws()
+        a, bb, h0 = dev(normal(b, t, w)).add_(2.0).sigmoid_(), normal(b, t, w), normal(b, w)
+        for dt in dts:
+            out["rglru_scan"][f"{list(case)}/{str(dt)[6:]}"] = digest(
+                torch, *rk.rglru_scan(a.to(dt), dev(bb, dt), dev(h0)))
+    for s, nb, d in [(S, NB, D)] + RAGGED:
+        rng, normal = draws()
+        x, c, u = (dev(normal(s, nb, d), torch.float64), dev(normal(s, nb, d), torch.float64),
+                   dev(normal(s, d, d), torch.float64) / math.sqrt(d))
+        # each row's energy order, as the engine ranks coefficients
+        order = torch.argsort(-c.abs(), dim=-1, stable=True)
+        rank = torch.argsort(order, dim=-1, stable=True).to(torch.int32)
+        m = dev(rng.integers(0, d + 1, (s, nb), dtype=np.int32))
+        for name, args in (("gbatc_select_accumulate", (x, c, rank, m, u)),
+                           ("gbatc_correct_batched", (x, c, u))):
+            out["gbatc_tile"][f"{[s, nb, d]}/{name}/float64"] = digest(
+                torch, getattr(gk, name)(*args))
+        del x, c, u, order, rank, m
+    for nb, d in GBATC_2D_SWEEP:
+        rng, normal = draws()
+        x, c, u = normal(nb, d), normal(nb, d), normal(d, d) / np.float32(np.sqrt(d))
+        mask = (rng.random((nb, d), dtype=np.float32) < 0.5).astype(np.float32)
+        for dt in (torch.float32, torch.float64):
+            out["gbatc_tile"][f"{[nb, d]}/gbatc_correct/{str(dt)[6:]}"] = digest(
+                torch, gk.gbatc_correct(*(dev(a, dt) for a in (x, c, mask, u))))
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_old_domain_pins(torch) -> list:
+    """old_domain_digests against OLD_DOMAIN_SHA256; returns the cases that
+    missed (a miss fails the run before its result lines)."""
+    t0 = time.perf_counter()
+    got = old_domain_digests(torch)
+    missed = [f"{kernel}:{case}" for kernel, cases in got.items()
+              for case, sha in cases.items()
+              if OLD_DOMAIN_SHA256.get(kernel, {}).get(case) != sha]
+    emit({"phase": "kernels", "kernel": "old_domain_digests", "seed": OLD_DOMAIN_SEED,
+          "cases": {k: len(v) for k, v in got.items()},
+          "equal_to_pinned": not missed, "missed": missed[:20],
+          "seconds": time.perf_counter() - t0})
+    return missed
+
+
 def phase_flash(torch, launches: int) -> dict:
     """The flash-attention kernel against its plain version on every shape
     of FLASH_SHAPES and at the attention path's shape, where it is timed."""
@@ -1116,13 +1525,107 @@ def phase_flash(torch, launches: int) -> dict:
                    f"<= 2^-7 |plain| + {2 * FLASH_LIMIT['float32']} at every element"))
     del q, k, v
     torch.cuda.empty_cache()
+    row["wide_heads"] = flash_wide_checks(torch, launches, check)
     emit({"phase": "kernels", "kernel": "flash_attention",
-          "launches_timed": launches,
+          "launches_timed": launches, "wide_heads": row["wide_heads"],
           "summary": {k: row[k] for k in ("max_abs_err", "max_abs_err_bf16",
                                           "bf16_ulp_ratio", "ms", "ms_bf16",
                                           "plain_ms", "library_ms",
                                           "bound_ms", "bound_by")}})
     return row
+
+
+def flash_wide_checks(torch, launches: int, check) -> dict:
+    """flash_attention past D = 256 at every FLASH_WIDE shape and past
+    65,535 query tiles (FLASH_MANY_TILES), both dtypes, through ``check``
+    (phase_flash's: the plain version at FLASH_LIMIT and bf16_ulp_ratio),
+    the same bits twice and for a sub-range; FLASH_WIDE_PATH timed in both
+    dtypes beside SDPA at the same dtype. Returns the entry for the flash
+    row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ref as kref
+
+    g = torch.Generator(device="cuda").manual_seed(950)
+    t0 = time.perf_counter()
+
+    def qkv(b, h, tq, tk, d, dtype):
+        return [torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+                for t in (tq, tk, tk)]
+
+    def call(q, k, v, causal, window, index=Ellipsis):
+        return fk.flash_attention(q[index].contiguous(), k[index].contiguous(),
+                                  v[index].contiguous(), causal=causal, window=window)
+
+    out: dict = {"shapes_checked": FLASH_WIDE, "errors": {}, "bf16_ulp_ratio": 0.0}
+    for b, h, tq, tk, d, causal, window in FLASH_WIDE:
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype)[6:]
+            q, k, v = qkv(b, h, tq, tk, d, dtype)
+            err, ratio = check(q, k, v, causal, window, dn)
+            out["errors"][dn] = max(out["errors"].get(dn, 0.0), err)
+            out["bf16_ulp_ratio"] = max(out["bf16_ulp_ratio"], ratio)
+            what = f"flash_attention D={d} {dn}"
+            same_twice(torch, what, lambda: call(q, k, v, causal, window))
+            index = ((slice(1, 2),) if b > 1 else
+                     (slice(None), slice(1, 2)) if h > 1 else None)
+            if index is not None:
+                same_rows(torch, what, call(q, k, v, causal, window),
+                          [(index, call(q, k, v, causal, window, index))])
+            del q, k, v
+    many = {}
+    for dn, ((b, h, tq, tk, d, causal, window), rows) in FLASH_MANY_TILES.items():
+        q, k, v = qkv(b, h, tq, tk, d, getattr(torch, dn))
+        err, ratio = check(q, k, v, causal, window, dn)
+        what = f"flash_attention at {(tq + rows - 1) // rows} query tiles ({dn})"
+        same_twice(torch, what, lambda: call(q, k, v, causal, window))
+        # the kernels walk the last rows first: the first two tiles are the
+        # ones the CTAs take on their second pass
+        full = call(q, k, v, causal, window)
+        same_rows(torch, what, full, [
+            (rr, fk.flash_attention(q[rr].contiguous(), k, v, causal=causal,
+                                    window=window))
+            for rr in ((Ellipsis, slice(0, 2 * rows), slice(None)),
+                       (Ellipsis, slice(65535 * rows, tq), slice(None)))])
+        many[dn] = {"shape": [b, h, tq, tk, d], "query_tiles": (tq + rows - 1) // rows,
+                    "rows_a_cta": rows, "max_abs_err": err, "bf16_ulp_ratio": ratio,
+                    "last_tiles_bitwise": True}
+        del q, k, v, full
+        torch.cuda.empty_cache()
+    out["many_tiles"] = many
+    b, h, t, d = FLASH_WIDE_PATH
+    n = b * h * t * d
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype)[6:]
+        q, k, v = qkv(b, h, t, t, d, dtype)
+        err, ratio = check(q, k, v, False, 0, dn)
+        what = f"flash_attention {FLASH_WIDE_PATH} {dn}"
+        same_twice(torch, what, lambda: call(q, k, v, False, 0))
+        # the codec encodes in 512-block batches and decodes in 4096-block ones
+        same_rows(torch, what, call(q, k, v, False, 0),
+                  [(slice(0, 512), call(q, k, v, False, 0, slice(0, 512)))])
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        plain = lambda: kref.flash_attention_ref(q, k, v, causal=False)  # noqa: E731
+        # fp32 is held to its products' 3xTF32 bound, as at D <= 256; the
+        # kernel runs on the CUDA cores, so their bound is reported beside it
+        fp32 = dtype == torch.float32
+        row = kernel_row(
+            torch, "", "", "", lambda: fk.flash_attention(q, k, v, causal=False),
+            plain, lib, dn, FLASH_WIDE_PATH, 4 * n * dtype.itemsize,
+            4 * b * h * t * t * d, launches, err,
+            peak="float32_3xtf32" if fp32 else None, causal=False, bf16_ulp_ratio=ratio,
+            bound_ffma_ms=4 * b * h * t * t * d / PEAK_FLOPS["float32"] * 1e3,
+            library_backend=sdpa_backend(torch, q, k, v),
+            library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
+            kernel="flash_wide (CUDA cores, fp32)")
+        for key in ("name", "route", "source", "replaces", "launches"):
+            row.pop(key)
+        out[dn] = row
+        del q, k, v
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def phase_ops_kernels(torch, launches: int) -> list[dict]:
@@ -1320,6 +1823,57 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         tolerance="max abs diff <= 2e-4 x max(1, max|plain|) (+ one bf16 ulp of it in bf16)"))
     del args
 
+    # past N = 64: the 64-column slabs (to N = 256) and rwkv6_wide (past it)
+    t0 = time.perf_counter()
+    wide_err = 0.0
+    for b, t, h, n in RWKV_WIDE:
+        for dtype in (f32, bf16):
+            args = rw_inputs(b, t, h, n, dtype)
+            e = rw_check(args, f"{(b, t, h, n)} {dtype}")
+            wide_err = max(wide_err, e) if dtype == f32 else wide_err
+            what = f"rwkv6_scan {(b, t, h, n)} {dtype}"
+            same_twice(torch, what, lambda: wk.rwkv6_scan(*args))
+            full = wk.rwkv6_scan(*args)
+            # a batch row, and a head (u's row, s0's head), as in the full call
+            parts = []
+            if b > 1:
+                parts.append((slice(1, 2), slice(1, 2),
+                              [a if i == 4 else a[1:2] for i, a in enumerate(args)]))
+            if h > 1:
+                parts.append(((slice(None), slice(None), slice(1, 2)),
+                              (slice(None), slice(1, 2)),
+                              [a[1:2] if i == 4 else a[:, 1:2] if i == 5 else a[:, :, 1:2]
+                               for i, a in enumerate(args)]))
+            for out_index, s_index, sub in parts:
+                got = wk.rwkv6_scan(*(a.contiguous() for a in sub))
+                same_rows(torch, f"{what} out", full[0], [(out_index, got[0])])
+                same_rows(torch, f"{what} S_T", full[1], [(s_index, got[1])])
+            del args, full
+    b, t, h, n = RWKV_WIDE_PATH
+    args = rw_inputs(b, t, h, n, f32)
+    wide_err = max(wide_err, rw_check(args, "timed wide shape"))
+    same_twice(torch, "rwkv6_scan (wide)", lambda: wk.rwkv6_scan(*args))
+    full = wk.rwkv6_scan(*args)
+    part = wk.rwkv6_scan(*(a if i == 4 else a[:2].contiguous() for i, a in enumerate(args)))
+    for what, f, p in zip(("out", "S_T"), full, part):
+        same_rows(torch, f"rwkv6_scan (wide, {what})", f, [(slice(0, 2), p)])
+    del full, part
+    tokens = b * t * h
+    wide = kernel_row(
+        torch, "", "", "", lambda: wk.rwkv6_scan(*args),
+        lambda: kref.rwkv6_scan_ref(*args), None, "float32", RWKV_WIDE_PATH,
+        5 * tokens * n * 4 + 2 * b * h * n * n * 4 + h * n * 4, 5 * tokens * n * n,
+        launches, wide_err, plain_launches=3, initial_state="random (B,H,N,N)",
+        kernel="rwkv6_kernel<float, 128>: two 64-column slabs a (b, h)",
+        shapes_checked=RWKV_WIDE, dtypes_checked=["float32", "bfloat16"],
+        subranges_checked=["batch 1 (0-1 at the timed shape)", "head 1"],
+        tolerance="as the N <= 64 shapes")
+    for key in ("name", "route", "source", "replaces", "launches"):
+        wide.pop(key)
+    wide["seconds"] = time.perf_counter() - t0
+    rows[-1]["wide_heads"] = wide
+    del args
+
     # -- rglru_scan --------------------------------------------------------
     def rg_check(a, bb, h0, what) -> tuple:
         e, (h, _) = rg_bitwise(torch, rk, kref, a, bb, h0, what)
@@ -1346,6 +1900,20 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
     _, h = rg_check(torch.full_like(ones, 1.5), ones, None, "a = 1.5")
     if float(h[0, -1, 0]) != 32.0:
         fail("rglru_scan does not clamp a > 1 to 1")
+    # batch rows past the grid's 65,535 in y: the rows the CTAs take on
+    # their second pass are bitwise a call of their own
+    b, t, w = RGLRU_MANY_ROWS
+    for dtype in (f32, bf16):
+        a, bb, h0 = rg_inputs(b, t, w, dtype)
+        what = f"{RGLRU_MANY_ROWS} {dtype}"
+        _, full = rg_bitwise(torch, rk, kref, a, bb, h0, what)
+        same_twice(torch, f"rglru_scan {what}", lambda: rk.rglru_scan(a, bb, h0))
+        last = slice(65535, b)
+        got = rk.rglru_scan(a[last].contiguous(), bb[last].contiguous(),
+                            h0[last].contiguous())
+        for out, f, p in zip(("h", "h_T"), full, got):
+            same_rows(torch, f"rglru_scan {what} {out}", f, [(last, p)])
+        del a, bb, h0, full, got
     b, t, w = RGLRU_PATH
     for dtype in (bf16, f32):
         a, bb, h0 = rg_inputs(b, t, w, dtype)
@@ -1360,7 +1928,9 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         max(rg_err, e), plain_launches=3, device=True, shapes_checked=RGLRU_SWEEP,
         dtypes_checked=["float32", "bfloat16"],
         extra_cases=["h0 = None at every shape", "a = 1e-25", "a = 1.5 (clamped to 1)",
-                     f"{list(RGLRU_UNALIGNED)} with bases one element in"],
+                     f"{list(RGLRU_UNALIGNED)} with bases one element in",
+                     f"{list(RGLRU_MANY_ROWS)}: batch rows past 65,535, the last "
+                     "two bitwise their own call"],
         subranges_checked=["batch 0-1", f"channels {RGLRU_CHANNELS.start}-"
                            f"{RGLRU_CHANNELS.stop - 1}"],
         tolerance="bitwise: torch.equal of h and h_T"))
@@ -1753,6 +2323,65 @@ def phase_wide_block_path(torch, args, data) -> dict:
     return info
 
 
+# wide_head_path: the attention codec with one 512-wide head (arch d_model
+# 512, 1 head, depth 1, MLP 1024: head dim 512, flash_wide) on the first 8
+# frames (10,240 blocks a species), AE steps cut (the guarantee holds
+# whatever the fit), and one selective decode of it
+WIDE_HEAD_ARCH = (512, 1, 1, 1024)
+WIDE_HEAD_FRAMES = 8
+WIDE_HEAD_AE_STEPS = 100
+WIDE_HEAD_SPECIES = [2, 31, 57]
+
+
+def phase_wide_head_path(torch, args, data) -> dict:
+    """The attention codec at WIDE_HEAD_ARCH through drive() (every gate of
+    main_path), flash past D = 256 in compress and in decompress (the
+    codec's one head dim, d_model // n_heads, is past 256, and flash was
+    launched in both), then one cold selective decode of
+    WIDE_HEAD_SPECIES, bitwise the full decode's slice, with one replay
+    launch and flash launches only."""
+    import numpy as np
+
+    from repro_torch import codec
+    from repro_torch.core.pipeline import PipelineConfig
+
+    field8 = np.ascontiguousarray(data[:, :WIDE_HEAD_FRAMES])
+    cfg = PipelineConfig(family="attention", arch=WIDE_HEAD_ARCH, latent=36,
+                         use_correction=True, ae_steps=WIDE_HEAD_AE_STEPS,
+                         corr_steps=args.corr_steps, seed=args.seed)
+    d_model, heads, depth, mlp = cfg.arch
+    if d_model // heads <= 256:
+        fail(f"wide_head_path: arch {cfg.arch} has head dim {d_model // heads}, "
+             "not past 256")
+    info, blob, _, field, gb = drive(torch, field8, cfg, args, "wide_head_path", {
+        "species": 58, "block": [4, 5, 4], "latent": 36,
+        "arch": {"d_model": d_model, "n_heads": heads, "depth": depth,
+                 "mlp_hidden": mlp},
+        "tokens": 232, "head_dim": d_model // heads, "correction": [232, 464, 232]},
+        WIDE_HEAD_AE_STEPS)
+    del gb
+    for part in ("compress", "decompress"):
+        if info[f"launches_{part}"]["flash_attention"] < 1:
+            fail(f"wide_head_path: flash_attention was never launched during {part}")
+    info["cut"]["frames"] = WIDE_HEAD_FRAMES
+    codec.clear_decode_cache()
+    out, secs, counts = counted(torch, lambda: codec.decompress(
+        blob, species=WIDE_HEAD_SPECIES))
+    want = sliced(field, WIDE_HEAD_SPECIES, None)
+    if out.shape != want.shape or out.dtype != want.dtype or out.tobytes() != want.tobytes():
+        fail(f"wide_head_path: decompress(species={WIDE_HEAD_SPECIES}) is not "
+             "bitwise the full decode's slice")
+    others = {k: n for k, n in counts.items()
+              if k not in ("gbatc_correct_batched", "flash_attention") and n}
+    if counts["gbatc_correct_batched"] != 1 or others or counts["flash_attention"] < 1:
+        fail(f"wide_head_path: the selective decode launched {counts}; expected "
+             "one gbatc_correct_batched, flash_attention and no other kernel")
+    info["selective"] = {"species": WIDE_HEAD_SPECIES, "cold_s": secs}
+    info["launches_selective"] = counts
+    emit(info)
+    return info
+
+
 # partial_path: the conv blob's selections (species, frame window); None
 # is every species or every frame. Then PARTIAL_RANDOM seeded random pairs
 # of at most PARTIAL_RANDOM_SPECIES species, so that a cold decode's host
@@ -2037,8 +2666,10 @@ def phase_partial_path(torch, conv: tuple, attention: tuple) -> dict:
 # SERVE_ALL_SPECIES; a window of 1-16 frames or the whole field; the
 # attention blob one time in SERVE_ATTENTION. Planted among them:
 # SERVE_DUPLICATES exact duplicates, one unknown blob id, one malformed
-# request (species=99).
-SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_MAX_BATCH = 8, 3, 32
+# request (species=99). Two requests a client (16, three of them all
+# species, three on the attention blob) keep the cold runs' host entropy
+# work near half of three a client's.
+SERVE_CLIENTS, SERVE_PER_CLIENT, SERVE_MAX_BATCH = 8, 2, 32
 SERVE_ALL_SPECIES, SERVE_ATTENTION, SERVE_DUPLICATES = 16, 8, 4
 # a serving box holding the two hot blobs keeps every species' decoded
 # guarantee artifacts (about 0.5 GB for a 1e-3 blob of 58 x 20480 blocks)
@@ -2707,6 +3338,13 @@ LM_RGLRU = (LM_BATCH, LM_PROMPT, 2560)   # RecurrentGemma-2B's rglru_width
 LM_CHECK_ARCHS = ("llama3_2_1b", "stablelm_3b", "yi_9b", "rwkv6_7b",
                   "recurrentgemma_2b", "whisper_base")
 LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 2112, 4
+# and two .smoke() configs widened past the kernels' old domains, d_model =
+# heads x head dim: Llama with 320-wide heads (flash_wide), RWKV-6 with
+# 128-wide heads (rwkv6_scan's 64-column slabs); same batch and prompt
+LM_WIDE_CHECKS = {
+    "llama3_2_1b.smoke.d_head_320": ("llama3_2_1b", {"d_model": 1280, "d_head": 320}),
+    "rwkv6_7b.smoke.rwkv_head_dim_128": ("rwkv6_7b", {"d_model": 256, "rwkv_head_dim": 128}),
+}
 LM_ROUTE_LIMIT = 1e-3  # max |kernel - portable| over max |portable logit|
 LM_CONSISTENCY = 2e-2  # tests/test_models_smoke.py's rtol = atol
 # step 3: bf16 serving at full width; depth cut where the bf16 weights would
@@ -2857,6 +3495,7 @@ def phase_lm_kernels(torch, launches: int) -> dict:
             row = entry(
                 fn, plain, lib, dn, (b, h, tq, tk, d), 2 * b * h * (tq + tk) * d * dtype.itemsize,
                 4 * pairs * d, errs[dn], peak="float32_3xtf32" if fp32 else None,
+                plain_launches=5,
                 config=name, causal=causal, window=window, **bounds,
                 live_pairs=pairs, library_backend=sdpa_backend(torch, q, k, v, **sdpa_kw),
                 library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
@@ -2927,14 +3566,18 @@ def _logit_gap(a, b) -> float:
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
 
 
-def lm_route_check(torch, arch: str, totals: dict) -> dict:
-    """Step 2 for one config: fp32 under strict_fp32, full width and depth,
-    one seed's parameters through use_kernels=True and =False."""
+def lm_route_check(torch, arch: str, totals: dict, widen: dict | None = None) -> dict:
+    """Step 2 for one config: fp32 under strict_fp32, full width and depth
+    (or, with ``widen``, the config's .smoke() with those fields), one
+    seed's parameters through use_kernels=True and =False."""
     from repro_torch.configs.base import get_config
     from repro_torch.device import strict_fp32
     from repro_torch.models.registry import build_model, make_batch
 
-    cfg = get_config(arch).replace(dtype=torch.float32)
+    cfg = get_config(arch)
+    if widen is not None:
+        cfg = cfg.smoke().replace(**widen)
+    cfg = cfg.replace(dtype=torch.float32)
     kern, port = build_model(cfg), build_model(cfg.replace(use_kernels=False))
     t0 = time.perf_counter()
     params = kern.init(seed=0, device="cuda")
@@ -3208,6 +3851,8 @@ def phase_lm_serve_path(torch) -> dict:
     t_start = time.perf_counter()
     totals = {k: 0 for k in all_counts()}
     routes = {arch: lm_route_check(torch, arch, totals) for arch in LM_CHECK_ARCHS}
+    for name, (arch, widen) in LM_WIDE_CHECKS.items():
+        routes[name] = {"widen": widen, **lm_route_check(torch, arch, totals, widen)}
     serve = {arch: lm_serve(torch, arch, totals) for arch in list_configs()}
     info = {"phase": "lm_serve_path", "gpu": gpu_line(),
             "route_check": {"dtype": "float32, then bfloat16 (bf16)",
@@ -3231,11 +3876,14 @@ TRAIN_GRAD_REL = 1e-4  # max |cuda - cpu| over the leaf's largest |g| (and the l
 # seq 2048 (the portable attention keeps O(T^2) fp32 scores and has no
 # flash backward); AdamW lr 3e-4, warmup 4, grad clip 1.0; int8 gradient
 # compression (CompressionConfig's defaults)
+# (12 steps of train(): one sampled block_quant check a step covers the 12
+# gradient leaves, and the loss falls)
 TRAIN_ARCH, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_PROFILED = (
-    "llama3_2_1b", 4, 2048, 30, 4)
-# step 3: the same model cut to 2 of 16 layers (full width), seq 512, 10
-# steps, a checkpoint every 4, one StepFailure at step 6
-RECOVERY = {"layers": 2, "seq": 512, "steps": 10, "save_every": 4, "fail_at": 6,
+    "llama3_2_1b", 4, 2048, 12, 4)
+# step 3: the same model cut to 2 of 16 layers (full width), seq 512, 6
+# steps, a checkpoint every 3, one StepFailure at step 5 (a restore of
+# step 3); each save of the 6.47 GB state takes about 8 s
+RECOVERY = {"layers": 2, "seq": 512, "steps": 6, "save_every": 3, "fail_at": 5,
             "keep": 2}
 # step 4: GBATC-compressed checkpoint of the layer-0 slice of every stacked
 # leaf of step 2's trained model (60.8 M values), at tau_rel 1e-3
@@ -3463,7 +4111,7 @@ def lm_train_full_width(torch, totals: dict) -> tuple:
                           "over the step's seconds and 989 TFLOP/s",
             "timing_note": "the profiled steps run after train() returned, "
                            "without the initial state run_with_recovery keeps "
-                           "for a restart (ROADMAP C-ref-14); train()'s 30 "
+                           "for a restart (ROADMAP C-ref-14); train()'s 12 "
                            "steps run with it, within a few GB of the card's "
                            "memory, and carry the sampled block_quant checks",
             "block_quant_sampled": sampled,
@@ -3546,7 +4194,10 @@ def lm_train_recovery(torch, totals: dict) -> dict:
     base = tempfile.mkdtemp(prefix="chip_smoke_ckpt_", dir=os.path.join(ROOT, "build"))
     try:
         for name, hook in (("failure", fail_once), ("clean", None)):
-            mgr = RecordingCheckpoints(os.path.join(base, name), hold=restored)
+            # the uninterrupted run keeps no checkpoint: a save changes no
+            # state, and the failing run times the saves
+            mgr = (RecordingCheckpoints(os.path.join(base, name), hold=restored)
+                   if hook else NoCheckpoints())
             reset_counts()
             with deterministic():
                 out = train(cfg, tcfg, steps=RECOVERY["steps"], batch=TRAIN_BATCH,
@@ -3556,9 +4207,9 @@ def lm_train_recovery(torch, totals: dict) -> dict:
             counts_are(f"recovery run ({name})", {}, totals, "lm_train_path")
             runs[name] = out
             info[name] = {"report": out["report"], "losses": out["losses"],
-                          "seconds": out["seconds"], "median_step_s": out["median_step_s"],
-                          "saves": mgr.saves, "restores": mgr.restores}
+                          "seconds": out["seconds"], "median_step_s": out["median_step_s"]}
             if name == "failure":
+                info[name].update(saves=mgr.saves, restores=mgr.restores)
                 if out["report"]["restarts"] != 1 or mgr.restored_bitwise is not True:
                     fail(f"lm_train_path: recovery run: {out['report']}, restore "
                          f"bitwise {mgr.restored_bitwise}")
@@ -4077,7 +4728,7 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
                     default="env,build,kernels,main_path,attention_path,wide_block_path,"
-                            "ops_path,"
+                            "wide_head_path,ops_path,"
                             "partial_path,serve_path,stream_path,mesh_path,lm_serve_path,"
                             "lm_train_path,dryrun_path,analysis_path")
     ap.add_argument("--launches", type=int, default=20,
@@ -4116,10 +4767,11 @@ def run(torch, args, phases) -> None:
         phase_env(torch)
     if "build" in phases:
         phase_build()
-    rows, missed = [], []
+    rows, missed, pins_missed = [], [], []
     if "kernels" in phases:
         launches = max(20, args.launches)
         batched, missed = phase_kernels(torch, launches)
+        pins_missed = phase_old_domain_pins(torch)
         flash = phase_flash(torch, launches)
         ops_rows = phase_ops_kernels(torch, launches)
         # the order of PERF.md's table of TPU kernels
@@ -4138,7 +4790,7 @@ def run(torch, args, phases) -> None:
     if "analysis_path" in phases and not {"main_path", "attention_path"} <= set(phases):
         fail("analysis_path needs the main_path and attention_path phases")
     data = temperature = main_codec = attention_artifact = None
-    if {"main_path", "attention_path", "wide_block_path"} & set(phases):
+    if {"main_path", "attention_path", "wide_block_path", "wide_head_path"} & set(phases):
         data, temperature, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
         if "main_path" in phases:
@@ -4149,6 +4801,8 @@ def run(torch, args, phases) -> None:
                 phase_attention_path(torch, args, data)
         if "wide_block_path" in phases:
             paths["wide_block_path"] = phase_wide_block_path(torch, args, data)
+        if "wide_head_path" in phases:
+            paths["wide_head_path"] = phase_wide_head_path(torch, args, data)
     ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
     partial = (phase_partial_path(torch, outputs["main_path"],
                                   outputs["attention_path"])
@@ -4200,13 +4854,17 @@ def run(torch, args, phases) -> None:
         r["launches_by_path"] = by_path
         r["launches"] = sum(sum(c.values()) for c in by_path.values())
     complete = all(p in phases for p in ("build", "kernels", "main_path",
-                                         "attention_path", "wide_block_path", "ops_path",
+                                         "attention_path", "wide_block_path",
+                                         "wide_head_path", "ops_path",
                                          "partial_path", "serve_path",
                                          "stream_path", "mesh_path",
                                          "lm_serve_path", "lm_train_path",
                                          "dryrun_path", "analysis_path"))
     if missed:
         fail(f"the batched routes' outputs at {missed} differ from ANY_D_SHA256's")
+    if pins_missed:
+        fail(f"outputs inside the kernels' old domains moved: {pins_missed[:20]} "
+             "differ from OLD_DOMAIN_SHA256's")
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

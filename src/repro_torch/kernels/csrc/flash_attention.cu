@@ -8,11 +8,14 @@
 // coordinates: causal (k <= q), sliding window (k > q - window) and the
 // ragged key tail (k >= Tk), so any Tk works, causal or not.
 //
-// Three kernels: fp32 at D <= 32 runs flash_kernel on the CUDA cores (the
+// Four kernels: fp32 at D <= 32 runs flash_kernel on the CUDA cores (the
 // design below; its bits are the codec attention family's), fp32 at 32 < D
-// <= 256 runs flash_f32_3xtf32 on the tensor cores in 3xTF32, and bf16 runs
-// flash_bf16_mma on the tensor cores (their designs are further down, each
-// above its kernel).
+// <= 256 runs flash_f32_3xtf32 on the tensor cores in 3xTF32, bf16 at D <=
+// 256 runs flash_bf16_mma on the tensor cores, and both dtypes past D = 256
+// run flash_wide on the CUDA cores (their designs are further down, each
+// above its kernel). Any D >= 1 and any number of query tiles: a grid's y
+// stops at 65,535, so past that each CTA loops over tiles blockIdx.y,
+// blockIdx.y + gridDim.y, ..., each with the arithmetic of one tile.
 //
 // It replaces the Pallas TPU kernel flash_attention of
 // src/repro/kernels/flash_attention.py (_flash_kernel). What is kept from it
@@ -76,7 +79,6 @@ constexpr int DPT = 16;     // head dims per thread
 constexpr int R = 2;        // query rows per thread
 constexpr int BLOCK_KEYS = 8;  // keys per online-softmax block
 constexpr int KV_BYTES = 48 * 1024;  // shared memory for one K/V chunk
-constexpr int MAX_D = 256;
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr unsigned FULL = 0xffffffffu;
@@ -168,11 +170,12 @@ __device__ __forceinline__ void key_block(
   }
 }
 
+// Query tile yt of (batch, head) blockIdx.x.
 template <typename T, int DP, int KB>
-__global__ void __launch_bounds__(THREADS, 4)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
-             int d, int causal, int window, float scale, int chunk, int vec) {
+__device__ __forceinline__ void flash_tile(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int tq, int tk, int d, int causal, int window,
+    float scale, int chunk, int vec, int yt) {
   constexpr int G = DP / DPT;                // threads per query row
   constexpr int ROWS = THREADS / G * R;      // query rows per CTA
   extern __shared__ __align__(16) float kv_s[];
@@ -180,7 +183,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* sv = kv_s + chunk * DP;  // (chunk, DP)
 
   const long long bh = blockIdx.x;
-  const int q0 = blockIdx.y * ROWS;
+  const int q0 = yt * ROWS;
   const int row0 = q0 + (threadIdx.x / G) * R;
   const int d0 = (threadIdx.x % G) * DPT;
   const T* kb = k + bh * tk * d;
@@ -253,17 +256,37 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// A grid's y stops at 65,535: a CTA takes query tiles blockIdx.y,
+// blockIdx.y + gridDim.y, ... of q_tiles (one, up to 65,535 tiles), each
+// with the arithmetic of one tile a CTA.
+template <typename T, int DP, int KB>
+__global__ void __launch_bounds__(THREADS, 4)
+flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
+             const T* __restrict__ v, T* __restrict__ o, int tq, int tk,
+             int d, int causal, int window, float scale, int chunk, int vec,
+             int q_tiles) {
+  for (int yt = blockIdx.y; yt < q_tiles; yt += gridDim.y) {
+    if (yt != (int)blockIdx.y) __syncthreads();  // shared memory is free
+    flash_tile<T, DP, KB>(q, k, v, o, tq, tk, d, causal, window, scale, chunk,
+                          vec, yt);
+  }
+}
+
 inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
+
+// the grid's y (or z) for `tiles` tiles: every tile up to 65,535, else the
+// CTAs loop over them
+inline int grid_y(int tiles) { return tiles < 65535 ? tiles : 65535; }
 
 template <typename T, int DP>
 int launch_as(const T* q, const T* k, const T* v, T* o, long long bh, int tq,
               int tk, int d, int causal, int window, float scale,
               void* stream) {
   constexpr int ROWS = THREADS / (DP / DPT) * R;
-  const long long q_tiles = (tq + ROWS - 1) / ROWS;
-  if (bh > 0x7fffffffLL || q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int q_tiles = (tq + ROWS - 1) / ROWS;
+  if (bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   // the whole head when it fits, else chunks of the same size for every CTA
   const int max_chunk =
       KV_BYTES / (2 * DP * (int)sizeof(float)) / BLOCK_KEYS * BLOCK_KEYS;
@@ -272,10 +295,10 @@ int launch_as(const T* q, const T* k, const T* v, T* o, long long bh, int tq,
   const size_t smem = 2 * (size_t)chunk * DP * sizeof(float);
   const int vec = sizeof(T) == sizeof(float) && d == DP && aligned16(k) &&
                   aligned16(v);
-  dim3 grid((unsigned)bh, (unsigned)q_tiles);
+  dim3 grid((unsigned)bh, (unsigned)grid_y(q_tiles));
   flash_kernel<T, DP, BLOCK_KEYS>
       <<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-          q, k, v, o, tq, tk, d, causal, window, scale, chunk, vec);
+          q, k, v, o, tq, tk, d, causal, window, scale, chunk, vec, q_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -428,12 +451,13 @@ constexpr size_t mma_smem_bytes() {
          sizeof(bf16);
 }
 
+// Query tile yt of q_tiles of (batch, head) blockIdx.x.
 template <int DP>
-__global__ void __launch_bounds__(MMA_THREADS, 2)
-flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-               const bf16* __restrict__ v, bf16* __restrict__ o, int tq,
-               int tk, int d, int causal, int window, float scale,
-               int skip_below_window, int vec) {
+__device__ __forceinline__ void flash_bf16_tile(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, bf16* __restrict__ o, int tq, int tk, int d,
+    int causal, int window, float scale, int skip_below_window, int vec,
+    int yt, int q_tiles) {
   constexpr int KN = mma_keys<DP>();  // keys per tile
   constexpr int LDS = DP + 8;         // shared row stride, elements
   constexpr int KD = DP / 16;         // k-steps of Q K^T
@@ -446,7 +470,7 @@ flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const long long bh = blockIdx.x;
   // the heaviest causal tiles (the last rows) are scheduled first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * MMA_ROWS;
+  const int q0 = (q_tiles - 1 - yt) * MMA_ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const bf16* qb = q + bh * tq * d;
   const long long kv = kv_head_offset(bh, tk, d);
@@ -633,12 +657,26 @@ flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// tiles blockIdx.y, + gridDim.y, ... of q_tiles (see flash_kernel)
+template <int DP>
+__global__ void __launch_bounds__(MMA_THREADS, 2)
+flash_bf16_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, bf16* __restrict__ o, int tq,
+               int tk, int d, int causal, int window, float scale,
+               int skip_below_window, int vec, int q_tiles) {
+  for (int yt = blockIdx.y; yt < q_tiles; yt += gridDim.y) {
+    if (yt != (int)blockIdx.y) __syncthreads();  // shared memory is free
+    flash_bf16_tile<DP>(q, k, v, o, tq, tk, d, causal, window, scale,
+                        skip_below_window, vec, yt, q_tiles);
+  }
+}
+
 template <int DP>
 int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                long long bh, int tq, int tk, int d, int causal, int window,
                float scale, void* stream) {
-  const long long q_tiles = (tq + MMA_ROWS - 1) / MMA_ROWS;
-  if (bh > 0x7fffffffLL || q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int q_tiles = (tq + MMA_ROWS - 1) / MMA_ROWS;
+  if (bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = mma_smem_bytes<DP>();
   // above 48 KB only as dynamic shared memory, once allowed (per device)
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -648,17 +686,23 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   // a row with no live key (window > 0, q - window + 1 >= Tk) takes the
   // reference's uniform weights over every key: then visit them all
   const int skip = !(window > 0 && (long long)tq > (long long)tk + window - 1);
-  dim3 grid((unsigned)bh, (unsigned)q_tiles);
+  dim3 grid((unsigned)bh, (unsigned)grid_y(q_tiles));
   flash_bf16_mma<DP>
       <<<grid, MMA_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-          q, k, v, o, tq, tk, d, causal, window, scale, skip, vec);
+          q, k, v, o, tq, tk, d, causal, window, scale, skip, vec, q_tiles);
   return (int)cudaGetLastError();
 }
+
+// past D = 256, both dtypes (flash_wide, below)
+template <typename T>
+int launch_wide(const T* q, const T* k, const T* v, T* o, long long bh,
+                int tq, int tk, int d, int causal, int window, float scale,
+                void* stream);
 
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                 long long bh, int tq, int tk, int d, int causal, int window,
                 float scale, void* stream) {
-  if (d < 1 || d > MAX_D || bh < 0 || tq < 0 || tk < 1 || window < 0)
+  if (d < 1 || bh < 0 || tq < 0 || tk < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   if (bh == 0 || tq == 0) return (int)cudaSuccess;
   if (d <= 16)
@@ -676,8 +720,11 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   if (d <= 128)
     return launch_mma<128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                            stream);
-  return launch_mma<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                         stream);
+  if (d <= 256)
+    return launch_mma<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                           stream);
+  return launch_wide<bf16>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                           stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -846,12 +893,13 @@ __device__ __forceinline__ void load_rows_f32(float* s, const float* g,
   }
 }
 
+// Query tile yt of q_tiles of (batch, head) blockIdx.x.
 template <int DP>
-__global__ void __launch_bounds__(TF_THREADS, DP <= 128 ? 2 : 1)
-flash_f32_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int tq,
-                 int tk, int d, int causal, int window, float scale,
-                 int skip_below_window, int vec) {
+__device__ __forceinline__ void flash_3xtf32_tile(
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o, int tq, int tk, int d,
+    int causal, int window, float scale, int skip_below_window, int vec,
+    int yt, int q_tiles) {
   constexpr int MT = tf_mtiles<DP>();  // m-tiles a warp
   constexpr int ROWS = tf_rows<DP>();  // query rows per CTA
   constexpr int KN = tf_keys<DP>();    // keys per tile
@@ -865,7 +913,7 @@ flash_f32_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
 
   const long long bh = blockIdx.x;
   // the heaviest causal tiles (the last rows) are scheduled first
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * ROWS;
+  const int q0 = (q_tiles - 1 - yt) * ROWS;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, qd = lane % 4;  // the fragments' group and lane in it
   const float* qb = q + bh * tq * d;
@@ -1084,13 +1132,27 @@ flash_f32_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
     }
 }
 
+// tiles blockIdx.y, + gridDim.y, ... of q_tiles (see flash_kernel)
+template <int DP>
+__global__ void __launch_bounds__(TF_THREADS, DP <= 128 ? 2 : 1)
+flash_f32_3xtf32(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int tq,
+                 int tk, int d, int causal, int window, float scale,
+                 int skip_below_window, int vec, int q_tiles) {
+  for (int yt = blockIdx.y; yt < q_tiles; yt += gridDim.y) {
+    if (yt != (int)blockIdx.y) __syncthreads();  // shared memory is free
+    flash_3xtf32_tile<DP>(q, k, v, o, tq, tk, d, causal, window, scale,
+                          skip_below_window, vec, yt, q_tiles);
+  }
+}
+
 template <int DP>
 int launch_3xtf32(const float* q, const float* k, const float* v, float* o,
                   long long bh, int tq, int tk, int d, int causal, int window,
                   float scale, void* stream) {
   constexpr int ROWS = tf_rows<DP>();
-  const long long q_tiles = (tq + ROWS - 1) / ROWS;
-  if (bh > 0x7fffffffLL || q_tiles > 65535) return (int)cudaErrorInvalidValue;
+  const int q_tiles = (tq + ROWS - 1) / ROWS;
+  if (bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   constexpr size_t smem = tf_smem_bytes<DP>();
   // above 48 KB only as dynamic shared memory, once allowed (per device)
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -1102,18 +1164,279 @@ int launch_3xtf32(const float* q, const float* k, const float* v, float* o,
   // a row with no live key (window > 0, q - window + 1 >= Tk) takes the
   // reference's uniform weights over every key: then visit them all
   const int skip = !(window > 0 && (long long)tq > (long long)tk + window - 1);
-  dim3 grid((unsigned)bh, (unsigned)q_tiles);
+  dim3 grid((unsigned)bh, (unsigned)grid_y(q_tiles));
   flash_f32_3xtf32<DP>
       <<<grid, TF_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-          q, k, v, o, tq, tk, d, causal, window, scale, skip, vec);
+          q, k, v, o, tq, tk, d, causal, window, scale, skip, vec, q_tiles);
   return (int)cudaGetLastError();
 }
 
-// fp32: the CUDA-core kernel at D <= 32 (the codec's bits), 3xTF32 above
+// ---------------------------------------------------------------------------
+// Past D = 256, fp32 and bf16: flash_wide
+//
+// It replaces the same Pallas kernel (_flash_kernel,
+// src/repro/kernels/flash_attention.py:29), which takes any head dim, at
+// D > 256: an attention codec with wide heads (arch (512, 1, 1, 1024) has
+// D = 512), and any head a caller brings. It computes what the kernels
+// above compute, with the same causal, window and ragged-tail masks
+// (masked scores at -1e30, the tail at -inf) and the output
+// acc / max(l, 1e-30), rounded to the operands' type once.
+//
+// Bound on this card: operations. At the wide codec's chunk (4096, 1, 232,
+// 512) non-causal the function is 4 x 4096 x 232^2 x 512 = 0.45 TFLOP,
+// 2.7 ms at 3xTF32's 165 TFLOP/s (the fp32 products' rate on the tensor
+// cores, as flash_f32_3xtf32 runs them to D = 256; 6.7 ms at the CUDA
+// cores' 67 TFLOP/s, which this kernel uses), against 7.8 GB of operands,
+// 2.3 ms.
+// Design (simple first; every value in fp32 on the CUDA cores):
+//
+// * A CTA of 256 threads owns one (batch, head), a tile of WD_ROWS = 64
+//   query rows and one slab of up to WD_SLAB = 256 output dims (grid z);
+//   K and V cannot stay on chip at such D (232 keys x 512 dims x 2 x 4 B =
+//   950 KB), so they stream in tiles of WD_KEYS = 32 keys, the same tiles
+//   for every CTA.
+// * Scores: for each key tile, S = Q K^T over all of D in panels of WD_DK =
+//   32 dims, the Q and K panels staged in shared memory (bf16 converted
+//   and q pre-scaled by scale * log2(e) while staged); a thread keeps 4
+//   rows x 2 keys of S in registers, one FMA chain a score in ascending d.
+// * Softmax: 4 threads a row, 8 keys each: the block max (2 shuffles), one
+//   correction exp2f(m - m_new) of (l, acc), p = exp2f(s - m), the block's
+//   sum of p (2 shuffles) into l.
+// * P V for the slab: a thread keeps 8 rows x 8 dims of the accumulator,
+//   the V tile's slab in shared memory, keys in ascending order.
+// * Every slab's CTA computes the same scores, maxima, sums and p with the
+//   same code in the same order (a slab index enters only V's columns and
+//   the output's), so a row's columns share one normaliser bit for bit.
+//   No atomics, no split of the key loop: a row's bits depend only on its
+//   q, its head's K/V and its row tile's index, as in the kernels above.
+// * Key tiles wholly above the diagonal or before the window are not
+//   visited, unless some row has no live key at all (the reference's
+//   uniform weights over every key): the same rule as flash_f32_3xtf32.
+
+constexpr int WD_THREADS = 256;
+constexpr int WD_ROWS = 64;              // query rows a CTA
+constexpr int WD_KEYS = 32;              // keys a tile
+constexpr int WD_DK = 32;                // head dims a Q / K panel
+constexpr int WD_SLAB = 256;             // output dims a CTA
+constexpr int WD_LDQ = WD_DK + 4;        // panel row stride, floats
+constexpr int WD_LDP = WD_ROWS + 8;      // P stored [key][row]
+constexpr size_t WD_SMEM =
+    ((size_t)(WD_ROWS + WD_KEYS) * WD_LDQ + (size_t)WD_KEYS * WD_LDP +
+     (size_t)WD_KEYS * WD_SLAB + 2 * WD_ROWS) * sizeof(float);
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ void store(bf16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// Query tile yt of q_tiles, slab zs, of (batch, head) blockIdx.x.
+template <typename T>
+__device__ __forceinline__ void flash_wide_tile(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, int tq, int tk, int d, int causal, int window,
+    float scale, int skip_below_window, int yt, int q_tiles, int zs) {
+  extern __shared__ __align__(16) float wide_s[];
+  float* sq = wide_s;                       // (WD_ROWS, WD_LDQ)
+  float* sk = sq + WD_ROWS * WD_LDQ;        // (WD_KEYS, WD_LDQ)
+  float* sp = sk + WD_KEYS * WD_LDQ;        // (WD_KEYS, WD_LDP): s, then p
+  float* sv = sp + WD_KEYS * WD_LDP;        // (WD_KEYS, WD_SLAB)
+  float* corr_s = sv + WD_KEYS * WD_SLAB;   // (WD_ROWS,)
+  float* l_s = corr_s + WD_ROWS;            // (WD_ROWS,)
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long bh = blockIdx.x;
+  const int q0 = (q_tiles - 1 - yt) * WD_ROWS;
+  const int j0 = zs * WD_SLAB;              // the slab's first output dim
+  const int jn = min(WD_SLAB, d - j0);      // its dims
+  const T* qb = q + bh * tq * d;
+  const long long kv = kv_head_offset(bh, tk, d);
+  const T* kb = k + kv;
+  const T* vb = v + kv;
+  const float qscale = scale * LOG2E;
+
+  const int lo = (window > 0 && skip_below_window) ? max(0, q0 - window + 1) : 0;
+  const int hi = causal ? min(tk, q0 + WD_ROWS) : tk;
+  const int t_lo = lo / WD_KEYS, t_hi = (hi + WD_KEYS - 1) / WD_KEYS;
+
+  // scores: rows sr + 16 r, keys sc + 16 j
+  const int sc = tid % 16, sr = tid / 16;
+  // softmax: row xr, keys xp + 4 i
+  const int xr = tid / 4, xp = tid % 4;
+  // P V: rows 8 warp + r, dims 4 lane + c and 128 + 4 lane + c
+  float m = NEG_INF, l = 0.f;
+  float acc[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r)
+#pragma unroll
+    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+
+  for (int t = t_lo; t < t_hi; ++t) {
+    const int k0 = t * WD_KEYS;
+    float s[4][2];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = 0.f;
+    for (int p0 = 0; p0 < d; p0 += WD_DK) {
+      __syncthreads();  // every thread is done with the last panels, P and V
+      for (int e = tid; e < WD_ROWS * WD_DK; e += WD_THREADS) {
+        const int r = e / WD_DK, c = e % WD_DK;
+        sq[r * WD_LDQ + c] = (q0 + r < tq && p0 + c < d)
+            ? to_f32(qb[(long long)(q0 + r) * d + p0 + c]) * qscale : 0.f;
+      }
+      for (int e = tid; e < WD_KEYS * WD_DK; e += WD_THREADS) {
+        const int r = e / WD_DK, c = e % WD_DK;
+        sk[r * WD_LDQ + c] = (k0 + r < tk && p0 + c < d)
+            ? to_f32(kb[(long long)(k0 + r) * d + p0 + c]) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < WD_DK; i += 4) {
+        float4 qv[4], kvv[2];
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+          qv[r] = *reinterpret_cast<const float4*>(sq + (sr + 16 * r) * WD_LDQ + i);
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          kvv[j] = *reinterpret_cast<const float4*>(sk + (sc + 16 * j) * WD_LDQ + i);
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            s[r][j] = fmaf(qv[r].x, kvv[j].x, s[r][j]);
+            s[r][j] = fmaf(qv[r].y, kvv[j].y, s[r][j]);
+            s[r][j] = fmaf(qv[r].z, kvv[j].z, s[r][j]);
+            s[r][j] = fmaf(qv[r].w, kvv[j].w, s[r][j]);
+          }
+      }
+    }
+    // the masked scores, and this tile's V slab
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int key = k0 + sc + 16 * j, row = q0 + sr + 16 * r;
+        float x = s[r][j];
+        if (key >= tk)
+          x = -INFINITY;
+        else if ((causal && key > row) || (window > 0 && key <= row - window))
+          x = NEG_INF;
+        sp[(sc + 16 * j) * WD_LDP + sr + 16 * r] = x;
+      }
+    for (int e = tid; e < WD_KEYS * WD_SLAB; e += WD_THREADS) {
+      const int r = e / WD_SLAB, c = e % WD_SLAB;
+      sv[e] = (k0 + r < tk && c < jn)
+          ? to_f32(vb[(long long)(k0 + r) * d + j0 + c]) : 0.f;
+    }
+    __syncthreads();
+
+    // online softmax of row xr over the tile's keys
+    {
+      float x[WD_KEYS / 4];
+      float mt = NEG_INF;
+#pragma unroll
+      for (int i = 0; i < WD_KEYS / 4; ++i) {
+        x[i] = sp[(xp + 4 * i) * WD_LDP + xr];
+        mt = fmaxf(mt, x[i]);
+      }
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
+      const float m_new = fmaxf(m, mt);
+      const float corr = exp2f(m - m_new);
+      float ls = 0.f;
+#pragma unroll
+      for (int i = 0; i < WD_KEYS / 4; ++i) {
+        x[i] = exp2f(x[i] - m_new);
+        ls += x[i];
+        sp[(xp + 4 * i) * WD_LDP + xr] = x[i];
+      }
+      ls += __shfl_xor_sync(FULL, ls, 1);
+      ls += __shfl_xor_sync(FULL, ls, 2);
+      l = l * corr + ls;
+      m = m_new;
+      if (xp == 0) corr_s[xr] = corr;
+    }
+    __syncthreads();
+
+    // acc = acc * corr + P V over the slab
+    float cr[8];
+#pragma unroll
+    for (int r = 0; r < 8; ++r) cr[r] = corr_s[8 * warp + r];
+#pragma unroll
+    for (int r = 0; r < 8; ++r)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) acc[r][c] *= cr[r];
+#pragma unroll 4
+    for (int j = 0; j < WD_KEYS; ++j) {
+      const float4 p0v = *reinterpret_cast<const float4*>(sp + j * WD_LDP + 8 * warp);
+      const float4 p1v = *reinterpret_cast<const float4*>(sp + j * WD_LDP + 8 * warp + 4);
+      const float4 v0 = *reinterpret_cast<const float4*>(sv + j * WD_SLAB + 4 * lane);
+      const float4 v1 = *reinterpret_cast<const float4*>(sv + j * WD_SLAB + 128 + 4 * lane);
+      const float pr[8] = {p0v.x, p0v.y, p0v.z, p0v.w, p1v.x, p1v.y, p1v.z, p1v.w};
+      const float vc[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+#pragma unroll
+      for (int r = 0; r < 8; ++r)
+#pragma unroll
+        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], vc[c], acc[r][c]);
+    }
+  }
+
+  if (xp == 0) l_s[xr] = fmaxf(l, 1e-30f);
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const int row = q0 + 8 * warp + r;
+    if (row >= tq) continue;
+    const float lr = l_s[8 * warp + r];
+    T* ob = o + (bh * tq + row) * d + j0;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const int col = (c < 4 ? 0 : 128) + 4 * lane + (c & 3);
+      if (col < jn) store(ob + col, acc[r][c] / lr);
+    }
+  }
+}
+
+// tiles blockIdx.y, + gridDim.y, ... of q_tiles (see flash_kernel), and
+// slabs blockIdx.z, + gridDim.z, ... of slabs alike
+template <typename T>
+__global__ void __launch_bounds__(WD_THREADS, 2)
+flash_wide(const T* __restrict__ q, const T* __restrict__ k,
+           const T* __restrict__ v, T* __restrict__ o, int tq, int tk, int d,
+           int causal, int window, float scale, int skip_below_window,
+           int q_tiles, int slabs) {
+  for (int zs = blockIdx.z; zs < slabs; zs += gridDim.z)
+    for (int yt = blockIdx.y; yt < q_tiles; yt += gridDim.y) {
+      if (zs != (int)blockIdx.z || yt != (int)blockIdx.y)
+        __syncthreads();  // shared memory is free
+      flash_wide_tile<T>(q, k, v, o, tq, tk, d, causal, window, scale,
+                         skip_below_window, yt, q_tiles, zs);
+    }
+}
+
+template <typename T>
+int launch_wide(const T* q, const T* k, const T* v, T* o, long long bh,
+                int tq, int tk, int d, int causal, int window, float scale,
+                void* stream) {
+  const int q_tiles = (tq + WD_ROWS - 1) / WD_ROWS;
+  const int slabs = (d + WD_SLAB - 1) / WD_SLAB;
+  if (bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      flash_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WD_SMEM);
+  if (attr != cudaSuccess) return (int)attr;
+  // a row with no live key takes the reference's uniform weights over every
+  // key: then visit them all
+  const int skip = !(window > 0 && (long long)tq > (long long)tk + window - 1);
+  dim3 grid((unsigned)bh, (unsigned)grid_y(q_tiles), (unsigned)grid_y(slabs));
+  flash_wide<T><<<grid, WD_THREADS, WD_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, o, tq, tk, d, causal, window, scale, skip, q_tiles, slabs);
+  return (int)cudaGetLastError();
+}
+
+// fp32: the CUDA-core kernel at D <= 32 (the codec's bits), 3xTF32 to 256,
+// flash_wide past it
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                long long bh, int tq, int tk, int d, int causal, int window,
                float scale, void* stream) {
-  if (d < 1 || d > MAX_D || bh < 0 || tq < 0 || tk < 1 || window < 0)
+  if (d < 1 || bh < 0 || tq < 0 || tk < 1 || window < 0)
     return (int)cudaErrorInvalidValue;
   if (bh == 0 || tq == 0) return (int)cudaSuccess;
   if (d <= 16)
@@ -1131,15 +1454,16 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   if (d <= 128)
     return launch_3xtf32<128>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                               stream);
-  return launch_3xtf32<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+  if (d <= 256)
+    return launch_3xtf32<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                              stream);
+  return launch_wide<float>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                             stream);
 }
 
 }  // namespace
 
 extern "C" {
-
-int flash_max_d() { return MAX_D; }
 
 const char* flash_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -153,7 +153,9 @@
 //   species' basis stays in shared memory for the CTA's life (transposed on
 //   load for the U^T product, so the inner loop reads it conflict-free).
 //   Runs are short (the wrapper asks for 8 tiles), so the grid is many
-//   waves deep and no SM idles through a long tail.
+//   waves deep and no SM idles through a long tail. The species are the
+//   grid's y, which stops at 65,535: past that a CTA takes species y, y +
+//   65,535, ... in turn, each as it would alone.
 // * Each row tile is staged once through shared memory. Where D is a
 //   multiple of 4 and the operands are 16-byte aligned, a thread starts all
 //   its 16-byte global loads of a batch before the first shared-memory
@@ -284,16 +286,17 @@ __device__ __forceinline__ void load_ku(const T* p, T (&out)[KU]) {
   }
 }
 
+// Species s: this CTA's row tiles of it.
 template <typename T, int MODE, int CMAX>
-__global__ void __launch_bounds__(THREADS, 2)
-gbatc_tile_kernel(const T* __restrict__ a,       // coefficients
-                  const T* __restrict__ basis,   // (S, D, D)
-                  const T* __restrict__ x,       // x_rec
-                  const int* __restrict__ rank,  // select only, (S, NB, D)
-                  const int* __restrict__ m,     // select only, (S, NB)
-                  const T* __restrict__ mk,      // masked only, (S, NB, D)
-                  T* __restrict__ out, long long nb, int d, int tiles_per_cta,
-                  int vec_ok) {
+__device__ __forceinline__ void gbatc_tile_species(
+    const T* __restrict__ a,       // coefficients
+    const T* __restrict__ basis,   // (S, D, D)
+    const T* __restrict__ x,       // x_rec
+    const int* __restrict__ rank,  // select only, (S, NB, D)
+    const int* __restrict__ m,     // select only, (S, NB)
+    const T* __restrict__ mk,      // masked only, (S, NB, D)
+    T* __restrict__ out, long long nb, int d, int tiles_per_cta, int vec_ok,
+    int s) {
   using P = Pack<T>;
   constexpr int N = P::N;
   // 16-byte global loads a thread keeps in flight while staging; the select
@@ -306,7 +309,6 @@ gbatc_tile_kernel(const T* __restrict__ a,       // coefficients
   T* a_s = u_s + ld * ld;                   // (TILE_ROWS, ld)
   int* m_s = reinterpret_cast<int*>(a_s + TILE_ROWS * ld);  // (TILE_ROWS,)
 
-  const int s = blockIdx.y;
   const int tid = threadIdx.x;
   const int tx = tid % TX;
   const int ty = tid / TX;
@@ -466,6 +468,23 @@ gbatc_tile_kernel(const T* __restrict__ a,       // coefficients
         out[base + i] = x[base + i] + a_s[row * ld + col];
       }
     }
+  }
+}
+
+// A grid's y stops at 65,535: a CTA takes species blockIdx.y, blockIdx.y +
+// gridDim.y, ... of s_count (one, up to 65,535 species), each with the
+// arithmetic of one species a CTA.
+template <typename T, int MODE, int CMAX>
+__global__ void __launch_bounds__(THREADS, 2)
+gbatc_tile_kernel(const T* __restrict__ a, const T* __restrict__ basis,
+                  const T* __restrict__ x, const int* __restrict__ rank,
+                  const int* __restrict__ m, const T* __restrict__ mk,
+                  T* __restrict__ out, int s_count, long long nb, int d,
+                  int tiles_per_cta, int vec_ok) {
+  for (int s = blockIdx.y; s < s_count; s += gridDim.y) {
+    if (s != (int)blockIdx.y) __syncthreads();  // shared memory is free
+    gbatc_tile_species<T, MODE, CMAX>(a, basis, x, rank, m, mk, out, nb, d,
+                                      tiles_per_cta, vec_ok, s);
   }
 }
 
@@ -1737,7 +1756,7 @@ template <int MODE>
 int launch_correct_f32(const float* x, const float* c, const int* rank,
                        const int* m, const float* u, float* out, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80)
@@ -1808,8 +1827,7 @@ int launch_dmma_wide(const double* r, const double* u, double* c, int s,
 
 int launch_project_f64(const double* r, const double* u, double* c, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || s < 0 || s > 65535 || nb < 0 ||
-      tiles_per_cta < 1)
+  if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80) return launch_dmma<5, 64, 3>(r, u, c, s, nb, d, stream);
@@ -1849,7 +1867,7 @@ int launch_3xtf32(const float* r, const float* u, float* c, int s, long long nb,
 
 int launch_project_f32(const float* r, const float* u, float* c, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
-  if (d < 1 || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80) return launch_3xtf32<5, 64, 2>(r, u, c, s, nb, d, stream);
@@ -1873,9 +1891,9 @@ int launch_as(const T* a, const T* basis, const T* x, const int* rank,
   const long long grid_x = (n_tiles + tiles_per_cta - 1) / tiles_per_cta;
   const int vec_ok = d % KU == 0 && aligned16(a) && aligned16(x) &&
                      aligned16(rank) && aligned16(mk) && aligned16(out);
-  dim3 grid((unsigned)grid_x, (unsigned)s);
+  dim3 grid((unsigned)grid_x, (unsigned)(s < 65535 ? s : 65535));
   kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      a, basis, x, rank, m, mk, out, nb, d, tiles_per_cta, vec_ok);
+      a, basis, x, rank, m, mk, out, s, nb, d, tiles_per_cta, vec_ok);
   return (int)cudaGetLastError();
 }
 
@@ -1883,7 +1901,7 @@ template <typename T, int MODE>
 int launch(const T* a, const T* basis, const T* x, const int* rank,
            const int* m, const T* mk, T* out, int s, long long nb, int d,
            int tiles_per_cta, void* stream) {
-  if (d < 1 || s < 0 || s > 65535 || nb < 0 || tiles_per_cta < 1)
+  if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d > MAX_D)

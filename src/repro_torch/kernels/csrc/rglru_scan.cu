@@ -134,11 +134,14 @@ __device__ __forceinline__ void fill(T* slot, const T* __restrict__ a,
   }
 }
 
+// Batch row y of the channel group blockIdx.x.
 template <typename T, int COPY>
-__global__ void __launch_bounds__(THREADS)
-rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
-             const float* __restrict__ h0, T* __restrict__ h,
-             float* __restrict__ h_last, int t_len, int w_len) {
+__device__ __forceinline__ void rglru_row(const T* __restrict__ a,
+                                          const T* __restrict__ b,
+                                          const float* __restrict__ h0,
+                                          T* __restrict__ h,
+                                          float* __restrict__ h_last,
+                                          int t_len, int w_len, int y) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ring = reinterpret_cast<T*>(smem_raw);
   constexpr bool STAGED = COPY == VEC16;  // h staged a tile in shared memory
@@ -148,8 +151,8 @@ rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
   const int w0 = blockIdx.x * GROUP;
   const int cols = min(GROUP, w_len - w0);
   const bool live = chain && lane < cols;
-  const size_t base = (size_t)blockIdx.y * t_len * w_len + w0;
-  const size_t chan = (size_t)blockIdx.y * w_len + w0 + lane;
+  const size_t base = (size_t)y * t_len * w_len + w0;
+  const size_t chan = (size_t)y * w_len + w0 + lane;
   const int tiles = (t_len + T_TILE - 1) / T_TILE;
 
   if (copier) {
@@ -224,6 +227,21 @@ rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
   if (live) h_last[chan] = hc;
 }
 
+// A grid's y stops at 65,535: a CTA takes batch rows blockIdx.y, blockIdx.y
+// + gridDim.y, ... (one, up to 65,535 rows), each walked as one row a CTA
+// walks it; the producer warp primes the ring again for each row, once
+// every lane is done with the last row's slots.
+template <typename T, int COPY>
+__global__ void __launch_bounds__(THREADS)
+rglru_kernel(const T* __restrict__ a, const T* __restrict__ b,
+             const float* __restrict__ h0, T* __restrict__ h,
+             float* __restrict__ h_last, int t_len, int w_len, int batch) {
+  for (int y = blockIdx.y; y < batch; y += gridDim.y) {
+    if (y != (int)blockIdx.y) __syncthreads();
+    rglru_row<T, COPY>(a, b, h0, h, h_last, t_len, w_len, y);
+  }
+}
+
 // The widest copy the rows and base pointers allow; a host-side copy of
 // this choice is in tests/test_torch_rglru_tiles.py.
 template <typename T>
@@ -243,16 +261,17 @@ int launch_copy(const T* a, const T* b, const float* h0, T* h, float* h_last,
   constexpr size_t smem =
       (size_t)(2 * STAGES + (COPY == VEC16)) * T_TILE * GROUP * sizeof(T);
   static_assert(smem <= 48 * 1024, "the ring fits the default shared memory");
-  const dim3 grid((unsigned)((w_len + GROUP - 1) / GROUP), (unsigned)batch);
+  const dim3 grid((unsigned)((w_len + GROUP - 1) / GROUP),
+                  (unsigned)(batch < 65535 ? batch : 65535));
   rglru_kernel<T, COPY><<<grid, THREADS, smem, stream>>>(a, b, h0, h, h_last,
-                                                         t_len, w_len);
+                                                         t_len, w_len, batch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch(const T* a, const T* b, const float* h0, T* h, float* h_last,
            int batch, int t_len, int w_len, void* stream) {
-  if (batch < 0 || batch > 65535 || t_len < 0 || w_len < 0)
+  if (batch < 0 || t_len < 0 || w_len < 0)
     return (int)cudaErrorInvalidValue;
   if (batch == 0 || w_len == 0) return (int)cudaSuccess;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

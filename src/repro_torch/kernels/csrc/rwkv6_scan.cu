@@ -11,7 +11,9 @@
 // over r, k, v, w (B, T, H, N) and u (H, N) in fp32 or bf16, s0 (B, H, N,
 // N) fp32 (or none: zero), w clamped to [1e-37, 1] as the TPU kernel clamps
 // it before its logs; out (B, T, H, N) in r's type, S_T (B, H, N, N) fp32.
-// N <= 64, RWKV-6's head size.
+// Any N >= 1: the design below to N = 256 (one CTA a (b, h) to N = 64,
+// RWKV-6's head size; past it one a (b, h) and slab of 64 columns), and
+// rwkv6_wide, with S in device memory, past it (see there).
 //
 // What is ported is the function. The TPU kernel's chunked matrix form
 // (pairwise exponentials of cumulative log-decays, so the MXU does the
@@ -44,9 +46,16 @@
 //   of S in registers (32 a lane at N = 64), so one CTA of 128 threads
 //   serves a (b, h) and the card holds about 16 warps an SM, twice as many
 //   as with a column a thread. The partial sums of an output are added
-//   with two __shfl_xor_sync. A lane's rows are 4-row chunks gi, gi + 4,
-//   ... so the four 16-byte shared loads a warp makes at once fall on
+//   with two __shfl_xor_sync. A lane's rows are 4-row chunks gi, gi + G,
+//   ... so the G 16-byte shared loads a warp makes at once fall on
 //   distinct banks, and each load feeds both columns.
+// * Past N = 64 the columns go in slabs of CP = 64 to separate CTAs (grid
+//   y): the columns of S are independent, so a CTA walks its 64 columns
+//   over all N rows with the same code, and holds v for its slab only.
+//   G grows with N (NP / 32 lanes a column group), so that a lane keeps at
+//   most 32 rows of its 2 columns; every CTA makes the pair products and
+//   the scalars b0, c, b1 of all rows itself, in the same order, and runs
+//   of RUN = 8 steps at NP = 256 keep the ring in shared memory.
 // * Runs of RUN = 16 steps of r, k, w and v stream through a ring of three
 //   shared buffers filled with cp.async (16-byte copies where N and the
 //   pointers allow, 4-byte ones otherwise; bf16 rows that allow neither
@@ -66,13 +75,19 @@
 
 namespace {
 
-constexpr int MAX_N = 64;
-constexpr int G = 4;       // lanes sharing a column group (rows split)
-constexpr int CPL = 2;     // adjacent columns a lane holds
-constexpr int CW = 32 / G;  // column groups a warp
-constexpr int RUN = 16;    // steps a run
-constexpr int STAGES = 3;  // runs in the ring
-constexpr int NARR = 4;    // r, k, w, v
+constexpr int MAX_NP = 256;  // past it rwkv6_wide
+constexpr int CPL = 2;       // adjacent columns a lane holds
+constexpr int STAGES = 3;    // runs in the ring
+constexpr int NARR = 4;      // r, k, w, v
+
+// The tile at each padded N: lanes sharing a column group (rows split), the
+// columns a CTA, and the steps a run
+template <int NP>
+__host__ __device__ constexpr int lanes_of() { return NP <= 64 ? 4 : NP / 32; }
+template <int NP>
+__host__ __device__ constexpr int cols_of() { return NP <= 64 ? NP : 64; }
+template <int NP>
+__host__ __device__ constexpr int run_of() { return NP <= 128 ? 16 : 8; }
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -119,40 +134,56 @@ __device__ __forceinline__ void load_cols(const float* p, float (&x)[4]) {
 
 template <int NP>
 __host__ __device__ constexpr int threads_of() {
-  return NP / CPL * G;
+  return cols_of<NP>() / CPL * lanes_of<NP>();
 }
 
-// shared memory: fp32 runs (STAGES, NARR, RUN, NP), the scalars of each
-// step pair (2, RUN / 2, 4), and for
-// bf16 the raw runs the copies land in (STAGES, NARR, RUN, NP)
+// floats of one ring stage: r, k and w (RUN, NP) each, then v (RUN, CP)
+template <int NP>
+__host__ __device__ constexpr int stage_of() {
+  return (3 * NP + cols_of<NP>()) * run_of<NP>();
+}
+
+// shared memory: fp32 runs (STAGES, stage_of), the scalars of each step
+// pair (2, RUN / 2, 4), and for bf16 the raw runs the copies land in
+// (STAGES, stage_of)
 template <typename T, int NP>
 constexpr size_t smem_of() {
-  return (size_t)STAGES * NARR * RUN * NP * sizeof(float) +
-         4 * RUN * sizeof(float) +
-         (sizeof(T) == 4 ? 0 : (size_t)STAGES * NARR * RUN * NP * sizeof(T));
+  return (size_t)STAGES * stage_of<NP>() * sizeof(float) +
+         4 * run_of<NP>() * sizeof(float) +
+         (sizeof(T) == 4 ? 0 : (size_t)STAGES * stage_of<NP>() * sizeof(T));
 }
 
 template <typename T, int NP>
-__global__ void __launch_bounds__(NP / CPL * G, NP == 64 ? 4 : 1)
+__global__ void __launch_bounds__(NP <= 64 ? 2 * NP : NP, NP == 64 ? 4 : NP == 128 ? 2 : 1)
 rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
              const T* __restrict__ v, const T* __restrict__ w,
              const T* __restrict__ u, const float* __restrict__ s0,
              T* __restrict__ out, float* __restrict__ s_last, int t_len,
              int h_len, int n, int vec) {
   constexpr int THREADS = threads_of<NP>();
+  static_assert(THREADS == (NP <= 64 ? 2 * NP : NP), "the launch bounds' threads");
   constexpr int WARPS = THREADS / 32 > 0 ? THREADS / 32 : 1;
+  constexpr int G = lanes_of<NP>();    // lanes sharing a column group
+  constexpr int CW = 32 / G;           // column groups a warp
+  constexpr int CP = cols_of<NP>();    // columns a CTA
+  constexpr int RUN = run_of<NP>();    // steps a run
+  constexpr bool SLAB = CP < NP;       // columns in slabs, one a CTA
   constexpr int RPL = NP / G;          // rows a lane
   constexpr int UQ = (NP + 31) / 32;   // u values a lane (b_t)
-  constexpr int ARR = RUN * NP;        // one array of one run
+  constexpr int ARR = RUN * NP;        // one array of one run (r, k, w)
+  constexpr int SF = stage_of<NP>();   // floats of a stage
   constexpr bool F32 = sizeof(T) == 4;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* fb = reinterpret_cast<float*>(smem_raw);  // (STAGES, NARR, RUN, NP)
-  float* b_s = fb + STAGES * NARR * ARR;            // (2, RUN / 2, 4)
+  float* fb = reinterpret_cast<float*>(smem_raw);  // (STAGES, SF)
+  float* b_s = fb + STAGES * SF;                    // (2, RUN / 2, 4)
   T* raw = F32 ? reinterpret_cast<T*>(fb) : reinterpret_cast<T*>(b_s + 4 * RUN);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gi = lane / CW;                    // row group
-  const int j0 = (warp * CW + lane % CW) * CPL;  // first of this lane's columns
+  const int col0 = SLAB ? (int)blockIdx.y * CP : 0;  // the slab's first column
+  const int vcols = SLAB ? min(CP, n - col0) : n;    // its columns
+  // first of this lane's columns
+  const int j0 = col0 + (warp * CW + lane % CW) * CPL;
   const long long bh = blockIdx.x;
   const int hi = (int)(bh % h_len);
   const long long bi = bh / h_len;
@@ -182,9 +213,10 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     ub[q] = i < n ? to_f(u[(size_t)hi * n + i]) : 0.0f;
   }
 
-  // rows n .. NP-1 of every run are zero (the copies never write them)
-  if (F32 && n < NP) {
-    for (int x = tid; x < STAGES * NARR * ARR; x += THREADS) fb[x] = 0.0f;
+  // rows n .. NP-1 (and v's columns past the slab's) of every run are
+  // zero (the copies never write them)
+  if (F32 && (n < NP || vcols < CP)) {
+    for (int x = tid; x < STAGES * SF; x += THREADS) fb[x] = 0.0f;
     __syncthreads();
   }
 
@@ -194,14 +226,15 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   auto issue = [&](int run, int st) {
     const int t0 = run * RUN, steps = min(RUN, t_len - t0);
     if (steps <= 0) return;
-    T* dst = raw + (size_t)st * NARR * ARR;
+    T* dst = raw + (size_t)st * SF;
     const int per = vec ? 16 / (int)sizeof(T) : 1;  // elements a copy
     const int q = n / per;                          // copies a step row
     int a = tid / (steps * q);
     int c = (tid - a * steps * q) / q;
     int ch = tid - (a * steps + c) * q;
     const int dc = THREADS / q, dch = THREADS - dc * q;
-    while (a < NARR) {
+    constexpr int NA = SLAB ? 3 : NARR;  // arrays of whole rows
+    while (a < NA) {
       const T* src = (a == 0 ? r : a == 1 ? k : a == 2 ? w : v) + off0 +
                      (size_t)(t0 + c) * stride + ch * per;
       T* d = dst + a * ARR + c * NP + ch * per;
@@ -213,6 +246,17 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       if (ch >= q) ch -= q, ++c;
       while (c >= steps) c -= steps, ++a;
     }
+    if constexpr (SLAB) {  // v: the slab's columns of each step
+      const int qv = vcols / per;
+      for (int x = tid; x < steps * qv; x += THREADS) {
+        const int cv = x / qv, chv = x - cv * qv;
+        const T* src = v + off0 + (size_t)(t0 + cv) * stride + col0 + chv * per;
+        T* d = dst + 3 * ARR + cv * CP + chv * per;
+        if (vec) cp_async16(d, src);
+        else if (F32) cp_async4(d, src);
+        else *d = *src;
+      }
+    }
   };
 
   // run `run` in stage st, once it is whole in shared memory, prepared for
@@ -222,8 +266,8 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
   // = sum r1 u k1. A ragged run's missing last step is w = 1, r = k = v = 0.
   auto prep = [&](int run, int st) {
     const int steps = min(RUN, t_len - run * RUN);
-    float* f = fb + (size_t)st * NARR * ARR;
-    const T* rw = raw + (size_t)st * NARR * ARR;
+    float* f = fb + (size_t)st * SF;
+    const T* rw = raw + (size_t)st * SF;
     for (int pr = warp; 2 * pr < steps; pr += WARPS) {
       const int c0 = 2 * pr, c1 = c0 + 1;
       const bool has1 = c1 < steps;
@@ -248,8 +292,19 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
           f[ARR + o0] = w1 * k0;
           f[ARR + o1] = k1;
           f[2 * ARR + o0] = w0 * w1;
-          if (!F32) f[3 * ARR + o0] = i < n ? to_f(rw[3 * ARR + o0]) : 0.0f;
-          if (!F32 || !has1) f[3 * ARR + o1] = in1 ? to_f(rw[3 * ARR + o1]) : 0.0f;
+          if constexpr (!SLAB) {
+            if (!F32) f[3 * ARR + o0] = i < n ? to_f(rw[3 * ARR + o0]) : 0.0f;
+            if (!F32 || !has1) f[3 * ARR + o1] = in1 ? to_f(rw[3 * ARR + o1]) : 0.0f;
+          }
+        }
+      }
+      if constexpr (SLAB) {  // v, the slab's columns
+        for (int i = lane; i < CP; i += 32) {
+          const int o0 = c0 * CP + i, o1 = c1 * CP + i;
+          const bool in = i < vcols;
+          if (!F32) f[3 * ARR + o0] = in ? to_f(rw[3 * ARR + o0]) : 0.0f;
+          if (!F32 || !has1)
+            f[3 * ARR + o1] = has1 && in ? to_f(rw[3 * ARR + o1]) : 0.0f;
         }
       }
 #pragma unroll
@@ -280,7 +335,7 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     if (run + 1 < nruns) prep(run + 1, (run + 1) % STAGES);
 
     const int t0 = run * RUN, steps = min(RUN, t_len - t0);
-    const float* base = fb + (size_t)(run % STAGES) * NARR * ARR;
+    const float* base = fb + (size_t)(run % STAGES) * SF;
     const float4* bs = reinterpret_cast<const float4*>(b_s) + (run & 1) * (RUN / 2);
     // a pair of steps: out_t = sum_i r0 S + v0 b0, out_t+1 = sum_i (r1 w0) S
     // + v0 c + v1 b1, S = (w0 w1) S + (w1 k0) v0 + k1 v1: five FP
@@ -289,8 +344,9 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
     for (int c0 = 0; c0 < steps; c0 += 2) {
       const float* rs = base + c0 * NP;  // step c0; step c1 is NP further
       float v0[CPL], v1[CPL];
-      load_cols(rs + 3 * ARR + j0, v0);
-      load_cols(rs + 3 * ARR + NP + j0, v1);
+      const float* vs = base + 3 * ARR + c0 * CP + (j0 - col0);
+      load_cols(vs, v0);
+      load_cols(vs + CP, v1);
       float a0[CPL][2], a1[CPL][2];
 #pragma unroll
       for (int cc = 0; cc < CPL; ++cc) a0[cc][0] = a0[cc][1] = a1[cc][0] = a1[cc][1] = 0.0f;
@@ -347,6 +403,84 @@ rwkv6_kernel(const T* __restrict__ r, const T* __restrict__ k,
       }
 }
 
+// Past N = 256: rwkv6_wide. S of a (b, h) does not fit on chip at any N
+// (64 KB of registers a CTA hold 2 columns x 256 rows x 32 lanes), so it
+// lives in S_T's own device memory, which the kernel fills from s0 (or
+// zeros) and updates in place; the last step leaves S_T there. A CTA owns
+// one (b, h) and a slab of WW_COLS = 32 columns (grid y), lane = column;
+// warp wp walks rows wp, wp + 8, ... of its column, stepwise:
+//   y_j = sum_i r_i S[i, j] (its rows), S[i, j] = fmaf(w_i, S[i, j], k_i v_j)
+// and the 8 warps' partial sums are added in warp order through shared
+// memory, with v_j b_t (b_t = sum_i r_i u_i k_i, made by every CTA of the
+// (b, h) in the same order). Each element of S is one thread's, so no two
+// threads touch it; two barriers a step. Bound by the state's round trip
+// to L2 a step, far from the kernel above; right first, for the shapes no
+// configuration reaches.
+constexpr int WW_COLS = 32;
+constexpr int WW_WARPS = 8;
+constexpr int WW_THREADS = 32 * WW_WARPS;
+
+template <typename T>
+__global__ void __launch_bounds__(WW_THREADS)
+rwkv6_wide(const T* __restrict__ r, const T* __restrict__ k,
+           const T* __restrict__ v, const T* __restrict__ w,
+           const T* __restrict__ u, const float* __restrict__ s0,
+           T* __restrict__ out, float* __restrict__ s_last, int t_len,
+           int h_len, int n) {
+  __shared__ float part[WW_WARPS][WW_COLS];
+  __shared__ float bpart[WW_WARPS];
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5;
+  const long long bh = blockIdx.x;
+  const int hi = (int)(bh % h_len);
+  const long long bi = bh / h_len;
+  const int slabs = (n + WW_COLS - 1) / WW_COLS;
+  const size_t nn = (size_t)n * n;
+  const size_t stride = (size_t)h_len * n;
+  const size_t off0 = (size_t)bi * t_len * stride + (size_t)hi * n;
+  float* S = s_last + bh * nn;
+  const T* ub = u + (size_t)hi * n;
+
+  // slabs blockIdx.y, + gridDim.y, ... (a grid's y stops at 65,535)
+  for (int slab = blockIdx.y; slab < slabs; slab += gridDim.y) {
+    const int j = slab * WW_COLS + lane;
+    const bool live = j < n;
+    if (live)
+      for (int i = wp; i < n; i += WW_WARPS)
+        S[(size_t)i * n + j] = s0 != nullptr ? s0[bh * nn + (size_t)i * n + j] : 0.0f;
+    for (int t = 0; t < t_len; ++t) {
+      const size_t o = off0 + (size_t)t * stride;
+      // b_t over the CTA: thread x takes rows x, x + 256, ...
+      float b = 0.0f;
+      for (int i = threadIdx.x; i < n; i += WW_THREADS)
+        b = fmaf(to_f(r[o + i]) * to_f(ub[i]), to_f(k[o + i]), b);
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) b += __shfl_xor_sync(0xffffffffu, b, m);
+      const float vj = live ? to_f(v[o + j]) : 0.0f;
+      float y = 0.0f;
+      if (live)
+        for (int i = wp; i < n; i += WW_WARPS) {
+          float& x = S[(size_t)i * n + j];
+          const float wi = clamp_w(to_f(w[o + i]));
+          y = fmaf(to_f(r[o + i]), x, y);
+          x = fmaf(wi, x, to_f(k[o + i]) * vj);
+        }
+      part[wp][lane] = y;
+      if (lane == 0) bpart[wp] = b;
+      __syncthreads();
+      if (wp == 0) {
+        float yt = 0.0f, bt = 0.0f;
+#pragma unroll
+        for (int q = 0; q < WW_WARPS; ++q) {
+          yt += part[q][lane];
+          bt += bpart[q];
+        }
+        if (live) store(out + o + j, fmaf(vj, bt, yt));
+      }
+      __syncthreads();  // part and bpart are free for the next step
+    }
+  }
+}
+
 inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
@@ -362,8 +496,10 @@ int launch_np(const T* r, const T* k, const T* v, const T* w, const T* u,
   if (err != cudaSuccess) return (int)err;
   const int vec = (n * sizeof(T)) % 16 == 0 && aligned16(r) && aligned16(k) &&
                   aligned16(v) && aligned16(w);
-  kernel<<<grid, threads_of<NP>(), smem, s>>>(r, k, v, w, u, s0, out, s_last,
-                                               t_len, h_len, n, vec);
+  // past N = 64, a CTA a slab of cols_of<NP>() columns (grid y)
+  const dim3 blocks(grid, (unsigned)((n + cols_of<NP>() - 1) / cols_of<NP>()));
+  kernel<<<blocks, threads_of<NP>(), smem, s>>>(r, k, v, w, u, s0, out, s_last,
+                                                t_len, h_len, n, vec);
   return (int)cudaGetLastError();
 }
 
@@ -371,7 +507,7 @@ template <typename T>
 int launch(const T* r, const T* k, const T* v, const T* w, const T* u,
            const float* s0, T* out, float* s_last, int batch, int t_len,
            int h_len, int n, void* stream) {
-  if (batch < 0 || t_len < 0 || h_len < 1 || n < 1 || n > MAX_N)
+  if (batch < 0 || t_len < 0 || h_len < 1 || n < 1)
     return (int)cudaErrorInvalidValue;
   if (batch == 0) return (int)cudaSuccess;
   const long long grid = (long long)batch * h_len;
@@ -382,7 +518,17 @@ int launch(const T* r, const T* k, const T* v, const T* w, const T* u,
     return launch_np<T, 16>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
   if (n <= 32)
     return launch_np<T, 32>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
-  return launch_np<T, 64>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
+  if (n <= 64)
+    return launch_np<T, 64>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
+  if (n <= 128)
+    return launch_np<T, 128>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
+  if (n <= MAX_NP)
+    return launch_np<T, 256>(r, k, v, w, u, s0, out, s_last, g, t_len, h_len, n, s);
+  const int slabs = (n + WW_COLS - 1) / WW_COLS;
+  const dim3 blocks(g, (unsigned)(slabs < 65535 ? slabs : 65535));
+  rwkv6_wide<T><<<blocks, WW_THREADS, 0, s>>>(r, k, v, w, u, s0, out, s_last,
+                                              t_len, h_len, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace

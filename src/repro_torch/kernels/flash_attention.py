@@ -2,13 +2,16 @@
 
 Counterpart of the Pallas function ``flash_attention`` in the JAX package's
 ``kernels/flash_attention.py``, with the same public layout: q (B, H, Tq,
-D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, D up to 256. Unlike
-the Pallas wrapper it takes any Tk, causal or not (the kernel masks the
-ragged key tail itself), and it pads nothing in device memory. fp32 runs on
-the CUDA cores up to D = 32 (the codec's D = 16 keeps its bits) and on the
-tensor cores above, every product in 3xTF32 (each operand split into two
-TF32 parts, three products); bf16 runs on the tensor cores (fp32 scores and
-softmax, P V as a bf16 hi/lo pair). The source describes all three kernels.
+D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, any D >= 1 and any
+Tq. Unlike the Pallas wrapper it takes any Tk, causal or not (the kernel
+masks the ragged key tail itself), and it pads nothing in device memory.
+fp32 runs on the CUDA cores up to D = 32 (the codec's D = 16 keeps its
+bits) and on the tensor cores to D = 256, every product in 3xTF32 (each
+operand split into two TF32 parts, three products); bf16 runs on the
+tensor cores to D = 256 (fp32 scores and softmax, P V as a bf16 hi/lo
+pair); past D = 256 both run on the CUDA cores in fp32 (bf16 converted as
+it is staged, the output rounded once). The source describes all four
+kernels.
 
 The kernel has no backward: a call that would need a gradient raises (the
 attention family trains through its direct attention). See
@@ -48,7 +51,6 @@ def _lib():
     declared (built at the first call)."""
     lib = _build.load()["flash_attention"]
     if not _FUNCS:
-        lib.flash_max_d.restype, lib.flash_max_d.argtypes = INT, []
         _FUNCS.update(declare(lib, "flash_error_string", {
             dtype: (f"flash_attention_{suffix}", _ARGTYPES)
             for dtype, suffix in _DTYPES.items()}))
@@ -60,6 +62,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``softmax(q k^T / sqrt(D) + mask) v`` in one launch; see the module
     docstring for what it takes."""
     refuse_grad("flash_attention", q, k, v)
+    if isinstance(q, torch.Tensor) and q.dim() == 4 and q.shape[3] < 1:
+        raise ValueError(f"head dim D={q.shape[3]}: the kernel takes D >= 1")
     cuda_operand("q", q, _DTYPES)
     if q.dim() != 4:
         raise ValueError(f"q must be (B, H, Tq, D), got shape {tuple(q.shape)}")
@@ -70,18 +74,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     check("q", q, (b, h, tq, d), q.dtype, q.device)
     check("k", k, (b, h, tk, d), q.dtype, q.device)
     check("v", v, (b, h, tk, d), q.dtype, q.device)
-    max_d = _lib().flash_max_d()
-    if not 1 <= d <= max_d:
-        raise ValueError(f"head dim D={d} outside the kernel's range 1..{max_d}")
     if tk < 1:
         raise ValueError("k and v need at least one key")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     out = torch.empty_like(q)
     if out.numel():
+        lib = _lib()
         launch("flash_attention", _FUNCS[q.dtype],
                (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 b * h, tq, tk, d, int(causal), int(window), 1.0 / math.sqrt(d)),
-               q.device, _lib().flash_error_string)
+               q.device, lib.flash_error_string)
         LAUNCHES["flash_attention"] += 1
     return out

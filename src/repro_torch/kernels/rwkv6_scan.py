@@ -4,8 +4,9 @@ Counterpart of the Pallas function ``rwkv6_scan`` in the JAX package's
 ``kernels/rwkv6_scan.py``: the WKV6 recurrence over r, k, v, w (B, T, H, N)
 and u (H, N), all fp32 or all bf16, with s0 (B, H, N, N) fp32 or None
 (zero), w clamped to [1e-37, 1] as the TPU kernel clamps it. Returns (out
-(B, T, H, N) in r's dtype, S_T (B, H, N, N) fp32). N is at most 64
-(RWKV-6's head size); any T, nothing padded. See
+(B, T, H, N) in r's dtype, S_T (B, H, N, N) fp32). Any N >= 1 (RWKV-6's
+head size is 64; past it the columns of S go in slabs to separate CTAs,
+past 256 S lives in device memory) and any T; nothing is padded. See
 :func:`repro_torch.kernels.ref.rwkv6_scan_ref` for the recurrence and
 :mod:`repro_torch.kernels._wrap` for what every wrapper checks and how it
 launches.
@@ -21,7 +22,6 @@ from repro_torch.kernels._wrap import INT, PTR, check, cuda_operand, declare, la
 #: launches since the last :func:`reset_launches`
 LAUNCHES: dict[str, int] = {"rwkv6_scan": 0}
 
-MAX_N = 64  # = MAX_N in csrc/rwkv6_scan.cu: thread j holds column j of S
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGTYPES = [PTR] * 8 + [INT, INT, INT, INT, PTR]
 _FUNCS: dict = {}
@@ -53,8 +53,8 @@ def rwkv6_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not isinstance(r, torch.Tensor) or r.dim() != 4:
         raise ValueError("r must be a (B, T, H, N) tensor")
     b, t, h, n = r.shape
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"head size N={n} outside the kernel's range 1..{MAX_N}")
+    if n < 1:
+        raise ValueError(f"head size N={n}: the kernel takes N >= 1")
     cuda_operand("r", r, _DTYPES)
     dt, dev = r.dtype, r.device
     for name, x in (("r", r), ("k", k), ("v", v), ("w", w)):

@@ -170,3 +170,18 @@ def test_every_ptxas_pattern_names_a_kernel(source):
 def test_ptxas_names_cover_every_source():
     assert sorted(_chip_smoke().PTXAS_NAMES) == sorted(
         Path(p).stem for p in _build.SOURCES)
+
+
+@pytest.mark.parametrize("source", sorted(p.name for p in CSRC.glob("*.cu")))
+def test_no_launcher_refuses_a_grid_past_65535(source):
+    """A grid's y (and z) stops at 65,535; the reference has no such limit.
+    Every 65535 in the code is a clamp of a grid dimension (``n < 65535 ? n
+    : 65535``) and no launcher compares a count against it to refuse; a
+    source that clamps walks the rest with grid-stride loops over y."""
+    code = re.sub(r"//[^\n]*", "", (CSRC / source).read_text())
+    for m in re.finditer(r"6553[56]", code):
+        line = code[code.rfind("\n", 0, m.start()) + 1:code.find("\n", m.end())]
+        assert re.search(r"(\w+) < 65535 \? \1 : 65535", line), (
+            f"{source}: 65535 outside a grid clamp: {line.strip()!r}")
+    if "65535 ?" in code:
+        assert "+= gridDim.y" in code, f"{source} clamps a grid but never loops over y"

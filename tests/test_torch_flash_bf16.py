@@ -133,3 +133,21 @@ def test_single_rounding_misses_the_gate_on_a_cancelling_row(d):
     single = ulp_ratio(emulate(q, k, v, causal=True, window=0, split=False), want)
     assert float(pair.max()) <= 1.0
     assert float(single[0, 0, 1, 0]) > 1.0  # the planted element
+
+
+def test_bf16_dispatch_runs_the_emulated_tiles_to_d256():
+    """``launch_bf16``'s branches, read from the source: the padded dims the
+    emulation above takes up to D = 256, then ``flash_wide`` (fp32 on the
+    CUDA cores, bf16 converted as it is staged) for every larger D."""
+    import re
+    from pathlib import Path
+
+    cu = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "kernels"
+          / "csrc" / "flash_attention.cu")
+    body = re.search(r"int launch_bf16\(.*?\n}\n", cu.read_text(), re.S).group(0)
+    steps = re.findall(r"if \(d <= (\d+)\)\s+return (\w+<[^>]+>)", body)
+    last = re.findall(r"\n  return (\w+<[^>]+>)\(", body)
+    assert [(int(n), fn) for n, fn in steps] + [(None, last[-1])] == [
+        (16, "launch_mma<16>"), (32, "launch_mma<32>"), (64, "launch_mma<64>"),
+        (80, "launch_mma<80>"), (128, "launch_mma<128>"), (256, "launch_mma<256>"),
+        (None, "launch_wide<bf16>")]

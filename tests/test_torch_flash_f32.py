@@ -206,12 +206,17 @@ def test_3xtf32_emulation_matches_pallas(reference_pallas_load, case):  # noqa: 
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=LIMIT, atol=LIMIT)
 
 
-def _fp32_dispatch() -> list[tuple[int, str]]:
-    """``launch_f32``'s branches in order: (largest D, launcher)."""
-    body = re.search(r"int launch_f32\(.*?\n}\n", CU.read_text(), re.S).group(0)
+def _dispatch(launcher: str) -> list[tuple[int | None, str]]:
+    """``launcher``'s branches in order: (largest D, launcher), the last
+    one (None, launcher) for every larger D."""
+    body = re.search(rf"int {launcher}\(.*?\n}}\n", CU.read_text(), re.S).group(0)
     steps = re.findall(r"if \(d <= (\d+)\)\s+return (\w+<[^>]+>)", body)
     last = re.findall(r"\n  return (\w+<[^>]+>)\(", body)
-    return [(int(n), fn) for n, fn in steps] + [(256, last[-1])]
+    return [(int(n), fn) for n, fn in steps] + [(None, last[-1])]
+
+
+def _fp32_dispatch() -> list[tuple[int | None, str]]:
+    return _dispatch("launch_f32")
 
 
 def _source_value(function: str, dp: int) -> int:
@@ -240,8 +245,10 @@ def test_fp32_dispatch_keeps_the_codec_kernel_to_d32():
     routes = _fp32_dispatch()
     assert routes == [(16, "launch_as<float, 16>"), (32, "launch_as<float, 32>"),
                       (64, "launch_3xtf32<64>"), (80, "launch_3xtf32<80>"),
-                      (128, "launch_3xtf32<128>"), (256, "launch_3xtf32<256>")]
-    # the emulation pads D as the dispatch does
+                      (128, "launch_3xtf32<128>"), (256, "launch_3xtf32<256>"),
+                      (None, "launch_wide<float>")]
+    # the emulation pads D as the dispatch does, up to 256; past it every D
+    # runs flash_wide
     for d in range(33, 257):
-        want = next(n for n, _ in routes if d <= n)
+        want = next(n for n, _ in routes if n is not None and d <= n)
         assert padded_dim(d) == want

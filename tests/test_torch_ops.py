@@ -36,6 +36,7 @@ from repro.kernels.gbatc_project import gbatc_project as pallas_gbatc_project
 from repro.kernels.rglru_scan import rglru_scan as pallas_rglru_scan
 from repro.kernels.rwkv6_scan import rwkv6_scan as pallas_rwkv6_scan
 from repro_torch.kernels import block_quant as bq_wrapper
+from repro_torch.kernels import flash_attention as flash_wrapper
 from repro_torch.kernels import gbatc_project as gbatc_wrapper
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import rglru_scan as rglru_wrapper
@@ -374,8 +375,22 @@ def test_out_of_range_shapes_raise():
         gbatc_wrapper.gbatc_project(x, q)
     with pytest.raises(ValueError, match="D=0: the kernels take D >= 1"):
         gbatc_wrapper.gbatc_correct(x, x, torch.ones_like(x), q)
-    with pytest.raises(ValueError, match="1..64"):
-        rwkv6_wrapper.rwkv6_scan(*_t(*_rwkv_inputs(1, 4, 1, 65, seed=5)))
+    # rwkv6_scan takes any head size N >= 1: N = 0 is refused, N = 65 (past
+    # the 64 of RWKV-6 7B) runs, here as its plain version
+    with pytest.raises(ValueError, match="N=0: the kernel takes N >= 1"):
+        rwkv6_wrapper.rwkv6_scan(*_t(*_rwkv_inputs(1, 4, 1, 0, seed=5)))
+    args = _rwkv_inputs(1, 4, 1, 65, seed=5)
+    for got, want in zip(ops.rwkv6_scan_op(*args, device="cpu"), ref.rwkv6_scan_ref(*_t(*args))):
+        assert tuple(got.shape) == tuple(want.shape) and torch.equal(got, want)
+    # flash takes any head dim D >= 1: D = 0 is refused, D = 257 (past every
+    # configuration's 256) runs
+    qz = torch.zeros(1, 1, 4, 0)
+    with pytest.raises(ValueError, match="D=0: the kernel takes D >= 1"):
+        flash_wrapper.flash_attention(qz, qz, qz)
+    q = np.random.default_rng(8).normal(size=(1, 2, 5, 257)).astype(np.float32)
+    got = ops.flash_attention_op(q, q, q, device="cpu")
+    assert tuple(got.shape) == (1, 2, 5, 257)
+    assert torch.equal(got, ref.flash_attention_ref(*_t(q, q, q)))
     xq = _bq_input((4, 96), seed=6)
     with pytest.raises(ValueError, match="multiple of block"):
         bq_wrapper.block_quant(torch.from_numpy(xq), block=64)
