@@ -57,8 +57,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    then ``wide_head_path``: the attention family with one 512-wide head
    (arch (512, 1, 1, 1024), head dim 512: flash past D = 256, launched in
    compress and in decompress) on the same 8 frames
-   through ``drive()`` with the same gates, and one selective decode of
-   species 2, 31 and 57, bitwise, with one replay launch and flash. The
+   through ``drive()`` with the same gates, compress and decompress under
+   a CUDA-only profiler for flash's device share of each, and one
+   selective decode of species 2, 31 and 57, bitwise, with one replay
+   launch and flash. The
    ``kernels`` phase holds every widened domain: flash past D = 256 and
    past 65,535 query tiles, ``rwkv6_scan`` past N = 64, ``rglru_scan``
    past 65,535 batch rows and every GBATC route past 65,535 species (fp32
@@ -66,7 +68,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    plain version, the same bits twice and for a sub-range, the rows or
    species the CTAs take on a second pass bitwise their own call; and it
    holds every kernel inside its old domain to the sha256s of the build
-   before that widening (``OLD_DOMAIN_SHA256``);
+   before that widening (``OLD_DOMAIN_SHA256``), and flash past D = 256
+   to those of its tensor-core kernel's first build (``FLASH_WIDE_SHA256``);
 7. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
    (the JAX package's ``kernels/ops.py``, name for name) once at its
    full-width shape, from numpy inputs on the default device, against its
@@ -489,7 +492,7 @@ PROJECT_2D_SUBRANGES = [(100, 5003), (GBATC_2D[0] - 37, GBATC_2D[0])]
 RGLRU_LIMIT = 1e-5
 RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
 
-# Past the kernels' old domains: flash past D = 256 (flash_wide), both
+# Past the kernels' old domains: flash past D = 256 (flash_wide_mma), both
 # dtypes, at these (b, h, tq, tk, d, causal, window), held to FLASH_LIMIT
 # and bf16_ulp_ratio <= 1, the same bits twice and for a batch or head
 # sub-range where the shape has one; FLASH_WIDE_PATH, wide_head_path's
@@ -497,6 +500,34 @@ RWKV_LIMIT = 2e-4   # max abs diff relative to max(1, max |plain|)
 FLASH_WIDE = [(1, 2, 130, 130, 257, True, 0), (2, 1, 232, 232, 320, False, 0),
               (1, 1, 77, 300, 384, True, 50), (1, 2, 128, 128, 1000, True, 0)]
 FLASH_WIDE_PATH = (4096, 1, 232, 512)
+# sha256 of flash_wide_mma's output at every FLASH_WIDE shape and at
+# FLASH_WIDE_PATH, both dtypes, on flash_wide_digests' numpy-made inputs
+# (shape i from FLASH_WIDE_SEED + i; the path's from one 512-block draw,
+# repeated 8 times), as the kernel's first build gave them on an H100: a
+# later redesign says when it moves them
+FLASH_WIDE_SEED = 960
+FLASH_WIDE_SHA256 = {
+    "[1, 1, 77, 300, 384, True, 50]/bfloat16":
+        "4c3a7dbae9ed73bc6826b3e4bed80e52d9ee75df42f1a1176a9afc2b350a7500",
+    "[1, 1, 77, 300, 384, True, 50]/float32":
+        "909ee17156a87d0c160eb10af54e079b4f989f4601ddfd38d7051fbba8d1846d",
+    "[1, 2, 128, 128, 1000, True, 0]/bfloat16":
+        "bf946c636a52cdcaed70142f2751a1a758440420395b78ffaf96ae777e836c1c",
+    "[1, 2, 128, 128, 1000, True, 0]/float32":
+        "b4a74d9287f009b1eba4146b48bf77e7d988a4f53009ab4094e704c63a2a00a5",
+    "[1, 2, 130, 130, 257, True, 0]/bfloat16":
+        "ed345e8d22c6fb566f24730c8fc5a2abd41ea39dde6495c4a791f256d97f1b5b",
+    "[1, 2, 130, 130, 257, True, 0]/float32":
+        "85ad369f2da922bbdb1a78227d545cae1a06ec529ed29d479fc2b54772b0c688",
+    "[2, 1, 232, 232, 320, False, 0]/bfloat16":
+        "9b577191b4173375c86b217d60a5e1242b73fe8f66d5d7a99584f01a336c5f1b",
+    "[2, 1, 232, 232, 320, False, 0]/float32":
+        "36b152ac98fa3c04b9b364cc402bad795f24872bd4be187e793cc7a904a303c5",
+    "[4096, 1, 232, 232, 512, False, 0]/bfloat16":
+        "1907cfac3a0c833fe117602c32836e187323da5ea591709deb6c1f342900f18c",
+    "[4096, 1, 232, 232, 512, False, 0]/float32":
+        "42e8f932bea6f25a563f6e5ba7238d8acefb94b42c15d44ee420a8fac0467082",
+}
 # one query-tile count past the grid's 65,535 for each dtype's route at D =
 # 64, with the rows a CTA of that route owns (flash_bf16_mma: 64;
 # flash_f32_3xtf32: tf_rows<64> = 128): the tiles the CTAs take on their
@@ -789,8 +820,9 @@ PTXAS_NAMES = {
         lambda m: "flash/f32/3xtf32/dp{}".format(m.group(1))), (
         r"flash_bf16_mmaILi(\d+)E",
         lambda m: "flash/bf16/mma/dp{}".format(m.group(1))), (
-        r"flash_wideI(f|13__nv_bfloat16)E",
-        lambda m: "flash/{}/wide".format("f32" if m.group(1) == "f" else "bf16"))],
+        r"flash_wide_mmaI(f|13__nv_bfloat16)Lb([01])E",
+        lambda m: "flash/{}/wide/mma/{}".format("f32" if m.group(1) == "f" else "bf16",
+                                                ("elem", "vec")[int(m.group(2))]))],
     "block_quant": [(
         r"block_quant_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "block_quant/{}/v{}".format(
@@ -810,10 +842,13 @@ PTXAS_NAMES = {
 
 def sass_loops(build) -> dict:
     """For each kernel instantiation of PTXAS_NAMES, the instructions, FFMAs
-    and tensor-core MMAs (HMMA, DMMA) of the innermost loop that holds the
-    most of those two, or, where no innermost loop holds any (a key loop
-    around its tile copies), of the loop that does (``cuobjdump -sass`` of
-    the built library); empty where cuobjdump is missing."""
+    and tensor-core MMAs (HMMA, DMMA) of the loop that holds the most MMAs,
+    an innermost one where one holds any (else the smallest of those
+    holding the most: a key loop around its tile copies), or, in a kernel
+    without MMAs, of the loop that holds the most FFMAs, alike. MMAs rank
+    first because a division's slow path, which jumps back into the
+    epilogue, reads as a loop of FFMAs (``cuobjdump -sass`` of the built
+    library); empty where cuobjdump is missing."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     loops = {}
     for stem, names in PTXAS_NAMES.items():
@@ -832,18 +867,18 @@ def sass_loops(build) -> dict:
             spans = [(int(t, 16), int(a, 16)) for a, t in re.findall(
                 r"/\*([0-9a-f]{4,})\*/[^;\n]*\bBRA\b[^;\n]*0x([0-9a-f]+)", func)
                 if int(t, 16) < int(a, 16)]  # backward branches: loops
+            counted = []  # (innermost, instructions, FFMAs, MMAs) a loop
+            for lo, hi in spans:
+                body = [o for a, o in ins if lo <= a <= hi]
+                counted.append((
+                    not any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans),
+                    len(body), sum(o.startswith("FFMA") for o in body),
+                    sum(o.startswith(("HMMA", "DMMA")) for o in body)))
             best = None
-            for innermost in (True, False):
-                for lo, hi in spans:
-                    if innermost and any(lo <= a and b <= hi and (a, b) != (lo, hi)
-                                         for a, b in spans):
-                        continue
-                    body = [o for a, o in ins if lo <= a <= hi]
-                    ffma = sum(o.startswith("FFMA") for o in body)
-                    mma = sum(o.startswith(("HMMA", "DMMA")) for o in body)
-                    if ffma + mma and (best is None or ffma + mma > best[1] + best[2]):
-                        best = (len(body), ffma, mma)
-                if best:
+            for unit, innermost in ((3, True), (3, False), (2, True), (2, False)):
+                pool = [c for c in counted if c[unit] and (c[0] or not innermost)]
+                if pool:  # the most of the unit; of equals, the smallest loop
+                    best = max(pool, key=lambda c: (c[unit], -c[1]))[1:]
                     break
             if best:
                 loops[hit[1](hit[0])] = {"loop_instructions": best[0],
@@ -1559,6 +1594,11 @@ def flash_wide_checks(torch, launches: int, check) -> dict:
                                   v[index].contiguous(), causal=causal, window=window)
 
     out: dict = {"shapes_checked": FLASH_WIDE, "errors": {}, "bf16_ulp_ratio": 0.0}
+    got = flash_wide_digests(torch)
+    missed = sorted(k for k, sha in got.items() if FLASH_WIDE_SHA256.get(k) != sha)
+    out["digests"] = {"seed": FLASH_WIDE_SEED, "cases": len(got),
+                      "equal_to_pinned": not missed, "missed": missed,
+                      "got": {k: got[k] for k in missed}}
     for b, h, tq, tk, d, causal, window in FLASH_WIDE:
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype)[6:]
@@ -1607,8 +1647,8 @@ def flash_wide_checks(torch, launches: int, check) -> dict:
                   [(slice(0, 512), call(q, k, v, False, 0, slice(0, 512)))])
         lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
         plain = lambda: kref.flash_attention_ref(q, k, v, causal=False)  # noqa: E731
-        # fp32 is held to its products' 3xTF32 bound, as at D <= 256; the
-        # kernel runs on the CUDA cores, so their bound is reported beside it
+        # fp32 is held to its products' 3xTF32 bound, as at D <= 256, the
+        # CUDA cores' bound beside it
         fp32 = dtype == torch.float32
         row = kernel_row(
             torch, "", "", "", lambda: fk.flash_attention(q, k, v, causal=False),
@@ -1618,13 +1658,53 @@ def flash_wide_checks(torch, launches: int, check) -> dict:
             bound_ffma_ms=4 * b * h * t * t * d / PEAK_FLOPS["float32"] * 1e3,
             library_backend=sdpa_backend(torch, q, k, v),
             library_max_abs_err=float((lib().float() - plain().float()).abs().max()),
-            kernel="flash_wide (CUDA cores, fp32)")
+            kernel="flash_wide_mma (tensor cores: " + (
+                "3xTF32)" if fp32 else "bf16, P V as a hi/lo pair)"))
         for key in ("name", "route", "source", "replaces", "launches"):
             row.pop(key)
         out[dn] = row
         del q, k, v
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def flash_wide_digests(torch) -> dict:
+    """{case: sha256} of flash_attention's output at every FLASH_WIDE shape
+    and at FLASH_WIDE_PATH, both dtypes (see FLASH_WIDE_SHA256). Each shape
+    draws q, k, v once, in fp32 with numpy, and casts them on the card to
+    each dtype; the path's operands are one 512-block draw repeated 8 times
+    along the batch, and its 8 output blocks must be bitwise equal (a row's
+    bits depend only on its inputs)."""
+    import numpy as np
+
+    from repro_torch.kernels import flash_attention as fk
+
+    out = {}
+
+    def draw(seed, *shapes):
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda()
+                for s in shapes]
+
+    for i, (b, h, tq, tk, d, causal, window) in enumerate(FLASH_WIDE):
+        qkv = draw(FLASH_WIDE_SEED + i, *((b, h, t, d) for t in (tq, tk, tk)))
+        for dt in (torch.float32, torch.bfloat16):
+            o = fk.flash_attention(*(x.to(dt) for x in qkv), causal=causal, window=window)
+            out[f"{[b, h, tq, tk, d, causal, window]}/{str(dt)[6:]}"] = digest(torch, o)
+    b, h, t, d = FLASH_WIDE_PATH
+    qkv = draw(FLASH_WIDE_SEED + len(FLASH_WIDE), *[(512, h, t, d)] * 3)
+    for dt in (torch.float32, torch.bfloat16):
+        o = fk.flash_attention(*(x.to(dt).repeat(b // 512, 1, 1, 1) for x in qkv),
+                               causal=False)
+        first = o[:512]
+        if not all(torch.equal(first, o[j:j + 512]) for j in range(512, b, 512)):
+            fail(f"flash_attention {FLASH_WIDE_PATH} {dt}: equal 512-block inputs gave "
+                 "different outputs")
+        out[f"{[b, h, t, t, d, False, 0]}/{str(dt)[6:]}"] = digest(torch, o)
+        del o, first
+    del qkv
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2075,13 +2155,40 @@ def generate(args):
     return ds["species"], ds["temperature"], time.perf_counter() - t0
 
 
+def flash_trace(torch, on: bool, out: dict, part: str):
+    """A context: with ``on``, the block runs under torch.profiler (CUDA
+    activity only) and ``out[part]`` gets the device seconds of the flash
+    kernels in it ("not measured" where the profiler saw no device event);
+    without, nothing."""
+    import contextlib
+
+    if not on:
+        return contextlib.nullcontext()
+
+    @contextlib.contextmanager
+    def traced():
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            yield
+        events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[part] = (sum(e.time_range.elapsed_us() for e in events
+                         if "flash" in e.name.lower()) / 1e6
+                     if events else "not measured")
+
+    return traced()
+
+
 def drive(torch, data, cfg, args, name: str, widths: dict,
-          ae_steps: int) -> tuple:
+          ae_steps: int, trace_flash: bool = False) -> tuple:
     """Fit + compress at 1e-3, decompress from the bytes, a second bound on
     the same fit, with every gate of the path; returns (info, blob,
     artifact, field, codec): the path line, the 1e-3 blob, its artifact,
     its decoded field and the fitted codec. Launch counts are reset just before each of the three
-    calls and read just after it."""
+    calls and read just after it. With ``trace_flash`` the compress and
+    the decompress run under a CUDA-only profiler, and the line gives the
+    flash kernels' device seconds in each and their share of its seconds."""
     import numpy as np
 
     from repro_torch import codec
@@ -2091,18 +2198,21 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
     target = 1e-3
     torch.cuda.reset_peak_memory_stats()
     gb = GBATCCodec(cfg)
+    flash_s: dict = {}
     reset_counts()
-    t0 = time.perf_counter()
-    blob, rep = gb.compress_report(data, target_nrmse=target)
-    torch.cuda.synchronize()
-    compress_s = time.perf_counter() - t0
+    with flash_trace(torch, trace_flash, flash_s, "compress"):
+        t0 = time.perf_counter()
+        blob, rep = gb.compress_report(data, target_nrmse=target)
+        torch.cuda.synchronize()
+        compress_s = time.perf_counter() - t0
     compress_counts = all_counts()
     stage_s = json.loads(json.dumps(gb.pipeline.timings))  # deep copy
     reset_counts()
-    t0 = time.perf_counter()
-    field = codec.decompress(blob)
-    torch.cuda.synchronize()
-    decompress_s = time.perf_counter() - t0
+    with flash_trace(torch, trace_flash, flash_s, "decompress"):
+        t0 = time.perf_counter()
+        field = codec.decompress(blob)
+        torch.cuda.synchronize()
+        decompress_s = time.perf_counter() - t0
     decompress_counts = all_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # host share of the decode: a fresh parse + entropy decode of every
@@ -2180,6 +2290,13 @@ def drive(torch, data, cfg, args, name: str, widths: dict,
         "peak_device_gb": peak_gb,
         "select_backends": backends,
     }
+    if trace_flash:
+        info["flash_device_s"] = flash_s
+        info["flash_share"] = {
+            part: (flash_s[part] / secs if isinstance(flash_s[part], float)
+                   else flash_s[part])
+            for part, secs in (("compress", compress_s), ("decompress", decompress_s))}
+        info["traced"] = "compress and decompress under a CUDA-only torch.profiler"
     return info, blob, rep.artifact, field, gb
 
 
@@ -2324,7 +2441,7 @@ def phase_wide_block_path(torch, args, data) -> dict:
 
 
 # wide_head_path: the attention codec with one 512-wide head (arch d_model
-# 512, 1 head, depth 1, MLP 1024: head dim 512, flash_wide) on the first 8
+# 512, 1 head, depth 1, MLP 1024: head dim 512, flash_wide_mma) on the first 8
 # frames (10,240 blocks a species), AE steps cut (the guarantee holds
 # whatever the fit), and one selective decode of it
 WIDE_HEAD_ARCH = (512, 1, 1, 1024)
@@ -2335,9 +2452,10 @@ WIDE_HEAD_SPECIES = [2, 31, 57]
 
 def phase_wide_head_path(torch, args, data) -> dict:
     """The attention codec at WIDE_HEAD_ARCH through drive() (every gate of
-    main_path), flash past D = 256 in compress and in decompress (the
-    codec's one head dim, d_model // n_heads, is past 256, and flash was
-    launched in both), then one cold selective decode of
+    main_path; compress and decompress traced for flash's device share),
+    flash past D = 256 in compress and in decompress (the codec's one head
+    dim, d_model // n_heads, is past 256, and flash was launched in both),
+    then one cold selective decode of
     WIDE_HEAD_SPECIES, bitwise the full decode's slice, with one replay
     launch and flash launches only."""
     import numpy as np
@@ -2358,7 +2476,7 @@ def phase_wide_head_path(torch, args, data) -> dict:
         "arch": {"d_model": d_model, "n_heads": heads, "depth": depth,
                  "mlp_hidden": mlp},
         "tokens": 232, "head_dim": d_model // heads, "correction": [232, 464, 232]},
-        WIDE_HEAD_AE_STEPS)
+        WIDE_HEAD_AE_STEPS, trace_flash=True)
     del gb
     for part in ("compress", "decompress"):
         if info[f"launches_{part}"]["flash_attention"] < 1:
@@ -3339,7 +3457,7 @@ LM_CHECK_ARCHS = ("llama3_2_1b", "stablelm_3b", "yi_9b", "rwkv6_7b",
                   "recurrentgemma_2b", "whisper_base")
 LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 2112, 4
 # and two .smoke() configs widened past the kernels' old domains, d_model =
-# heads x head dim: Llama with 320-wide heads (flash_wide), RWKV-6 with
+# heads x head dim: Llama with 320-wide heads (flash_wide_mma), RWKV-6 with
 # 128-wide heads (rwkv6_scan's 64-column slabs); same batch and prompt
 LM_WIDE_CHECKS = {
     "llama3_2_1b.smoke.d_head_320": ("llama3_2_1b", {"d_model": 1280, "d_head": 320}),
@@ -3720,7 +3838,8 @@ def device_breakdown(torch, fn) -> dict:
         name = e.name.lower()
         key = next((k for k, tags in (("flash_attention", ("flash_kernel",
                                                            "flash_f32_3xtf32",
-                                                           "flash_bf16_mma")),
+                                                           "flash_bf16_mma",
+                                                           "flash_wide_mma")),
                                       ("rwkv6_scan", ("rwkv6_kernel",)),
                                       ("rglru_scan", ("rglru_kernel",)))
                     if any(tag in name for tag in tags)),
@@ -4767,12 +4886,13 @@ def run(torch, args, phases) -> None:
         phase_env(torch)
     if "build" in phases:
         phase_build()
-    rows, missed, pins_missed = [], [], []
+    rows, missed, pins_missed, wide_missed = [], [], [], []
     if "kernels" in phases:
         launches = max(20, args.launches)
         batched, missed = phase_kernels(torch, launches)
         pins_missed = phase_old_domain_pins(torch)
         flash = phase_flash(torch, launches)
+        wide_missed = flash["wide_heads"]["digests"]["missed"]
         ops_rows = phase_ops_kernels(torch, launches)
         # the order of PERF.md's table of TPU kernels
         rows = batched + ops_rows[:2] + [flash] + ops_rows[2:]
@@ -4865,6 +4985,8 @@ def run(torch, args, phases) -> None:
     if pins_missed:
         fail(f"outputs inside the kernels' old domains moved: {pins_missed[:20]} "
              "differ from OLD_DOMAIN_SHA256's")
+    if wide_missed:
+        fail(f"flash past D = 256 moved: {wide_missed} differ from FLASH_WIDE_SHA256's")
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
     emit({"phase": "total", "seconds": time.perf_counter() - t_start})

@@ -12,10 +12,11 @@
 // design below; its bits are the codec attention family's), fp32 at 32 < D
 // <= 256 runs flash_f32_3xtf32 on the tensor cores in 3xTF32, bf16 at D <=
 // 256 runs flash_bf16_mma on the tensor cores, and both dtypes past D = 256
-// run flash_wide on the CUDA cores (their designs are further down, each
-// above its kernel). Any D >= 1 and any number of query tiles: a grid's y
-// stops at 65,535, so past that each CTA loops over tiles blockIdx.y,
-// blockIdx.y + gridDim.y, ..., each with the arithmetic of one tile.
+// run flash_wide_mma on the tensor cores, fp32 in 3xTF32 (their designs are
+// further down, each above its kernel). Any D >= 1 and any number of query
+// tiles: a grid's y stops at 65,535, so past that each CTA loops over tiles
+// blockIdx.y, blockIdx.y + gridDim.y, ..., each with the arithmetic of one
+// tile (flash_wide_mma loops alike over its y and z).
 //
 // It replaces the Pallas TPU kernel flash_attention of
 // src/repro/kernels/flash_attention.py (_flash_kernel). What is kept from it
@@ -693,11 +694,11 @@ int launch_mma(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   return (int)cudaGetLastError();
 }
 
-// past D = 256, both dtypes (flash_wide, below)
+// past D = 256, both dtypes (flash_wide_mma, below)
 template <typename T>
-int launch_wide(const T* q, const T* k, const T* v, T* o, long long bh,
-                int tq, int tk, int d, int causal, int window, float scale,
-                void* stream);
+int launch_wide_mma(const T* q, const T* k, const T* v, T* o, long long bh,
+                    int tq, int tk, int d, int causal, int window, float scale,
+                    void* stream);
 
 int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                 long long bh, int tq, int tk, int d, int causal, int window,
@@ -723,8 +724,8 @@ int launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   if (d <= 256)
     return launch_mma<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                            stream);
-  return launch_wide<bf16>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                           stream);
+  return launch_wide_mma<bf16>(q, k, v, o, bh, tq, tk, d, causal, window,
+                               scale, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -1172,267 +1173,603 @@ int launch_3xtf32(const float* q, const float* k, const float* v, float* o,
 }
 
 // ---------------------------------------------------------------------------
-// Past D = 256, fp32 and bf16: flash_wide
+// Past D = 256, fp32 and bf16, on the tensor cores: flash_wide_mma
 //
 // It replaces the same Pallas kernel (_flash_kernel,
 // src/repro/kernels/flash_attention.py:29), which takes any head dim, at
 // D > 256: an attention codec with wide heads (arch (512, 1, 1, 1024) has
-// D = 512), and any head a caller brings. It computes what the kernels
+// D = 512; the codec encodes in 512-block and decodes in 4096-block
+// launches), and any head a caller brings. It computes what the kernels
 // above compute, with the same causal, window and ragged-tail masks
 // (masked scores at -1e30, the tail at -inf) and the output
 // acc / max(l, 1e-30), rounded to the operands' type once.
 //
-// Bound on this card: operations. At the wide codec's chunk (4096, 1, 232,
-// 512) non-causal the function is 4 x 4096 x 232^2 x 512 = 0.45 TFLOP,
-// 2.7 ms at 3xTF32's 165 TFLOP/s (the fp32 products' rate on the tensor
-// cores, as flash_f32_3xtf32 runs them to D = 256; 6.7 ms at the CUDA
-// cores' 67 TFLOP/s, which this kernel uses), against 7.8 GB of operands,
-// 2.3 ms.
-// Design (simple first; every value in fp32 on the CUDA cores):
+// Bound on this card: at the wide codec's chunk (4096, 1, 232, 512)
+// non-causal the function is 4 x 4096 x 232^2 x 512 = 0.45 TFLOP. fp32:
+// operations, 2.7 ms at 3xTF32's 165 TFLOP/s (6.7 ms at the CUDA cores'
+// 67), against 7.8 GB of operands (2.3 ms). bf16: bytes, 3.9 GB (1.16 ms),
+// above its products even counted three times (Q K^T once, P V twice:
+// 0.7 ms at 989 TFLOP/s).
+// Arithmetic: that of the tensor-core kernels below D = 256. fp32 takes
+// both products in 3xTF32 on mma.sync.m16n8k8 (split_tf32; per accumulator
+// the terms a_lo b_hi, a_hi b_lo, a_hi b_hi; q scaled by scale * log2(e)
+// in fp32 before it is split); bf16 takes Q K^T as exact bf16 products with
+// fp32 accumulate on m16n8k16, the score scaled by scale * log2(e) in fp32,
+// and P V as the bf16 pair P_hi, P_lo (flash_bf16_mma's note says why one
+// rounding of P is not enough). Design:
 //
-// * A CTA of 256 threads owns one (batch, head), a tile of WD_ROWS = 64
-//   query rows and one slab of up to WD_SLAB = 256 output dims (grid z);
-//   K and V cannot stay on chip at such D (232 keys x 512 dims x 2 x 4 B =
-//   950 KB), so they stream in tiles of WD_KEYS = 32 keys, the same tiles
-//   for every CTA.
-// * Scores: for each key tile, S = Q K^T over all of D in panels of WD_DK =
-//   32 dims, the Q and K panels staged in shared memory (bf16 converted
-//   and q pre-scaled by scale * log2(e) while staged); a thread keeps 4
-//   rows x 2 keys of S in registers, one FMA chain a score in ascending d.
-// * Softmax: 4 threads a row, 8 keys each: the block max (2 shuffles), one
-//   correction exp2f(m - m_new) of (l, acc), p = exp2f(s - m), the block's
-//   sum of p (2 shuffles) into l.
-// * P V for the slab: a thread keeps 8 rows x 8 dims of the accumulator,
-//   the V tile's slab in shared memory, keys in ascending order.
-// * Every slab's CTA computes the same scores, maxima, sums and p with the
-//   same code in the same order (a slab index enters only V's columns and
-//   the output's), so a row's columns share one normaliser bit for bit.
-//   No atomics, no split of the key loop: a row's bits depend only on its
-//   q, its head's K/V and its row tile's index, as in the kernels above.
+// * A CTA of 8 warps owns one (batch, head), 64 query rows and a slab of
+//   WM_SLAB = 512 output dims (one slab to D = 512). A warp owns MT m-tiles
+//   (fp32 2, bf16 1: Wide<T>) and the 256 / MT output dims of its group
+//   (fp32: 4 groups of 2 warps, 128 dims; bf16: 2 groups of 4 warps, 256
+//   dims): an accumulator of 128 fp32 registers a thread, so one CTA fits
+//   an SM. In fp32 each split K or V fragment then feeds two m-tiles, and
+//   each 3xTF32 term is issued for 2 MT accumulators in turn (at the
+//   codec's chunk on an H100 at 700 W, one m-tile a warp with 64-key tiles
+//   took 17.5 ms in fp32 against 13.8: tools/flash_wide_timing.py); bf16
+//   splits no fragment, and with MT = 2 it paid more for the larger
+//   exchange than it saved (7.4 ms against 5.8).
+// * Nothing of a head stays on chip (at D = 512 its fp32 K and V take 950
+//   KB, the CTA's Q 128 KB): Q, K and V stream through one ring of
+//   WM_STAGES slots filled by 16-byte cp.async copies (zfill past D, Tq
+//   and Tk; element copies in the VEC = false instantiation, where D or a
+//   base is not 16-byte aligned) three items ahead of the item the warps
+//   work on, one barrier an item. A key tile of WM_KEYS = 32 keys is
+//   ceil(D / PK) Q K^T items (the CTA's 64 query rows and the tile's 32
+//   keys over PK head dims: 256 bytes a row) and then GDIMS / PVG V items
+//   (the tile's 32 keys over PVG of each group's dims). Dims past D are
+//   zero in shared memory and add exactly 0; nothing is padded in device
+//   memory. Q is read again for each key tile, from L2 (a head's CTAs run
+//   side by side, below). Neither the ring's depth (2 to 6 slots) nor
+//   twice the item width moved either dtype by more than the noise: the
+//   warps' own instruction latency, at 2 warps a scheduler, sets the time.
+// * The scores once a (row tile, key tile): in each Q K^T item a group
+//   takes its share of the PK dims, so a warp holds a partial S of its
+//   16 MT rows x 32 keys. The groups' partials cross through shared memory
+//   (behind the first V item's barrier) and every warp of a row block forms
+//   S = (S_0 + S_1) + ... in group order, then runs the same masks and
+//   online softmax in the same order: a row's m, l and p, and so every
+//   column of its output, share one normaliser bit for bit. Past D = 512
+//   each slab's CTA computes the scores again with the same code in the
+//   same order (only V's columns and the output's differ), one Q K^T more a
+//   slab.
+// * P never leaves registers: the score fragment is P V's A fragment as it
+//   stands (fp32: flash_f32_3xtf32's key permutation; bf16: the pair per
+//   16-key step, as flash_bf16_mma), split again for each V item. A
+//   group's V item wholly past D is not multiplied (warp-uniform).
+// * The grid runs x over a head's query tiles, y over slabs and z over
+//   (batch, head): a head's CTAs are adjacent and read its K and V from
+//   L2 after the first. y and z stop at 65,535 and the CTAs loop over the
+//   rest. The heaviest causal tiles (the last rows) go first.
 // * Key tiles wholly above the diagonal or before the window are not
 //   visited, unless some row has no live key at all (the reference's
-//   uniform weights over every key): the same rule as flash_f32_3xtf32.
+//   uniform weights over every key): the rule of flash_f32_3xtf32. Only
+//   tiles at the diagonal, the window's edge or the ragged tail run mask
+//   logic.
+// * Order: fixed, no atomics, no split of the key loop; a row's bits
+//   depend only on its q, its head's K/V and its row tile's index, so the
+//   same inputs give the same bits on every launch, for any batch or head
+//   sub-range and on a CTA's second pass of the grid loops.
 
-constexpr int WD_THREADS = 256;
-constexpr int WD_ROWS = 64;              // query rows a CTA
-constexpr int WD_KEYS = 32;              // keys a tile
-constexpr int WD_DK = 32;                // head dims a Q / K panel
-constexpr int WD_SLAB = 256;             // output dims a CTA
-constexpr int WD_LDQ = WD_DK + 4;        // panel row stride, floats
-constexpr int WD_LDP = WD_ROWS + 8;      // P stored [key][row]
-constexpr size_t WD_SMEM =
-    ((size_t)(WD_ROWS + WD_KEYS) * WD_LDQ + (size_t)WD_KEYS * WD_LDP +
-     (size_t)WD_KEYS * WD_SLAB + 2 * WD_ROWS) * sizeof(float);
+constexpr int WM_WARPS = 8;
+constexpr int WM_THREADS = 32 * WM_WARPS;
+constexpr int WM_ROWS = 64;                 // query rows a CTA
+constexpr int WM_SLAB = 512;                // output dims a CTA
+constexpr int WM_KEYS = 32;                 // keys a tile
+constexpr int WM_STAGES = 4;                // ring slots
+constexpr int WM_NT = WM_KEYS / 8;          // key n-tiles of S
+
+// By operand type: MT, the m-tiles a warp owns (its rows: a row block of
+// 16 MT, so 4 / MT warps a group; the CTA's 8 warps form 2 MT groups of
+// 256 / MT output dims, and the accumulator is 128 fp32 registers a
+// thread either way); in elements, a Q K^T item's head dims (PK: 256
+// bytes a row, each group taking PK / (2 MT) of them), a V item's dims of
+// each group (PVG), the row strides (an odd number of 16-byte units: the
+// 8 rows of an ldmatrix fall in 8 bank groups, and fp32 V's 8-byte
+// fragment loads on distinct banks) and one mma's k. fp32 takes MT = 2,
+// so that each split K or V fragment feeds two m-tiles; bf16, whose
+// fragments need no split, MT = 1 and half the groups to exchange
+// partial scores between.
+template <typename T>
+struct Wide;
+template <>
+struct Wide<float> {
+  static constexpr int MT = 2, PK = 64, LDQ = PK + 4, PVG = 64,
+                       LDV = 2 * MT * PVG + 4, KSTEP = 8;
+};
+template <>
+struct Wide<bf16> {
+  static constexpr int MT = 1, PK = 128, LDQ = PK + 8, PVG = 128,
+                       LDV = 2 * MT * PVG + 8, KSTEP = 16;
+};
+// a ring slot holds the larger of the two items; the exchange of the
+// partial scores, (warp, element, lane) with MT x WM_NT x 4 elements a
+// lane, follows the slots
+template <typename T>
+__host__ __device__ constexpr int wide_slot_bytes() {
+  constexpr int qk = (WM_ROWS + WM_KEYS) * Wide<T>::LDQ * (int)sizeof(T);
+  constexpr int pv = WM_KEYS * Wide<T>::LDV * (int)sizeof(T);
+  return ((qk > pv ? qk : pv) + 127) / 128 * 128;
+}
+template <typename T>
+constexpr size_t wide_smem_bytes() {
+  return (size_t)WM_STAGES * wide_slot_bytes<T>() +
+         (size_t)WM_WARPS * Wide<T>::MT * WM_NT * 4 * 32 * sizeof(float);
+}
 
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(bf16* p, float x) {
   *p = __float2bfloat16_rn(x);
 }
 
-// Query tile yt of q_tiles, slab zs, of (batch, head) blockIdx.x.
-template <typename T>
+// Query tile yt of q_tiles, slab zs, of (batch, head) bh. VEC: D a
+// multiple of 16 bytes and q, k, v, o 16-byte aligned (16-byte copies and
+// stores); else element copies and stores.
+template <typename T, bool VEC>
 __device__ __forceinline__ void flash_wide_tile(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ o, int tq, int tk, int d, int causal, int window,
-    float scale, int skip_below_window, int yt, int q_tiles, int zs) {
-  extern __shared__ __align__(16) float wide_s[];
-  float* sq = wide_s;                       // (WD_ROWS, WD_LDQ)
-  float* sk = sq + WD_ROWS * WD_LDQ;        // (WD_KEYS, WD_LDQ)
-  float* sp = sk + WD_KEYS * WD_LDQ;        // (WD_KEYS, WD_LDP): s, then p
-  float* sv = sp + WD_KEYS * WD_LDP;        // (WD_KEYS, WD_SLAB)
-  float* corr_s = sv + WD_KEYS * WD_SLAB;   // (WD_ROWS,)
-  float* l_s = corr_s + WD_ROWS;            // (WD_ROWS,)
+    T* __restrict__ o, long long bh, int tq, int tk, int d, int causal,
+    int window, float scale, int skip_below_window, int yt, int q_tiles,
+    int zs) {
+  using W = Wide<T>;
+  constexpr bool F32 = sizeof(T) == sizeof(float);
+  constexpr int MT = W::MT;                      // m-tiles a warp
+  constexpr int WPG = 4 / MT;                    // warps a group
+  constexpr int GROUPS = WM_WARPS / WPG;
+  constexpr int GDIMS = WM_SLAB / GROUPS;        // output dims a group
+  constexpr int SLOT = wide_slot_bytes<T>();
+  constexpr int EPC = 16 / (int)sizeof(T);       // elements a 16-byte copy
+  constexpr int NPV = GDIMS / W::PVG;            // V items a key tile
+  constexpr int GK = W::PK / GROUPS;             // a group's dims of a Q K^T item
+  constexpr int KSTEPS = GK / W::KSTEP;          // ... in k-steps
+  constexpr int JV = W::PVG / 8;                 // n-tiles of a group's V item
+  constexpr int DT = GDIMS / 8;                  // n-tiles of the accumulator
+  constexpr int XW = MT * WM_NT * 4 * 32;        // exchange floats a warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* sx = reinterpret_cast<float*>(smem_raw + WM_STAGES * SLOT);
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long bh = blockIdx.x;
-  const int q0 = (q_tiles - 1 - yt) * WD_ROWS;
-  const int j0 = zs * WD_SLAB;              // the slab's first output dim
-  const int jn = min(WD_SLAB, d - j0);      // its dims
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = warp / WPG, rb = warp % WPG;  // the warp's group and row block
+  const int g = lane / 4, qd = lane % 4;        // the fragments' group and lane in it
+  const int q0 = (q_tiles - 1 - yt) * WM_ROWS;
   const T* qb = q + bh * tq * d;
-  const long long kv = kv_head_offset(bh, tk, d);
-  const T* kb = k + kv;
-  const T* vb = v + kv;
-  const float qscale = scale * LOG2E;
+  const long long kvo = kv_head_offset(bh, tk, d);
+  const T* kb = k + kvo;
+  const T* vb = v + kvo;
+  const int gd0 = zs * WM_SLAB + grp * GDIMS;  // the group's first dim
 
   const int lo = (window > 0 && skip_below_window) ? max(0, q0 - window + 1) : 0;
-  const int hi = causal ? min(tk, q0 + WD_ROWS) : tk;
-  const int t_lo = lo / WD_KEYS, t_hi = (hi + WD_KEYS - 1) / WD_KEYS;
+  const int hi = causal ? min(tk, q0 + WM_ROWS) : tk;
+  const int t_lo = lo / WM_KEYS, t_hi = (hi + WM_KEYS - 1) / WM_KEYS;
+  const int npq = (d + W::PK - 1) / W::PK;  // Q K^T items a key tile
+  const int per_tile = npq + NPV;           // ring items a key tile
 
-  // scores: rows sr + 16 r, keys sc + 16 j
-  const int sc = tid % 16, sr = tid / 16;
-  // softmax: row xr, keys xp + 4 i
-  const int xr = tid / 4, xp = tid % 4;
-  // P V: rows 8 warp + r, dims 4 lane + c and 128 + 4 lane + c
-  float m = NEG_INF, l = 0.f;
-  float acc[8][8];
+  // The ring: items go into slots 0, 1, ... in order, WM_STAGES - 1 ahead
+  // of the item the warps take. A Q K^T item is Q's 64 rows then the
+  // tile's 32 K rows over PK dims; a V item the tile's 32 V rows over the
+  // groups' PVG dims side by side (column cc: group cc / PVG's dim).
+  // With VEC (16-byte copies) a thread copies the same 16 bytes of every
+  // row it takes: in a Q K^T item rows fq + RQ n, in a V item fv + RV n.
+  int f_left = (t_hi - t_lo) * per_tile, f_r = 0, f_k0 = t_lo * WM_KEYS;
+  int f_slot = 0, c_slot = 0;
+  const unsigned ring = smem_u32(smem_raw);
+  constexpr int CQ = W::PK / EPC, CV = GROUPS * W::PVG / EPC;  // copies a row
+  constexpr int RQ = WM_THREADS / CQ, RV = WM_THREADS / CV;       // rows a pass
+  const int fq = threadIdx.x / CQ, fcq = (threadIdx.x % CQ) * EPC;
+  const int fv = threadIdx.x / CV, fcv = (threadIdx.x % CV) * EPC;
+  // the thread's V column as a head dim, less the item's offset pv * PVG
+  const int fdv = zs * WM_SLAB + fcv / W::PVG * GDIMS + fcv % W::PVG;
+  const long long dq = (long long)RQ * d, dv = (long long)RV * d;
+  const T* fqs = qb + (long long)(q0 + fq) * d + fcq;
+  const T* fks = kb + (long long)fq * d + fcq;
+  const T* fvs = vb + (long long)fv * d + fdv;
+  auto fill = [&]() {
+    if (f_left <= 0) return;
+    --f_left;
+    const unsigned slot = ring + f_slot * SLOT;
+    T* s = reinterpret_cast<T*>(smem_raw + f_slot * SLOT);
+    if (f_r < npq) {
+      const int c0 = f_r * W::PK;
+      if (VEC) {
+        const bool cok = c0 + fcq < d;
+        const T* qs = fqs + c0;
+        const T* ks = fks + (long long)f_k0 * d + c0;
+        const unsigned dst = slot + (fq * W::LDQ + fcq) * (int)sizeof(T);
 #pragma unroll
-  for (int r = 0; r < 8; ++r)
+        for (int n = 0; n < WM_ROWS / RQ; ++n) {
+          const bool ok = cok && q0 + fq + RQ * n < tq;
+          cp_async16_zfill(dst + RQ * n * W::LDQ * (int)sizeof(T),
+                           ok ? qs + n * dq : qb, ok);
+        }
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
+        for (int n = 0; n < WM_KEYS / RQ; ++n) {
+          const bool ok = cok && f_k0 + fq + RQ * n < tk;
+          cp_async16_zfill(dst + (WM_ROWS + RQ * n) * W::LDQ * (int)sizeof(T),
+                           ok ? ks + n * dq : kb, ok);
+        }
+      } else {
+        for (int e = threadIdx.x; e < (WM_ROWS + WM_KEYS) * W::PK; e += WM_THREADS) {
+          const int row = e / W::PK, cc = e - row * W::PK;
+          const bool isq = row < WM_ROWS;
+          const int at = isq ? q0 + row : f_k0 + row - WM_ROWS;
+          const bool ok = at < (isq ? tq : tk) && c0 + cc < d;
+          store(s + row * W::LDQ + cc,
+                ok ? to_f32((isq ? qb : kb)[(long long)at * d + c0 + cc]) : 0.f);
+        }
+      }
+    } else {
+      const int c0 = (f_r - npq) * W::PVG;
+      if (VEC) {
+        const bool cok = fdv + c0 < d;
+        const T* vs = fvs + (long long)f_k0 * d + c0;
+        const unsigned dst = slot + (fv * W::LDV + fcv) * (int)sizeof(T);
+#pragma unroll
+        for (int n = 0; n < WM_KEYS / RV; ++n) {
+          const bool ok = cok && f_k0 + fv + RV * n < tk;
+          cp_async16_zfill(dst + RV * n * W::LDV * (int)sizeof(T),
+                           ok ? vs + n * dv : vb, ok);
+        }
+      } else {
+        for (int e = threadIdx.x; e < WM_KEYS * GROUPS * W::PVG; e += WM_THREADS) {
+          const int row = e / (GROUPS * W::PVG), cc = e - row * (GROUPS * W::PVG);
+          const int c = zs * WM_SLAB + cc / W::PVG * GDIMS + c0 + cc % W::PVG;
+          const bool ok = f_k0 + row < tk && c < d;
+          store(s + row * W::LDV + cc,
+                ok ? to_f32(vb[(long long)(f_k0 + row) * d + c]) : 0.f);
+        }
+      }
+    }
+    if (++f_r == per_tile) {
+      f_r = 0;
+      f_k0 += WM_KEYS;
+    }
+    if (++f_slot == WM_STAGES) f_slot = 0;
+  };
+  for (int i = 0; i < WM_STAGES - 1; ++i) {
+    fill();
+    cp_async_commit();
+  }
+  // the next item's slot once it has landed for every thread; the slot the
+  // warps left last is refilled, WM_STAGES - 1 items ahead
+  auto next = [&]() -> const T* {
+    cp_async_wait<WM_STAGES - 2>();
+    __syncthreads();
+    fill();
+    cp_async_commit();
+    const T* slot = reinterpret_cast<const T*>(smem_raw + c_slot * SLOT);
+    if (++c_slot == WM_STAGES) c_slot = 0;
+    return slot;
+  };
+
+  // this thread's rows: ra + 16 mt and ra + 16 mt + 8, mt < MT
+  const int ra = q0 + rb * 16 * MT + g;
+  // fragment offsets inside an item, elements: Q as the A operand at the
+  // warp's first m-tile and its group's share of the dims; K as the B
+  // operand (the k-step's first and second half of key n-tile j, then of
+  // j + 1); V as P V's B operand (fp32: the 8-byte row-pair load; bf16:
+  // ldmatrix .trans rows)
+  constexpr int QC = F32 ? 4 : 8;
+  const int qa = (rb * 16 * MT + (lane & 7) + ((lane >> 3) & 1) * 8) * W::LDQ +
+                 (lane >> 4) * QC + grp * GK;
+  const int ka = (WM_ROWS + (lane & 7) + (lane >> 4) * 8) * W::LDQ +
+                 ((lane >> 3) & 1) * QC + grp * GK;
+  const int va = F32 ? 2 * qd * W::LDV + 2 * g + grp * W::PVG
+                     : ((lane & 7) + ((lane >> 3) & 1) * 8) * W::LDV +
+                           (lane >> 4) * 8 + grp * W::PVG;
+  float* mine = sx + warp * XW + lane;
+  const float* part = sx + rb * XW + lane;  // group gg's: + gg WPG XW
+  const float qscale = scale * LOG2E;  // fp32: q's; bf16: the score's
+
+  float acc[MT][DT][4], m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = NEG_INF;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
+  }
 
   for (int t = t_lo; t < t_hi; ++t) {
-    const int k0 = t * WD_KEYS;
-    float s[4][2];
+    // the group's partial S over its share of every Q K^T item's dims
+    float s[MT][WM_NT][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) s[r][0] = s[r][1] = 0.f;
-    for (int p0 = 0; p0 < d; p0 += WD_DK) {
-      __syncthreads();  // every thread is done with the last panels, P and V
-      for (int e = tid; e < WD_ROWS * WD_DK; e += WD_THREADS) {
-        const int r = e / WD_DK, c = e % WD_DK;
-        sq[r * WD_LDQ + c] = (q0 + r < tq && p0 + c < d)
-            ? to_f32(qb[(long long)(q0 + r) * d + p0 + c]) * qscale : 0.f;
-      }
-      for (int e = tid; e < WD_KEYS * WD_DK; e += WD_THREADS) {
-        const int r = e / WD_DK, c = e % WD_DK;
-        sk[r * WD_LDQ + c] = (k0 + r < tk && p0 + c < d)
-            ? to_f32(kb[(long long)(k0 + r) * d + p0 + c]) : 0.f;
-      }
-      __syncthreads();
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int i = 0; i < WD_DK; i += 4) {
-        float4 qv[4], kvv[2];
+      for (int j = 0; j < WM_NT; ++j)
+        s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+    for (int p = 0; p < npq; ++p) {
+      const T* sp = next();
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-          qv[r] = *reinterpret_cast<const float4*>(sq + (sr + 16 * r) * WD_LDQ + i);
+      for (int kd = 0; kd < KSTEPS; ++kd) {
+        if constexpr (F32) {
+          unsigned ah[MT][4], al[MT][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          kvv[j] = *reinterpret_cast<const float4*>(sk + (sc + 16 * j) * WD_LDQ + i);
+          for (int mt = 0; mt < MT; ++mt) {
+            unsigned a[4];
+            ldsm_x4(smem_u32(sp + qa + mt * 16 * W::LDQ + kd * 8), a);
 #pragma unroll
-        for (int r = 0; r < 4; ++r)
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            s[r][j] = fmaf(qv[r].x, kvv[j].x, s[r][j]);
-            s[r][j] = fmaf(qv[r].y, kvv[j].y, s[r][j]);
-            s[r][j] = fmaf(qv[r].z, kvv[j].z, s[r][j]);
-            s[r][j] = fmaf(qv[r].w, kvv[j].w, s[r][j]);
+            for (int i = 0; i < 4; ++i)
+              split_tf32(__uint_as_float(a[i]) * qscale, ah[mt][i], al[mt][i]);
           }
+#pragma unroll
+          for (int j = 0; j < WM_NT; j += 2) {
+            unsigned b[4], bh[4], bl[4];
+            ldsm_x4(smem_u32(sp + ka + j * 8 * W::LDQ + kd * 8), b);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) split_tf32(__uint_as_float(b[i]), bh[i], bl[i]);
+            // per score fragment a_lo b_hi, a_hi b_lo, a_hi b_hi (mma_3xtf32's
+            // order), each term issued for the 2 MT fragments in turn
+#pragma unroll
+            for (int u = 0; u < 2 * MT; ++u)
+              mma_tf32(s[u >> 1][j + (u & 1)], al[u >> 1], bh[2 * (u & 1)],
+                       bh[2 * (u & 1) + 1]);
+#pragma unroll
+            for (int u = 0; u < 2 * MT; ++u)
+              mma_tf32(s[u >> 1][j + (u & 1)], ah[u >> 1], bl[2 * (u & 1)],
+                       bl[2 * (u & 1) + 1]);
+#pragma unroll
+            for (int u = 0; u < 2 * MT; ++u)
+              mma_tf32(s[u >> 1][j + (u & 1)], ah[u >> 1], bh[2 * (u & 1)],
+                       bh[2 * (u & 1) + 1]);
+          }
+        } else {
+          unsigned a[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+            ldsm_x4(smem_u32(sp + qa + mt * 16 * W::LDQ + kd * 16), a[mt]);
+#pragma unroll
+          for (int j = 0; j < WM_NT; j += 2) {
+            unsigned b[4];
+            ldsm_x4(smem_u32(sp + ka + j * 8 * W::LDQ + kd * 16), b);
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_bf16(s[mt][j], a[mt], b[0], b[1]);
+              mma_bf16(s[mt][j + 1], a[mt], b[2], b[3]);
+            }
+          }
+        }
       }
     }
-    // the masked scores, and this tile's V slab
 #pragma unroll
-    for (int r = 0; r < 4; ++r)
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int key = k0 + sc + 16 * j, row = q0 + sr + 16 * r;
-        float x = s[r][j];
-        if (key >= tk)
-          x = -INFINITY;
-        else if ((causal && key > row) || (window > 0 && key <= row - window))
-          x = NEG_INF;
-        sp[(sc + 16 * j) * WD_LDP + sr + 16 * r] = x;
-      }
-    for (int e = tid; e < WD_KEYS * WD_SLAB; e += WD_THREADS) {
-      const int r = e / WD_SLAB, c = e % WD_SLAB;
-      sv[e] = (k0 + r < tk && c < jn)
-          ? to_f32(vb[(long long)(k0 + r) * d + j0 + c]) : 0.f;
-    }
-    __syncthreads();
+      for (int j = 0; j < WM_NT; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mine[((mt * WM_NT + j) * 4 + i) * 32] = s[mt][j][i];
 
-    // online softmax of row xr over the tile's keys
-    {
-      float x[WD_KEYS / 4];
-      float mt = NEG_INF;
 #pragma unroll
-      for (int i = 0; i < WD_KEYS / 4; ++i) {
-        x[i] = sp[(xp + 4 * i) * WD_LDP + xr];
-        mt = fmaxf(mt, x[i]);
+    for (int pv = 0; pv < NPV; ++pv) {
+      const T* sv = next();
+      if (pv == 0) {
+        // S = (S_0 + S_1) + ... in group order, in every group (the first
+        // V item's barrier published the partials)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int j = 0; j < WM_NT; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int e = ((mt * WM_NT + j) * 4 + i) * 32;
+              float x = part[e];
+#pragma unroll
+              for (int gg = 1; gg < GROUPS; ++gg) x += part[gg * WPG * XW + e];
+              s[mt][j][i] = F32 ? x : x * qscale;
+            }
+        // masks only on edge tiles (uniform over the CTA)
+        const int k0 = t * WM_KEYS;
+        const bool edge = (causal && k0 + WM_KEYS - 1 > q0) ||
+                          (window > 0 && k0 <= q0 + WM_ROWS - 1 - window) ||
+                          k0 + WM_KEYS > tk;
+        if (edge) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+            for (int j = 0; j < WM_NT; ++j)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int key = k0 + j * 8 + 2 * qd + (i & 1);
+                const int row = ra + mt * 16 + (i >> 1) * 8;
+                if (key >= tk)
+                  s[mt][j][i] = -INFINITY;
+                else if ((causal && key > row) || (window > 0 && key <= row - window))
+                  s[mt][j][i] = NEG_INF;
+              }
+        }
+        // online softmax, rows ra + 16 mt (i = 0, 1) and ra + 16 mt + 8 (i = 2, 3)
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          float mx[2] = {m[mt][0], m[mt][1]};
+#pragma unroll
+          for (int j = 0; j < WM_NT; ++j) {
+            mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
+            mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
+          }
+          float corr[2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(FULL, mx[r], 2));
+            corr[r] = exp2f(m[mt][r] - mx[r]);
+            m[mt][r] = mx[r];
+            l[mt][r] *= corr[r];
+          }
+#pragma unroll
+          for (int j = 0; j < DT; ++j) {
+            acc[mt][j][0] *= corr[0];
+            acc[mt][j][1] *= corr[0];
+            acc[mt][j][2] *= corr[1];
+            acc[mt][j][3] *= corr[1];
+          }
+#pragma unroll
+          for (int j = 0; j < WM_NT; ++j)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              s[mt][j][i] = exp2f(s[mt][j][i] - m[mt][i >> 1]);
+              l[mt][i >> 1] += s[mt][j][i];
+            }
+        }
       }
-      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(FULL, mt, 2));
-      const float m_new = fmaxf(m, mt);
-      const float corr = exp2f(m - m_new);
-      float ls = 0.f;
+      if (gd0 + pv * W::PVG >= d) continue;  // the group's dims of it are past D
+      if constexpr (F32) {
+        // 8 keys a k-step: A is the score fragment (k = qd is key 2 qd,
+        // k = qd + 4 key 2 qd + 1), B one 8-byte load a row pair, each
+        // split B fragment feeding the MT m-tiles
 #pragma unroll
-      for (int i = 0; i < WD_KEYS / 4; ++i) {
-        x[i] = exp2f(x[i] - m_new);
-        ls += x[i];
-        sp[(xp + 4 * i) * WD_LDP + xr] = x[i];
+        for (int kk = 0; kk < WM_NT; ++kk) {
+          unsigned ph[MT][4], pl[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            split_tf32(s[mt][kk][0], ph[mt][0], pl[mt][0]);
+            split_tf32(s[mt][kk][2], ph[mt][1], pl[mt][1]);
+            split_tf32(s[mt][kk][1], ph[mt][2], pl[mt][2]);
+            split_tf32(s[mt][kk][3], ph[mt][3], pl[mt][3]);
+          }
+          const float* v0 = reinterpret_cast<const float*>(sv) + kk * 8 * W::LDV + va;
+#pragma unroll
+          for (int jp = 0; jp < JV / 2; ++jp) {
+            const float2 x0 = *reinterpret_cast<const float2*>(v0 + 16 * jp);
+            const float2 x1 = *reinterpret_cast<const float2*>(v0 + W::LDV + 16 * jp);
+            unsigned bh[4], bl[4];  // n-tile 2 jp: [0], [1]; 2 jp + 1: [2], [3]
+            split_tf32(x0.x, bh[0], bl[0]);
+            split_tf32(x1.x, bh[1], bl[1]);
+            split_tf32(x0.y, bh[2], bl[2]);
+            split_tf32(x1.y, bh[3], bl[3]);
+            const int n0 = pv * JV + 2 * jp;
+            // per accumulator a_lo b_hi, a_hi b_lo, a_hi b_hi, each term
+            // issued for the 2 MT accumulators in turn
+#pragma unroll
+            for (int u = 0; u < 2 * MT; ++u)
+              mma_tf32(acc[u >> 1][n0 + (u & 1)], pl[u >> 1], bh[2 * (u & 1)],
+                       bh[2 * (u & 1) + 1]);
+#pragma unroll
+            for (int u = 0; u < 2 * MT; ++u)
+              mma_tf32(acc[u >> 1][n0 + (u & 1)], ph[u >> 1], bl[2 * (u & 1)],
+                       bl[2 * (u & 1) + 1]);
+#pragma unroll
+            for (int u = 0; u < 2 * MT; ++u)
+              mma_tf32(acc[u >> 1][n0 + (u & 1)], ph[u >> 1], bh[2 * (u & 1)],
+                       bh[2 * (u & 1) + 1]);
+          }
+        }
+      } else {
+        // 16 keys a k-step: P_hi V + P_lo V, each B fragment feeding the
+        // MT m-tiles
+#pragma unroll
+        for (int kk = 0; kk < WM_NT / 2; ++kk) {
+          unsigned ph[MT][4], pl[MT][4];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            split_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1], ph[mt][0], pl[mt][0]);
+            split_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3], ph[mt][1], pl[mt][1]);
+            split_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1], ph[mt][2], pl[mt][2]);
+            split_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3], ph[mt][3], pl[mt][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < JV; j += 2) {
+            unsigned b[4];
+            ldsm_x4_trans(smem_u32(sv + kk * 16 * W::LDV + va + j * 8), b);
+            const int n0 = pv * JV + j;
+#pragma unroll
+            for (int mt = 0; mt < MT; ++mt) {
+              mma_bf16(acc[mt][n0], ph[mt], b[0], b[1]);
+              mma_bf16(acc[mt][n0], pl[mt], b[0], b[1]);
+              mma_bf16(acc[mt][n0 + 1], ph[mt], b[2], b[3]);
+              mma_bf16(acc[mt][n0 + 1], pl[mt], b[2], b[3]);
+            }
+          }
+        }
       }
-      ls += __shfl_xor_sync(FULL, ls, 1);
-      ls += __shfl_xor_sync(FULL, ls, 2);
-      l = l * corr + ls;
-      m = m_new;
-      if (xp == 0) corr_s[xr] = corr;
-    }
-    __syncthreads();
-
-    // acc = acc * corr + P V over the slab
-    float cr[8];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) cr[r] = corr_s[8 * warp + r];
-#pragma unroll
-    for (int r = 0; r < 8; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] *= cr[r];
-#pragma unroll 4
-    for (int j = 0; j < WD_KEYS; ++j) {
-      const float4 p0v = *reinterpret_cast<const float4*>(sp + j * WD_LDP + 8 * warp);
-      const float4 p1v = *reinterpret_cast<const float4*>(sp + j * WD_LDP + 8 * warp + 4);
-      const float4 v0 = *reinterpret_cast<const float4*>(sv + j * WD_SLAB + 4 * lane);
-      const float4 v1 = *reinterpret_cast<const float4*>(sv + j * WD_SLAB + 128 + 4 * lane);
-      const float pr[8] = {p0v.x, p0v.y, p0v.z, p0v.w, p1v.x, p1v.y, p1v.z, p1v.w};
-      const float vc[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
-#pragma unroll
-      for (int r = 0; r < 8; ++r)
-#pragma unroll
-        for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(pr[r], vc[c], acc[r][c]);
     }
   }
 
-  if (xp == 0) l_s[xr] = fmaxf(l, 1e-30f);
-  __syncthreads();
 #pragma unroll
-  for (int r = 0; r < 8; ++r) {
-    const int row = q0 + 8 * warp + r;
-    if (row >= tq) continue;
-    const float lr = l_s[8 * warp + r];
-    T* ob = o + (bh * tq + row) * d + j0;
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int col = (c < 4 ? 0 : 128) + 4 * lane + (c & 3);
-      if (col < jn) store(ob + col, acc[r][c] / lr);
+    for (int r = 0; r < 2; ++r) {
+      float lr = l[mt][r];
+      lr += __shfl_xor_sync(FULL, lr, 1);
+      lr += __shfl_xor_sync(FULL, lr, 2);
+      lr = fmaxf(lr, 1e-30f);
+      const int row = ra + mt * 16 + r * 8;
+      if (row >= tq) continue;
+      T* ob = o + (bh * tq + row) * d;
+      if constexpr (F32) {
+#pragma unroll
+        for (int jp = 0; jp < DT / 2; ++jp) {
+          const int c = gd0 + 16 * jp + 4 * qd;  // dims c .. c + 3
+          const float x[4] = {acc[mt][2 * jp][2 * r] / lr,
+                              acc[mt][2 * jp + 1][2 * r] / lr,
+                              acc[mt][2 * jp][2 * r + 1] / lr,
+                              acc[mt][2 * jp + 1][2 * r + 1] / lr};
+          if (VEC && c + 3 < d) {
+            *reinterpret_cast<float4*>(ob + c) = make_float4(x[0], x[1], x[2], x[3]);
+          } else {
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (c + i < d) ob[c + i] = x[i];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < DT; ++j) {
+          const int c = gd0 + j * 8 + 2 * qd;
+          const float x = acc[mt][j][2 * r] / lr, y = acc[mt][j][2 * r + 1] / lr;
+          if (c + 1 < d && !(d & 1)) {
+            *reinterpret_cast<__nv_bfloat162*>(ob + c) = __floats2bfloat162_rn(x, y);
+          } else {
+            if (c < d) ob[c] = __float2bfloat16_rn(x);
+            if (c + 1 < d) ob[c + 1] = __float2bfloat16_rn(y);
+          }
+        }
+      }
     }
-  }
 }
 
-// tiles blockIdx.y, + gridDim.y, ... of q_tiles (see flash_kernel), and
-// slabs blockIdx.z, + gridDim.z, ... of slabs alike
-template <typename T>
-__global__ void __launch_bounds__(WD_THREADS, 2)
-flash_wide(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, T* __restrict__ o, int tq, int tk, int d,
-           int causal, int window, float scale, int skip_below_window,
-           int q_tiles, int slabs) {
-  for (int zs = blockIdx.z; zs < slabs; zs += gridDim.z)
-    for (int yt = blockIdx.y; yt < q_tiles; yt += gridDim.y) {
-      if (zs != (int)blockIdx.z || yt != (int)blockIdx.y)
-        __syncthreads();  // shared memory is free
-      flash_wide_tile<T>(q, k, v, o, tq, tk, d, causal, window, scale,
-                         skip_below_window, yt, q_tiles, zs);
-    }
+// x: query tiles blockIdx.x, + gridDim.x, ...; y: slabs alike; z: (batch,
+// head) alike (see flash_kernel)
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(WM_THREADS, 1)
+flash_wide_mma(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, T* __restrict__ o, long long bh_n,
+               int tq, int tk, int d, int causal, int window, float scale,
+               int skip_below_window, int q_tiles, int slabs) {
+  for (long long bh = blockIdx.z; bh < bh_n; bh += gridDim.z)
+    for (int zs = blockIdx.y; zs < slabs; zs += gridDim.y)
+      for (int yt = blockIdx.x; yt < q_tiles; yt += gridDim.x) {
+        if (bh != (long long)blockIdx.z || zs != (int)blockIdx.y ||
+            yt != (int)blockIdx.x)
+          __syncthreads();  // shared memory is free
+        flash_wide_tile<T, VEC>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
+                                skip_below_window, yt, q_tiles, zs);
+      }
 }
 
 template <typename T>
-int launch_wide(const T* q, const T* k, const T* v, T* o, long long bh,
-                int tq, int tk, int d, int causal, int window, float scale,
-                void* stream) {
-  const int q_tiles = (tq + WD_ROWS - 1) / WD_ROWS;
-  const int slabs = (d + WD_SLAB - 1) / WD_SLAB;
+int launch_wide_mma(const T* q, const T* k, const T* v, T* o, long long bh,
+                    int tq, int tk, int d, int causal, int window, float scale,
+                    void* stream) {
+  const int q_tiles = (tq + WM_ROWS - 1) / WM_ROWS;
+  const int slabs = (d + WM_SLAB - 1) / WM_SLAB;
   if (bh > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const bool vec = d % (16 / (int)sizeof(T)) == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(o);
+  auto kernel = vec ? flash_wide_mma<T, true> : flash_wide_mma<T, false>;
+  // above 48 KB only as dynamic shared memory, once allowed (per device)
   const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)WD_SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)wide_smem_bytes<T>());
   if (attr != cudaSuccess) return (int)attr;
   // a row with no live key takes the reference's uniform weights over every
   // key: then visit them all
   const int skip = !(window > 0 && (long long)tq > (long long)tk + window - 1);
-  dim3 grid((unsigned)bh, (unsigned)grid_y(q_tiles), (unsigned)grid_y(slabs));
-  flash_wide<T><<<grid, WD_THREADS, WD_SMEM, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, o, tq, tk, d, causal, window, scale, skip, q_tiles, slabs);
+  dim3 grid((unsigned)q_tiles, (unsigned)grid_y(slabs), (unsigned)grid_y((int)bh));
+  kernel<<<grid, WM_THREADS, wide_smem_bytes<T>(), static_cast<cudaStream_t>(stream)>>>(
+      q, k, v, o, bh, tq, tk, d, causal, window, scale, skip, q_tiles, slabs);
   return (int)cudaGetLastError();
 }
 
 // fp32: the CUDA-core kernel at D <= 32 (the codec's bits), 3xTF32 to 256,
-// flash_wide past it
+// flash_wide_mma past it
 int launch_f32(const float* q, const float* k, const float* v, float* o,
                long long bh, int tq, int tk, int d, int causal, int window,
                float scale, void* stream) {
@@ -1457,8 +1794,8 @@ int launch_f32(const float* q, const float* k, const float* v, float* o,
   if (d <= 256)
     return launch_3xtf32<256>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
                               stream);
-  return launch_wide<float>(q, k, v, o, bh, tq, tk, d, causal, window, scale,
-                            stream);
+  return launch_wide_mma<float>(q, k, v, o, bh, tq, tk, d, causal, window,
+                                scale, stream);
 }
 
 }  // namespace

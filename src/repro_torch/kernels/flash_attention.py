@@ -6,11 +6,12 @@ D), k and v (B, H, Tk, D), contiguous, fp32 or bf16, any D >= 1 and any
 Tq. Unlike the Pallas wrapper it takes any Tk, causal or not (the kernel
 masks the ragged key tail itself), and it pads nothing in device memory.
 fp32 runs on the CUDA cores up to D = 32 (the codec's D = 16 keeps its
-bits) and on the tensor cores to D = 256, every product in 3xTF32 (each
+bits) and on the tensor cores past it, every product in 3xTF32 (each
 operand split into two TF32 parts, three products); bf16 runs on the
-tensor cores to D = 256 (fp32 scores and softmax, P V as a bf16 hi/lo
-pair); past D = 256 both run on the CUDA cores in fp32 (bf16 converted as
-it is staged, the output rounded once). The source describes all four
+tensor cores at every D (fp32 scores and softmax, P V as a bf16 hi/lo
+pair). Past D = 256 both dtypes run one kernel, ``flash_wide_mma``, whose
+CTAs stream Q, K and V through shared memory and compute a row's scores
+once for every 512 of its output columns. The source describes all four
 kernels.
 
 The kernel has no backward: a call that would need a gradient raises (the
