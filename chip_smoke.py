@@ -181,12 +181,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    bound, the ratio and the seconds of prepare, select and entropy coding;
    (5) ``python -m repro_torch.launch.train --steps 20`` in a subprocess:
    exit 0 and a falling loss. The ``kernels`` phase holds the wide
-   instantiations (128 < D <= 256) of the fp64 projection and the fp32
-   select and correct at every ``WIDE`` shape (``batched_checks``, as at
-   D = 80), holds the sha256 of their outputs at every ``WIDE`` shape to
-   ``WIDE_SHA256`` (the bits of the first, row-tile build of these
-   kernels), prints them on a line of their own, and times the kernels at
-   (1, 65536, 256);
+   routes (past D = 128) of the fp64 projection and the fp32 select and
+   correct at every ``WIDE`` shape (``batched_checks``, as at D = 80),
+   holds the sha256 of their outputs at every ``WIDE`` shape to
+   ``WIDE_SHA256`` (see there), prints them on a line of their own, and
+   times the kernels at (1, 65536, 256);
 14. ``dryrun_path``  the dry run (``repro_torch.launch.dryrun``, meta tensors
    only): (1) ``python -m repro_torch.launch.dryrun --arch <a> --mesh both``
    for every config, in subprocesses started together: each exits 0 with
@@ -261,55 +260,59 @@ FP64_REL_LIMIT = 1e-12  # max abs difference relative to the row's l2 norm
 # row ranges of the fp64 projection's sub-range checks: each starts inside
 # a 64-row tile, so its rows meet other tile and fragment positions
 PROJECT_SUBRANGES = [(100, 5003), (20417, 20480), (1, 2)]
-# the wide kernels (128 < D <= 256: the fp64 projection, fp32 select and
+# the wide routes (past D = 128: the fp64 projection, fp32 select and
 # correct) at the weight checkpoint's D = 256 (train/checkpoint.py): the
 # blocks of Llama-3.2-1B's largest layer-0 leaf (2048 x 8192 = 65536
 # blocks; timed), and ragged shapes, D = 129 and 200 among them
 WIDE = [(1, 65536, 256), (2, 513, 256), (1, 1, 256), (3, 100, 200), (2, 77, 129)]
 WIDE_SEED = 300  # the seed at WIDE[0]; WIDE[i] takes WIDE_SEED + i
 # sha256 of the wide routes' outputs on wide_digest_operands(*WIDE[i],
-# WIDE_SEED + i), as the first, row-tile build of the wide kernels gave
-# them on an H100: a redesign of those kernels moves no bit
+# WIDE_SEED + i) on an H100. The fp64 projection's are its first, row-tile
+# build's (project_f64_wide keeps them). The fp32 select's and correct's
+# were re-pinned from the first build of gbatc_wide_3xtf32, which moved
+# those routes from FFMAs to 3xTF32 tensor-core products (a k pair's three
+# products summed from +0, then added to the accumulator): they moved
+# their last bits, within FP32_LIMIT of the plain version
 WIDE_SHA256 = {
     (1, 65536, 256): {
         "gbatc_project_batched":
             "7e97319e26f3ec44057d74d31c63237831fa8b655cc4fa1c11e03f01bba41d17",
         "gbatc_select_accumulate":
-            "99066858265cd4e6f0ab7c53c57b6848db43a96ce87b1c39c17b344c54539cce",
+            "66168cd105264de0fb2f559eb07513447bbfb00081b100eeb91286b16724f5ef",
         "gbatc_correct_batched":
-            "44fad2b16db9183c2a9f375f18677d89e144a9a21cacc84be738ab901a2eadb9",
+            "f74e144311cf660b1a9e63f10898b63a7af8c28fbc9dc443ba2fbcdfe4626374",
     },
     (2, 513, 256): {
         "gbatc_project_batched":
             "214b4a0f91b8686a3d553a688b8595b9df6673dfe3649389f0ba1d6dc6a78d7c",
         "gbatc_select_accumulate":
-            "c87e3ca8223627f014ed753f02b6b67e8f69545acfcd65e4dca59e8602162652",
+            "e300b067b44a8e2ccbc449604309673d880c0d5b3bc6df61d09eaae8aa819ded",
         "gbatc_correct_batched":
-            "2859c551d1ea569f832705a74e39e0c2526feb24442fd8189d9a971aee1f6c30",
+            "25e0f8676234f2a05f6823ef55a7d0a82ae952cb19c3bc8600e0c8c1d44e3a9a",
     },
     (1, 1, 256): {
         "gbatc_project_batched":
             "bf5324c5b5870fa8821111d81ad023e5842351bed07e00f8dad4632ae7783398",
         "gbatc_select_accumulate":
-            "7999f32427022a1c3887006171f633efd9ce6c02d6fba62f03f16f6e9f0e976d",
+            "53d258b2d93b02d6e92b215596edcbaf21072591e6c5c80052b97561f8467830",
         "gbatc_correct_batched":
-            "ee7dbf1a9352d78faee089b65dbfea72784b039f61ed52b95ff51444c93cc3d0",
+            "2907f95a72e70e14dab61106212f4b719ddbf238348d6489bbcc6878c11fcb2e",
     },
     (3, 100, 200): {
         "gbatc_project_batched":
             "d09194b7c851aeb3f9a033ba7912ee96ab9b7e6f162aff50349bb47710145755",
         "gbatc_select_accumulate":
-            "a4ef6435825054408952d1c28956a8bbc9013b0c685b9001941c994cbec6c9a2",
+            "e2d3d8e4de8c5f032d11d5dd4458d19a96c3631e05f02ab388383d4362e0dfc0",
         "gbatc_correct_batched":
-            "9c135de51583b08db850238e10f2223f93a710dc5dab1fc443265b7ba182cf11",
+            "2fc52aca7a7f6834dd1572fa50a374d076cfa439bbaaf5851f81dca678465bff",
     },
     (2, 77, 129): {
         "gbatc_project_batched":
             "6ed2dd6a2cf45d08c6f96744e416b4ca241c1bb5cdea8cfb0bf3970326c804b5",
         "gbatc_select_accumulate":
-            "8da2fbcda7fcbf6b591a3ca62dc74ca57e60734fcb986dcc0be56b69a39bc9ea",
+            "a4c2fa98743dab2c6060c92e72e5db8c0d986b02830062afb8986a05003a16f0",
         "gbatc_correct_batched":
-            "5e6cbf1ad7860a66dfc223d1081bb4c3b25bc5838950a02fd59f04424c3b5ad1",
+            "ca24a638f13eb9093150f83dd37c17f9e299f4ba589f8628d8d14902a9bed2e3",
     },
 }
 # every route at any D (the Pallas wrappers pad to any D): the reference's
@@ -321,92 +324,96 @@ ANY_D = [(2, 513, 130), (2, 77, 257), (3, 100, 320), (1, 1, 513), (2, 65, 1000),
 ANY_D_SEED = 700  # ANY_D[i] takes ANY_D_SEED + i
 ANY_D_TIMED = ANY_D[-1]
 # sha256 of every route's output ("kernel/dtype") on
-# wide_digest_operands(*ANY_D[i], ANY_D_SEED + i), as the first build of the
-# any-D routes gave them on an H100
+# wide_digest_operands(*ANY_D[i], ANY_D_SEED + i) on an H100. The fp64
+# projection's are the first build of the any-D routes'; every fp32 route's
+# and the fp64 select's and correct's were re-pinned from the first build of
+# gbatc_wide_3xtf32 (fp32 on 3xTF32 tensor-core products) and
+# gbatc_wide_dmma (fp64 on DMMA, each k step's products summed in the
+# tensor cores), whose sums moved their last bits
 ANY_D_SHA256 = {
     (2, 513, 130): {
         "gbatc_project_batched/float64":
             "5387260400a3cb8ec4025f51e1e2918fa345c27e7a8effd2b5660bdde23b2aa7",
         "gbatc_select_accumulate/float32":
-            "ad2ca84d34ac6b3a0ec759115132a57d099cae5bbad8ae24b386cbc69dfbb135",
+            "cc4a5cedaa2e0a4b9d324f79411eb9489e236bf04f49c8204ba98b2781d51ac7",
         "gbatc_correct_batched/float32":
-            "619cc8eec9267f1fac7d132983f09b4f8d783e12befb0dcfd6d771ad66118add",
+            "b9767e20d1b8386512d994bb471609cbfe03492e3a98ff7dc7aea5762827d8f7",
         "gbatc_project_batched/float32":
-            "f6c9af28aaaeccd6671b6a62a680fac1b11da130a91783bb0b23789b96011fa2",
+            "55078706ee19a8d233717978ee91a534f8fa95f4d2b9bc22f5266b2c928c6c44",
         "gbatc_select_accumulate/float64":
-            "5a8b45823f4e8ef7d4eac9733fd167ec42d4193922c441c4762996b3922a12d6",
+            "605a670d0565fae821f1b80d6dcc0ebf120c3a93726d681fb0e436dff7ba2548",
         "gbatc_correct_batched/float64":
-            "d2469f68d2f21e1ffa8ea8bc043b3c7dd8be721b80d52086d6cfa4774535f381",
+            "7f9e343d37a6ff1bbad7b5e1301dd510906c71733955559548b99bfb31391312",
     },
     (2, 77, 257): {
         "gbatc_project_batched/float64":
             "21db5dce05123f67e170e0b8177ddfa6959b77af671cced2b7ba3ffeaa128c5b",
         "gbatc_select_accumulate/float32":
-            "40af947641bea70a8abb5447f6996c404ae2a12c099facfe8b711d5c3266162f",
+            "8dacfa28240853bcbd7d925006b78131f97db7f0b3d722d2dfa6b244dfc31259",
         "gbatc_correct_batched/float32":
-            "7374d5868a19e74f5c17c61a17b816619fb7c45314c368990f66d6c82142ef0c",
+            "2c57ecdb8c34bc4bf5d1d0625d526261943ec14281cd5aa70d3142589ee1fcbd",
         "gbatc_project_batched/float32":
-            "cc0ca3ec72cbbc655db3a80c07d5c5f9cfaab00114247cd0b23527e1e3c7f32a",
+            "f0ed8d0e380a29dda46aa955aa4329a78fead493f7dab603c5136146c9b2e389",
         "gbatc_select_accumulate/float64":
-            "99b2e6e11f52b4dd531213a1a23ae6f33cd23201c9fef31c9cb633c6837af9fc",
+            "6e9c1368ed83c47244196bf0df4e2de72a072e37bff1791cee096b4217cc3646",
         "gbatc_correct_batched/float64":
-            "e9a339ddc3f334fe98aaf79bb1ce45d573547054d6a04373ede05ad81168eb43",
+            "245891b4dacf52bbbde23038f5c62ae5ae9014aab41790a46f7b5b9bea4379dd",
     },
     (3, 100, 320): {
         "gbatc_project_batched/float64":
             "c4241fe010b94befcc9e307ec6071089221ac87bae6a5f314f345c636ef0f9ec",
         "gbatc_select_accumulate/float32":
-            "63732023c4e7a172f87cf451396960a14409b2c2ef7b40f0d7178889d74fa42b",
+            "ad61cbc32bdee39b714f64f99ab944c075def5d10390310f48c2acb0897ec439",
         "gbatc_correct_batched/float32":
-            "fe79507564d19671e3a04a270002a40293bd52ffdd8b35bb9a30e3d17c05ec93",
+            "8a10f8d3fb2736ba970cf8b73a18abdc9d7d5f9a1b25fb3485ad4829a037b955",
         "gbatc_project_batched/float32":
-            "ac6264b6c9f2443a25eab1b5368722476d155d1bdc013d12f77a11908aff1e6f",
+            "6a9b62b64eb4925c00e4736d9f6ce4acafb598894ddd03a6fd105e96018dea85",
         "gbatc_select_accumulate/float64":
-            "fb243ea3e027a115f9999a5dad755f5acab48a43b4378266fdbbd544b2e391c8",
+            "4f7e075f5ebb6143e48c8c7c15d0a7d9c4d522217dfd812cf59b2707bc524a42",
         "gbatc_correct_batched/float64":
-            "41ff380d5faf16b699712a670239f349d6dd6eb210f8e2f4eac9e215c7dcb6cd",
+            "3cd4d71991f33c1d7278cbee7ffc3f066c0ef672d2f11516425b559ff871f974",
     },
     (1, 1, 513): {
         "gbatc_project_batched/float64":
             "80e724faf11e5e304cca1f10b6f969b09c92368928c5b4656f361ed9ee255ce2",
         "gbatc_select_accumulate/float32":
-            "e3a618e4a5fd0d803c9ab5050dbdd212feb6d4709f0f6b6aa5b415a37323bb75",
+            "dd80a33cd0ffbc0824fb025baed0b9564a326b20cbf96d32d3cc716d7af4779f",
         "gbatc_correct_batched/float32":
-            "d035e5e57c95fba769516b479fc8cc228ddffb8cdfe3ff2078844f48cc2fe1f9",
+            "4a9302540dfb2953287795f546386d67a0d0d7dd76ca3bb8075db6bc14cb236b",
         "gbatc_project_batched/float32":
-            "f84df7c79d9f05eb053f1e655ed6fcfdeee7627ad2753696bc728a15bee2ed69",
+            "d99987df2ae6c16500738f7cf800f2e8ebf0874e511cad3c1fac059e60ea15f1",
         "gbatc_select_accumulate/float64":
-            "114d7ab16b139725371f6b12353937bbe3118c69b1ef6d8195bc1f51fb68c7f5",
+            "6e1f5f791ff2fa91845c8296582fe99904796e30a29f335a61be258657c7582b",
         "gbatc_correct_batched/float64":
-            "ed18a35cf4f70b60686111020ae4434d1a082869a62860c71e4bb297ac35c8a2",
+            "1f27136f96da61c00a402a69657ab09782819cd4f7af6149756b5ddfe426aad9",
     },
     (2, 65, 1000): {
         "gbatc_project_batched/float64":
             "285c47e08552aaf2132e63438073d211c5769ee37854b1d3c92d1a4724bcdf70",
         "gbatc_select_accumulate/float32":
-            "a70aab8d6bab66b98908f157e29df9a34de046cc69babb5ca9b30e201fe90480",
+            "6023bdfcf97b0b86be9491292de10daa3287025fd7536e24a3770d2159d9c7c8",
         "gbatc_correct_batched/float32":
-            "069d2ac48557a0c49b2b9c6b0e91700e9ca1b1f2539b1792d9c5ff15db3cb59e",
+            "6f70b6eb7533601ea178c57885bb884d35f19bc2f30ac68cbd06b468f145f20a",
         "gbatc_project_batched/float32":
-            "f7eef24da468ee5cd9fcbd8c72ebda3f807e08d21d926db663013486ba184b94",
+            "e31409aab248f935b1cc6fbdc135ed45097bb5b9a8762d13dbf52a62dcb24991",
         "gbatc_select_accumulate/float64":
-            "1ebd93b8f6106a3f6092ebb678335c84d2cda580032b6c871b1a558826f5a775",
+            "8e1534d5556860b46aacf3bb6b72bd058d30e85286e6df70852f01f3ce27f602",
         "gbatc_correct_batched/float64":
-            "bb51ee63a279b3c9e3383857051f8d4da6613005b953968a01ee160c63c61212",
+            "22251c229b814dc06182fe10330a2fa56e59ba7335a26cfd4a7eeeca83e05974",
     },
     (58, 1600, 512): {
         "gbatc_project_batched/float64":
             "1091fe3242e219234ec8cc3ab7de86e87e4927d7605295120bec7ec287660627",
         "gbatc_select_accumulate/float32":
-            "ca3c97bffa183b03634435b70b540cc6eb588dedd70cea3148245bb6903e383f",
+            "f81937d5bca9b67188c203c76540cb8db427c091658a61ce20f8b58442a072c5",
         "gbatc_correct_batched/float32":
-            "f67428a6b4b9da6065bca38d50aaf2874d17fb03dab9dea156a54de97bbbeb46",
+            "3d762c29520edd173801780804409452541e79b652b450e095a8de0a4b6c171d",
         "gbatc_project_batched/float32":
-            "ac13f59b441fadd073854166673e953da1c7e16fe3891bc8ce23b5f3e52bf80f",
+            "1ee6c20269d650e3516f76424e21422d741dce9128c2d31f3b8a4de594b2184a",
         "gbatc_select_accumulate/float64":
-            "3464e5f37aae8fd5a88be5266a76ad2d0bd99ca1cbdcd045e02ae9ad4ec511d0",
+            "3b6f8ffd41343e26f537773f63471182d7d2d1debe36b25837452b2d0fec82e1",
         "gbatc_correct_batched/float64":
-            "8f362c866ce5c308b2396934a457190e610d65f9e18f603107ec360d75d01818",
+            "c920c0d00f79461f4ab30010d86d9032059fd56df40d1d4b7045946a7e99e71c",
     },
 }
 # the 2D pair past D = 128: the reference's own 130, and wide_block_path's
@@ -809,10 +816,12 @@ PTXAS_NAMES = {
             *m.groups()[1:])), (
         r"project_f64_wideE",
         lambda m: "f64/project/wide"), (
-        r"gbatc_wideI([fd])Li(\d)ELi(\d)E",
-        lambda m: "{}/{}/wide".format(
-            {"f": "f32", "d": "f64"}[m.group(1)],
-            ("project", "correct", "select", "masked")[int(m.group(2))]))],
+        r"gbatc_wide_3xtf32ILi(\d)E",
+        lambda m: "f32/{}/wide/3xtf32".format(
+            ("project", "correct", "select", "masked")[int(m.group(1))])), (
+        r"gbatc_wide_dmmaILi(\d)E",
+        lambda m: "f64/{}/wide/dmma".format(
+            ("project", "correct", "select", "masked")[int(m.group(1))]))],
     "flash_attention": [(
         r"flash_kernelIfLi(\d+)E",
         lambda m: "flash/f32/dp{}".format(m.group(1))), (
@@ -1083,24 +1092,26 @@ def route_bits(torch, what: str, fn, args, full) -> None:
     same_rows(torch, what, full, parts)
 
 
-def fp32_pair_bits(torch, gk, x, c, u, rank, m) -> None:
-    """The fp32 select and correct modes keep one order of arithmetic:
-    select on (c, rank, m) is bitwise correct on where(rank < m, c, 0)."""
+def pair_bits(torch, gk, x, c, u, rank, m) -> None:
+    """The select and correct modes keep one order of arithmetic in either
+    dtype: select on (c, rank, m) is bitwise correct on where(rank < m, c,
+    0)."""
     kept = torch.where(rank < m[..., None], c,
                        torch.zeros((), dtype=c.dtype, device=c.device))
     sel = gk.gbatc_select_accumulate(x, c, rank, m, u)
     cor = gk.gbatc_correct_batched(x, kept, u)
     if not torch.equal(sel, cor):
-        fail(f"fp32 select differs from correct on the masked coefficients at "
-             f"{tuple(x.shape)} (max abs {float((sel - cor).abs().max()):.3e})")
+        fail(f"{str(x.dtype).split('.')[-1]} select differs from correct on the masked "
+             f"coefficients at {tuple(x.shape)} (max abs "
+             f"{float((sel - cor).abs().max()):.3e})")
 
 
 def batched_checks(torch, s, nb, d, seed, err: dict) -> None:
     """Every check of the three batched kernels at (s, nb, d), on every
     (kernel, dtype) route: against its plain version (FP64_REL_LIMIT,
     FP32_LIMIT; the largest difference kept in ``err[name, dtype]``), the
-    same bits twice and for row and species sub-ranges (route_bits); the
-    fp32 select and correct under fp32_pair_bits."""
+    same bits twice and for row and species sub-ranges (route_bits); select
+    and correct under pair_bits in both dtypes."""
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
 
@@ -1116,8 +1127,7 @@ def batched_checks(torch, s, nb, d, seed, err: dict) -> None:
             route_bits(torch, f"{name} ({str(dtype).split('.')[-1]}, {(s, nb, d)})",
                        fn, args, full)
             del full
-        if dtype == torch.float32:
-            fp32_pair_bits(torch, gk, x, c, u, rank, m)
+        pair_bits(torch, gk, x, c, u, rank, m)
     del x, c, u, rank, m
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -1140,7 +1150,10 @@ def batched_rows(torch, shape, seed, launches, err: dict, routes=MAIN_ROUTES,
                  **extra) -> list[dict]:
     """The batched routes timed at ``shape`` beside their plain versions,
     bounds and library yardsticks (``torch.bmm`` for the projection,
-    ``torch.baddbmm`` for correct; no one call computes the select);
+    ``torch.baddbmm`` for correct; no one call computes the select); the
+    fp32 routes on the tensor cores (the projection at every D, select and
+    correct past 128) are bound at the 3xTF32 rate, with the FFMA bound
+    beside it (``bound_ffma_ms``);
     ``max_abs_err`` is ``err``'s, from batched_checks. The projection's
     operands come from ``seed``, select's and correct's from ``seed + 1``."""
     from repro_torch.kernels import gbatc_project as gk
@@ -1167,6 +1180,10 @@ def batched_rows(torch, shape, seed, launches, err: dict, routes=MAIN_ROUTES,
             nbytes = (3 * n + s * d * d) * size + (n + s * nb) * 4
             flops = 2 * kept * d
         fn, plain = getattr(gk, name), getattr(kref, name + "_ref")
+        tensor_cores = dtype == torch.float32 and (project or d > 128)
+        bounds = ({"peak": "float32_3xtf32",
+                   "bound_ffma_ms": flops / PEAK_FLOPS["float32"] * 1e3}
+                  if tensor_cores else {})
         rows.append(kernel_row(
             torch, name, "gbatc_kernels.cu",
             f"src/repro/kernels/gbatc_project.py:{GBATC_LINES[name]}",
@@ -1174,7 +1191,7 @@ def batched_rows(torch, shape, seed, launches, err: dict, routes=MAIN_ROUTES,
             launches, err[name, dtype],
             tolerance=("max abs diff <= 1e-12 x row l2 norm"
                        if dtype == torch.float64 else "max abs diff <= 1e-5"),
-            **extra))
+            **bounds, **extra))
         del x, c, u, rank, m, args, lib
         torch.cuda.empty_cache()
     return rows
@@ -1336,8 +1353,8 @@ def wide_digests(torch) -> dict:
 
 
 def phase_wide_kernels(torch, launches: int) -> dict:
-    """The wide instantiations (128 < D <= 256) of the fp64 projection and
-    the fp32 select and correct under batched_checks and wide_digests at
+    """The wide routes (past D = 128) of the fp64 projection and the fp32
+    select and correct under batched_checks and wide_digests at
     every WIDE shape, and timed at WIDE[0]. Returns {kernel: entry}."""
     err: dict = {}
     for i, (s, nb, d) in enumerate(WIDE):
@@ -1780,8 +1797,10 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
             ("gbatc_correct", lambda: gk.gbatc_correct(x, c, mask, u),
              lambda: kref.gbatc_correct_ref(x, c, mask, u), None,
              (4 * n + d * d) * 4, 2 * int(mask.sum()) * d, e_c)):
+        # past D = 128 both run gbatc_wide_3xtf32
         r = kernel_row(torch, name, "gbatc_kernels.cu", "", fn, plain, lib, "float32",
-                       (nb, d), nbytes, flops, launches, e,
+                       (nb, d), nbytes, flops, launches, e, peak="float32_3xtf32",
+                       bound_ffma_ms=flops / PEAK_FLOPS["float32"] * 1e3,
                        tolerance="max abs diff <= 1e-5")
         for k in ("name", "route", "source", "replaces", "launches"):
             r.pop(k)
@@ -1807,7 +1826,8 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         "src/repro/kernels/gbatc_project.py:105",
         lambda: gk.gbatc_project(x, u), lambda: kref.gbatc_project_ref(x, u),
         lambda: torch.mm(x, u), "float32", GBATC_2D, (2 * n + d * d) * 4,
-        2 * n * d, launches, max(e_p, err["gbatc_project"]),
+        2 * n * d, launches, max(e_p, err["gbatc_project"]), peak="float32_3xtf32",
+        bound_ffma_ms=2 * n * d / PEAK_FLOPS["float32"] * 1e3,
         any_d=any_d["gbatc_project"], **gbatc_extra))
     kept = int(mask.sum())
     rows.append(kernel_row(

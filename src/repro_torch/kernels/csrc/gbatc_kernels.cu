@@ -19,8 +19,9 @@
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
 //
-// Six kernels serve these modes: four up to D = 128, and past it two that
-// stage the basis in k panels ("Wide blocks" below).
+// Seven kernels serve these modes: four up to D = 128, and past it three
+// that stage the basis in k panels ("Wide blocks" below), all of them on
+// the tensor cores.
 //
 // fp64 project (project_f64_dmma): at the main path's (58, 20480, 80) the
 // work is 760 MB read, 760 MB written and 15.2 GFLOP, so bytes bound it
@@ -175,20 +176,19 @@
 //   mask in there. Neither the mask nor the masked coefficients are ever
 //   written to device memory.
 //
-// Wide blocks, D > 128 (project_f64_wide, gbatc_wide): every mode takes
-// any D, as the Pallas wrappers do by padding. The weight checkpoint's
-// blocks are 256 long (train/checkpoint.py) and a codec's 8 x 8 x 8 block
-// is 512. A species' basis is 512 KB in fp64 and 256 KB in fp32 at D =
-// 256, more than the 227 KB of shared memory a CTA may hold, so both
-// kernels stage it in k panels beside the matching panel of the row tile,
-// one ring of panels a CTA that runs on across its tiles. At (1, 65536,
-// 256) the projection moves 268 MB (0.080 ms at 3.35 TB/s) for 8.6 GFLOP
-// (0.128 ms on the fp64 tensor cores), and correct 201 MB for 4.3 G FFMA
-// (0.128 ms at 67 TFLOP/s): the operations bound both. Select moves 268 MB
-// (0.080 ms) and needs FFMAs only for the kept terms, about half of them at
-// uniform cuts: its bytes bound it. At a codec's (58, 1600, 512) every mode
-// does 2 x 58 x 1600 x 512^2 = 48.7 GFLOP (0.73 ms at 67 TFLOP/s) against
-// 0.13-0.26 ms of bytes: the operations bound all of them. Design:
+// Wide blocks, D > 128 (project_f64_wide, gbatc_wide_3xtf32,
+// gbatc_wide_dmma): every mode takes any D, as the Pallas wrappers do by
+// padding. The weight checkpoint's blocks are 256 long (train/checkpoint.py)
+// and a codec's 8 x 8 x 8 block is 512. A species' basis is 512 KB in fp64
+// and 256 KB in fp32 at D = 256, more than the 227 KB of shared memory a CTA
+// may hold, so the kernels stage it in k panels beside the matching panel
+// of the row tile, one ring of panels a CTA that runs on across its tiles.
+// At a codec's (58, 1600, 512) every mode does 2 x 58 x 1600 x 512^2 = 48.7
+// GFLOP against 0.13-0.26 ms of bytes: the operations bound all of them,
+// at 0.73 ms on the fp64 tensor cores (67 TFLOP/s), 0.29 ms for fp32 as
+// 3xTF32 (495 / 3 TFLOP/s) and 0.73 ms on the CUDA cores' FFMAs (67). Select
+// needs products only for the kept terms, about half of them at uniform
+// cuts. Design:
 //
 // * project_f64_wide (the fp64 projection): DMMA m16n8k8 in fp64 as
 //   project_f64_dmma. A 64-row tile takes a slab of 256 columns (all of
@@ -202,36 +202,28 @@
 //   load: a panel in fragment order would take 8-byte copies, and filling
 //   it that way measured slower than the loads it saves. Past D = 256 a
 //   row tile's slabs follow each other, each looping k over all of D.
-// * gbatc_wide<T, MODE> (fp32 correct and select, fp64 correct and select,
-//   the masked mode in both dtypes, and the fp32 projection): 128 x 128
-//   tiles (a row tile's column tiles follow each other, so its A panels
-//   come from L2 the second time), 8 warps of 32 rows by 64 columns, an
-//   8 x 8 register tile a thread. A panel is 16 k: A[rows, k0 : k0 + 16]
-//   (c or the residual; select: and rank; masked: and the mask) and the
-//   basis' piece land as they lie in device memory through a 3-stage
-//   cp.async ring, and the thread that copied a chunk writes it (select: c
-//   = +0 where rank >= m; masked: c times the mask) into a double buffer
-//   laid out [k][row] and [k][j]; each k is then 2 + 2 16-byte loads (fp64:
-//   4 + 4) for 64 FMAs. The correct modes read U[j0 : j0 + 128, k0 : k0 +
-//   16] and transpose it; the projection reads U[k0 : k0 + 16, j0 : j0 +
-//   128], already [k][j], and adds no x. fp32: 82 KB (correct, project) or
-//   106 KB (select, masked) a CTA, two CTAs an SM under 128 registers;
-//   what spills under that cap is stored and loaded around the copies, the
-//   transposes and the epilogue, never in the FFMA loop. fp64: 162, 187 or
-//   210 KB and one CTA an SM under 255 registers (64 fp64 accumulators a
-//   thread). x is read once an element, in the epilogue.
-// * The order of arithmetic is fixed, so no bit depends on the tiling.
-//   gbatc_wide: acc = +0, acc = fma(c'_k, B[k][j], acc) for k ascending up
-//   to ceil(D / E) * E (E = 4 fp32, 2 fp64 values a 16-byte chunk) with +0
-//   terms past D, out = x + acc (the projection: acc), c' = +0 where rank
-//   >= m, c' = c * mask in the masked mode; select on (c, rank, m) stays
-//   bitwise correct on where(rank < m, c, 0). project_f64_wide: each
-//   fragment's m16n8k8 steps ascending from +0, no step past ceil(D / 8),
-//   +0 in A and B past D. A panel or a slab only changes which thread
-//   computes an element and when its operands arrive; no split-k, no TF32,
-//   no fast-math. The kernels phase of chip_smoke.py holds their outputs'
-//   sha256 at every WIDE shape to pinned values (WIDE_SHA256, the fp32
-//   correct and select and the fp64 projection since their first build),
+// * gbatc_wide_3xtf32<MODE> (every fp32 route: project, correct, select and
+//   the masked mode) and gbatc_wide_dmma<MODE> (fp64 correct, select and the
+//   masked mode): 128-row tiles against slabs of up to 128 columns, a
+//   persistent grid whose CTAs take the tiles in turn, and in each CTA a
+//   producer warpgroup that copies k panels through a cp.async ring, masks
+//   them (select, masked) and puts them where the MMAs read them (fp32:
+//   split into tf32 hi and lo planes in fragment order; fp64: rows
+//   interleaved in pairs), ahead of 8 MMA warps, the two sides handing each
+//   panel over through mbarriers. Every fragment is a 16-byte load a lane
+//   that needs no register move. Notes above each kernel give its layout,
+//   its order of arithmetic and what bounds it.
+// * The order of arithmetic is fixed, so no bit depends on the tiling:
+//   project_f64_wide and gbatc_wide_dmma run each fragment's m16n8k8 steps
+//   ascending from +0, no step past ceil(D / 8), +0 in A and B past D;
+//   gbatc_wide_3xtf32 adds each k pair's three TF32 products into a partial
+//   from +0 and the partial into the accumulator; out = x + acc (the
+//   projection: acc). c' = +0 where rank >= m, c' = c * mask in the masked
+//   mode; select on (c, rank, m) stays bitwise correct on where(rank < m,
+//   c, 0) in both dtypes. A panel or a slab only changes which thread
+//   computes an element and when its operands arrive; no split-k, no
+//   fast-math, no single-pass TF32. The kernels phase of chip_smoke.py holds
+//   their outputs' sha256 at every WIDE shape to pinned values (WIDE_SHA256)
 //   and every route's at every ANY_D shape (ANY_D_SHA256).
 //
 // fp64 at D = 80 needs 51.2 KB for the basis alone, above the 48 KB static
@@ -532,6 +524,33 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
       "[%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
       "r"(smem_u32(bar)) : "memory");
+}
+// an mbarrier whose phase completes after `count` arrivals
+__device__ __forceinline__ void mbar_init_count(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+// this thread's arrival (release: its shared-memory writes before it are
+// seen by a thread that waits for the phase)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+// mbar_wait for a phase that other warps of the CTA complete: a wait past
+// 2^32 cycles (over 2 s) means an arrival was lost, and the kernel traps
+// with an error rather than hang the card
+__device__ __forceinline__ void mbar_wait_or_trap(uint64_t* bar, unsigned parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    unsigned done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 32)) __trap();
+  }
 }
 // wait for the phase of `bar` with this parity to complete
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
@@ -910,6 +929,24 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c = a . b over one m16n8k8 step from +0 (no accumulator read)
+__device__ __forceinline__ void mma_tf32_zero(float (&c)[4], const uint4& a,
+                                              uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1), "f"(0.f));
+}
+
+// c += a . b on an A fragment held as one 16-byte load
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint4& a, uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a.x), "r"(a.y), "r"(a.z), "r"(a.w), "r"(b0), "r"(b1));
 }
 
 // padded shared row length of an A tile: D rounded up to the k pair of 16,
@@ -1355,332 +1392,767 @@ inline bool aligned16(const void* p) {
   return p == nullptr || (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
-// ---- every mode past D = 128: k panels through a cp.async ring ---------------
+// ---- every route past D = 128 but the fp64 projection: k panels through a
+// cp.async ring into the tensor cores -----------------------------------------
 
-constexpr int WIDE_TILE = 128;   // rows and columns of a tile
-constexpr int WIDE_KP = 16;      // k a panel
-constexpr int WIDE_STAGES = 3;   // panels in the ring
+// Both kernels tile alike: a 128-row tile against a slab of up to 128 of a
+// species' columns, one CTA an SM walking its tiles as one stream of k
+// panels. A CTA is warp-specialised: a producer warpgroup (4 warps) copies
+// each panel into a cp.async ring and gets it ready for the tensor cores,
+// and 8 MMA warps of 32 rows by up to 64 columns (warp (wm, wn) owns rows
+// 32 wm .. +31, two m16 fragments, and n8 fragments f0 .. f0 + nf_w - 1 of
+// the slab) run the MMAs and the epilogue, the two sides handing panels
+// over through mbarriers (full: ready; empty: MMAs done), so the copies
+// and the producers' passes overlap the MMAs (one group of 8 warps doing
+// both, at one CTA an SM, overlapped them little and measured 17-26 %
+// slower; PERF.md, PR 31). 384 threads hold 168 registers each. The slabs of a row tile follow each other and share D
+// evenly: ceil(D / 128) of them, each ceil(D / slabs) columns rounded up
+// to 8, so no slab leaves warps idle (320 = 3 x 112, not 128 + 128 + 64).
+// A 64 x 256 tile (the fp64 projection's) measured 3-10 % slower: it reads
+// the same bytes in more, shorter rows.
+constexpr int WT_TM = 128;    // rows a tile
+constexpr int WT_SLAB = 128;  // most columns a tile
+constexpr int WT_WM = WT_TM / 32;  // warps down a tile (32 rows each)
+constexpr int WT_WN = WIDE_THREADS / 32 / WT_WM;  // and across it
+static_assert(WT_WM * WT_WN * 32 == WIDE_THREADS && WT_SLAB <= WT_WN * 64, "warp grid");
 
-template <int BYTES>
-__device__ __forceinline__ void cp_async_n(void* dst, const void* src) {
-  if constexpr (BYTES == 16) cp_async16(dst, src);
-  else if constexpr (BYTES == 8) cp_async8(dst, src);
-  else cp_async4(dst, src);
+// the slab width of D (a multiple of 8, at most WT_SLAB)
+__host__ __device__ __forceinline__ int slab_width(int d) {
+  const int nsl = (d + WT_SLAB - 1) / WT_SLAB;
+  return ((d + nsl - 1) / nsl + 7) / 8 * 8;
 }
 
-// KU consecutive values to a 16-byte aligned address
-template <typename T>
-__device__ __forceinline__ void store_ku(T* p, const T (&v)[KU]) {
-  constexpr int N = Pack<T>::N;
-#pragma unroll
-  for (int q = 0; q < KU / N; ++q) {
-    Pack<T> t;
-#pragma unroll
-    for (int c = 0; c < N; ++c) t.v[c] = v[q * N + c];
-    reinterpret_cast<Pack<T>*>(p)[q] = t;
-  }
+// this warp's share of a slab jw columns wide: its first n fragment and how
+// many it runs (at most 8; warp-uniform)
+__device__ __forceinline__ void warp_frags(int jw, int wn, int& f0, int& nf_w) {
+  const int nfs = (jw + 7) / 8, per = (nfs + WT_WN - 1) / WT_WN;
+  f0 = wn * per;
+  nf_w = max(0, min(per, nfs - f0));
 }
 
-// A 128 x 128 tile of out. Warp w owns rows 32 (w % 4) .. +31 and columns
-// 64 (w / 4) .. +63; lane (ry, cx) = (lane / 8, lane % 8) owns rows 4 ry +
-// r + 16 h and columns 4 cx + e + 32 h (r, e < 4; h < 2) of them. A CTA
-// walks its tiles as one stream of k panels (KP k each). The cp.async ring
-// lands a step's A[rows, k0 : k0 + KP] (c, or the residual R of the
-// projection; select: and rank; masked: and the mask) and the matching
-// piece of the basis as they lie in device memory: U[j0 : j0 + 128, k0 :
-// k0 + KP] for the U^T product, U[k0 : k0 + KP, j0 : j0 + 128] for the
-// projection's R U. The A rows' 16-byte chunks are XOR-swizzled so the
-// chunks a warp reads at once fall on distinct banks; the thread that
-// copied a chunk then writes it (select: masked; masked: times the mask)
-// into a double buffer laid out [k][row] and [k][j], so each k is two
-// 16-byte loads of A and two of B (fp64: four and four) for 64 FMAs.
-template <typename T, int MODE, int MINB>
-__global__ void __launch_bounds__(WIDE_THREADS, MINB)
-gbatc_wide(const T* __restrict__ x,         // x_rec; none in the projection
-           const T* __restrict__ c,         // coefficients, or the residual
-           const int* __restrict__ rank,    // select only, (S, NB, D)
-           const int* __restrict__ m,       // select only, (S, NB)
-           const T* __restrict__ mk,        // masked only, (S, NB, D)
-           const T* __restrict__ basis, T* __restrict__ out, int s_count,
-           long long nb, int d, int vec) {
-  constexpr int TT = WIDE_TILE, KP = WIDE_KP, STAGES = WIDE_STAGES;
-  constexpr int E = Pack<T>::N;  // values a 16-byte chunk
-  constexpr int CH = KP / E;     // chunks a panel row
-  constexpr int RPL = CH < 8 ? 8 / CH : 1;  // panel rows a 128-byte line of banks
+// this CTA's i-th tile: tile blockIdx.x + i gridDim.x of the species-major,
+// row-tile, slab order (tps tiles a species, nsl slabs sw columns wide a
+// row tile). The CTAs take the tiles in turn, so at any time they work on
+// neighbouring tiles of two or three species and read the same basis
+// panels, which stay in L2 (a contiguous range a CTA would spread the CTAs
+// over every species, and the bases then stream from device memory).
+__device__ __forceinline__ WideTile wide_tile(int i, int tps, int nsl, int sw,
+                                              long long nb) {
+  const int t = (int)blockIdx.x + i * (int)gridDim.x;
+  WideTile w;
+  w.s = t / tps;
+  const int rt = (t - w.s * tps) / nsl;
+  w.j0 = (t - w.s * tps - rt * nsl) * sw;
+  const long long row0 = (long long)rt * WT_TM;
+  w.r0 = w.s * nb + row0;
+  w.rows = (int)min((long long)WT_TM, nb - row0);
+  return w;
+}
+// the tiles of this CTA among total
+__device__ __forceinline__ int wide_tiles(int total) {
+  return (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+}
+
+// -- fp32: gbatc_wide_3xtf32 -----------------------------------------------
+//
+// A panel is one k pair (WT_KP = 16 k, two m16n8k8 steps). The producers
+// land a step's A[rows, k0 : k0 + 16] (c, or the residual of the
+// projection; select: and rank; masked: and the mask) and its piece of the
+// basis as they lie in device memory; then the thread that copied a piece
+// masks it (select: c = +0 where rank >= m; masked: c times the mask; +0
+// past D and past the tile's rows and columns), splits each value into
+// tf32 hi and lo (split_plane) and writes both into the step's hi / lo
+// planes, double buffered, in fragment order, so every A and B fragment is
+// one conflict-free 16-byte load a lane that lands in the registers the
+// MMA reads (no register moves between load and MMA; assembling the A
+// fragment from row loads cost about 8 moves an MMA):
+//
+// * A: thread (m fragment mf, lane (g, q)) copies rows g and g + 8 of the
+//   fragment, k 4q .. 4q + 3, and writes {A[g][4q + 2s], A[g + 8][4q + 2s],
+//   A[g][4q + 2s + 1], A[g + 8][4q + 2s + 1]} for steps s = 0, 1: step s
+//   takes k = 4q + 2s for a fragment's column q and 4q + 2s + 1 for column
+//   q + 4, a permutation of the k inside a pair, alike in A and B, as in
+//   project_f32_3xtf32;
+// * B (the correct modes): U[j0 : j0 + sw, k0 : k0 + 16], k-contiguous for
+//   each column j as the .col fragment wants; the chunk U[j][4q .. + 3] is
+//   lane (j % 8, q)'s {b0, b1} of step 0 and of step 1 at once;
+// * B (the projection): U[k0 : k0 + 16, j0 : j0 + sw], transposed by the
+//   split (raw rows padded to WT_LDU floats, chunks walked k-fastest, stores
+//   ordered so that a warp's loads and stores fall on distinct banks).
+//
+// What bounds it: 3 x 2 x 58 x 1600 x 512^2 = 146 GFLOP of TF32 MMAs at
+// (58, 1600, 512), 0.48 ms at the 302 TFLOP/s that mma.sync reaches on an
+// H100 with 8 warps an SM (tools/mma_peak.py; 495 TFLOP/s is wgmma's); the
+// MMA warps' fragment loads, 96 KB of shared memory a panel (768 cycles of
+// the SM's 128 bytes a cycle, against the MMAs' 1,206 at that rate); and
+// the producers' copies and split. With the
+// other side taken out, the MMA warps take 0.97 ms (epilogue included) and
+// the producers 0.88 of correct's 1.22 there (tools/gbatc_wide_timing.py
+// --probes): each side alone is near the whole.
+constexpr int WT_KP = 16;            // k a panel: one k pair
+constexpr int WT_STAGES = 4;         // raw panels in the ring
+constexpr int WT_PRODUCERS = 128;    // one warpgroup copies, masks and splits
+constexpr int WT_THREADS = WIDE_THREADS + WT_PRODUCERS;  // 168 registers each
+constexpr int WT_JG = 2;  // n fragments whose products a warp interleaves
+constexpr int WT_LDU = WT_SLAB + 4;  // the projection's raw basis rows, floats
+constexpr int WT_PLANE_A = WT_TM / 16 * 128;   // uint4: hi, lo of 4 m16 fragments
+constexpr int WT_PLANE_B = WT_SLAB / 8 * 64;   // uint4: hi, lo of 32 n8 fragments
+constexpr int WT_PLANES = WT_PLANE_A + WT_PLANE_B;
+
+// floats of a ring stage: [A | rank or mask | U]
+template <int MODE>
+__host__ __device__ constexpr int wt_stage_words() {
+  return WT_TM * WT_KP * (MODE == MODE_SELECT || MODE == MODE_MASKED ? 2 : 1) +
+         (MODE == MODE_PROJECT ? WT_KP * WT_LDU : WT_SLAB * WT_KP);
+}
+template <int MODE>
+constexpr size_t wt_smem_bytes() {
+  return (size_t)WT_STAGES * wt_stage_words<MODE>() * sizeof(float) +
+         2 * (size_t)WT_PLANES * sizeof(uint4) + 4 * sizeof(uint64_t);
+}
+
+// x = hi + lo: hi = cvt.rna.tf32(x), as an integer add of half a tf32 ulp and
+// a mask; lo = x - hi, exact in fp32, goes to the tensor cores as it is,
+// which read its top 19 bits (rounded toward zero) as flash_attention.cu's
+// split_tf32 leaves them
+__device__ __forceinline__ void split_plane(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & ~0x1fffu;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+__device__ __forceinline__ void split4(const float (&v)[4], uint4& hi, uint4& lo) {
+  split_plane(v[0], hi.x, lo.x);
+  split_plane(v[1], hi.y, lo.y);
+  split_plane(v[2], hi.z, lo.z);
+  split_plane(v[3], hi.w, lo.w);
+}
+
+// Order of arithmetic, the same for every tile, slab and CTA: for each k
+// pair, ascending from +0 (k padded with +0 to a multiple of 16), a partial
+// sum starts at +0 and takes, step by step, a_lo b_hi, a_hi b_lo and a_hi
+// b_hi; the partial is then added to the row's accumulator (an fp32 add,
+// rounded to nearest); out = x + acc, the projection acc. The tensor cores
+// truncate as they accumulate: one accumulator over all of k (two, main
+// and correction, as in project_f32_3xtf32) drifted 1.2-1.5e-5 from the
+// plain version at D = 512 and 1000, past FP32_LIMIT; a chain of one pair
+// keeps the kernel within 2.1e-6 of the product in fp64 (cuBLAS's fp32
+// product is within 8.3e-6 of it). Select on (c, rank, m) feeds the MMAs
+// the bits correct feeds them on where(rank < m, c, 0), so both give the
+// same bits. x is null in the projection, rank and m outside select, mk
+// outside the masked mode.
+template <int MODE>
+__global__ void __launch_bounds__(WT_THREADS, 1)
+gbatc_wide_3xtf32(const float* __restrict__ x, const float* __restrict__ c,
+                  const int* __restrict__ rank, const int* __restrict__ m,
+                  const float* __restrict__ mk, const float* __restrict__ basis,
+                  float* __restrict__ out, int s_count, long long nb, int d,
+                  int vec) {
   constexpr bool SELECT = MODE == MODE_SELECT, MASKED = MODE == MODE_MASKED;
   constexpr bool PROJECT = MODE == MODE_PROJECT;
-  constexpr int LAND = TT * KP;  // values of one operand a step
-  // bytes a ring buffer: [A | B | rank or mask]
-  constexpr int STAGE_BYTES =
-      LAND * (2 * (int)sizeof(T) + (SELECT ? 4 : MASKED ? (int)sizeof(T) : 0));
-  // transposed rows padded to 132 values: the two chunks a warp stores at
-  // once, k rows apart, fall on distinct banks
-  constexpr int LDT = TT + 4;
-  constexpr int TBUF = 2 * KP * LDT;  // [A^T | B^T]
-  // the cuts of tile t + 1 ride with the last panel of tile t into one of
-  // two slots: safe while a tile has at least STAGES panels (9 at D > 128)
-  static_assert(KP == 16 && STAGES >= 2 && STAGES <= 9, "panel shape");
-  static_assert(TT * CH % WIDE_THREADS == 0 && STAGE_BYTES % 16 == 0, "chunks");
+  constexpr int TM = WT_TM, KP = WT_KP, STAGES = WT_STAGES;
+  constexpr int STAGE = wt_stage_words<MODE>();
+  constexpr int U_OFF = TM * KP * (SELECT || MASKED ? 2 : 1);  // U in a stage
+  constexpr int P = WT_PRODUCERS;
+  static_assert(STAGES >= 2 && KP == 16 && TM * 2 % P == 0 && STAGE % 4 == 0, "ring shape");
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* tr = reinterpret_cast<T*>(smem_raw + STAGES * STAGE_BYTES);  // 2 steps
-  int* m_s = reinterpret_cast<int*>(tr + 2 * TBUF);  // select: (2, TT) cuts
+  float* ring = reinterpret_cast<float*>(smem_raw);
+  uint4* planes = reinterpret_cast<uint4*>(ring + STAGES * STAGE);  // 2 x [A | B]
+  // full[b]: plane b split (the producers arrive); empty[b]: its MMAs done
+  uint64_t* full = reinterpret_cast<uint64_t*>(planes + 2 * WT_PLANES);
+  uint64_t* empty = full + 2;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  // this thread's rows row_t + r + 16 h and columns col_t + e + 32 h
-  const int row_t = (warp & 3) * 32 + (lane >> 3) * 4;
-  const int col_t = (warp >> 2) * 64 + (lane & 7) * 4;
-  const int ldk = (d + E - 1) / E * E;  // k padded with zero terms
-  const int panels = (ldk + KP - 1) / KP;
-  const int nt = (d + TT - 1) / TT;  // column tiles
+  const int g = lane >> 2, q = lane & 3;
+  const int panels = (d + KP - 1) / KP;
+  const int nsl = (d + WT_SLAB - 1) / WT_SLAB;
+  const int sw = slab_width(d);
   // tile and step indices fit an int (the launcher checks tiles x panels)
-  const int tps = (int)((nb + TT - 1) / TT) * nt;  // tiles a species
+  const int tps = (int)((nb + TM - 1) / TM) * nsl;  // tiles a species
   const int total = tps * s_count;
-  const int t_begin = (int)((long long)total * blockIdx.x / gridDim.x);
-  const int t_end = (int)((long long)total * (blockIdx.x + 1) / gridDim.x);
-  const int steps = (t_end - t_begin) * panels;
+  const int n_tiles = wide_tiles(total);
+  const int steps = n_tiles * panels;
 
-  // species-major, then row tile, then column tile: a row tile's column
-  // tiles follow each other, so its A panels are read again from L2
-  auto tile = [&](int t) {
-    WideTile w;
-    w.s = t / tps;
-    const int rt = (t - w.s * tps) / nt;
-    w.j0 = (t - w.s * tps - rt * nt) * TT;
-    const long long row0 = (long long)rt * TT;
-    w.r0 = w.s * nb + row0;
-    w.rows = (int)min((long long)TT, nb - row0);
-    return w;
-  };
-  auto stage = [&](int v, T*& a_l, T*& b_l, int*& r_l, T*& m_l) {
-    unsigned char* base = smem_raw + (v % STAGES) * STAGE_BYTES;
-    a_l = reinterpret_cast<T*>(base);
-    b_l = a_l + LAND;
-    r_l = reinterpret_cast<int*>(b_l + LAND);
-    m_l = reinterpret_cast<T*>(b_l + LAND);
-  };
-  // landed offset of chunk ch of A panel row `row` (and of U^T's row j)
-  auto land = [](int row, int ch) {
-    return row * KP + (ch ^ (row / RPL % CH)) * E;
-  };
-  // A thread copies, and later transposes, the chunks (row, ch) of the A
-  // operands and U given by chunk(tid + 256 n): a warp's are 16 rows by two
-  // neighbouring chunks, whole 32-byte sectors. The projection's U panel
-  // (KP rows of 128 columns) is walked as (k, jc) = (i / (TT / E), i % (TT
-  // / E)) and lands unswizzled. Where D % E != 0 or an operand is not
-  // 16-byte aligned, the walk is over values (row, k) = (i % TT, i / TT).
-  auto chunk = [](int i, int& row, int& ch) {
-    row = (i >> 5 & 7) * 16 + (i & 15);
-    ch = (i >> 8) * 2 + (i >> 4 & 1);
-  };
-
-  // The copies run STAGES - 1 steps ahead: step iv, panel ip of tile it
-  // (iw), lands in ring buffer iv % STAGES.
-  int it = t_begin, ip = 0, iv = 0;
-  WideTile iw = tile(t_begin);
-  auto issue = [&]() {
-    const int k0 = ip * KP;
-    const int kv = min(KP, d - k0);     // k of D in this panel
-    const int jn = min(TT, d - iw.j0);  // columns of D in this tile
-    T *a_l, *b_l, *m_l;
-    int* r_l;
-    stage(iv, a_l, b_l, r_l, m_l);
-    const size_t ga = (size_t)iw.r0 * d + k0;
-    const T* ub = PROJECT ? basis + ((size_t)iw.s * d + k0) * d + iw.j0
-                          : basis + ((size_t)iw.s * d + iw.j0) * d + k0;
-    if (vec) {
-      for (int i = tid; i < TT * CH; i += WIDE_THREADS) {
-        int row, ch;
-        chunk(i, row, ch);
-        if (ch * E < kv) {
-          const int o = land(row, ch);
-          const size_t g = ga + (size_t)row * d + ch * E;
-          if (row < iw.rows) {
-            cp_async16(a_l + o, c + g);
-            if (SELECT) cp_async_n<4 * E>(r_l + o, rank + g);
-            if (MASKED) cp_async16(m_l + o, mk + g);
-          }
-          if (!PROJECT && row < jn) cp_async16(b_l + o, ub + (size_t)row * d + ch * E);
-        }
-        if (PROJECT) {
-          const int k = i / (TT / E), jc = i % (TT / E) * E;
-          if (k < kv && jc < jn) cp_async16(b_l + k * TT + jc, ub + (size_t)k * d + jc);
-        }
-      }
-    } else {
-      for (int i = tid; i < TT * KP; i += WIDE_THREADS) {
-        const int row = i % TT, k = i / TT;
-        if (k >= kv) continue;
-        const int o = land(row, k / E) + k % E;
-        const size_t g = ga + (size_t)row * d + k;
-        if (row < iw.rows) {
-          cp_async_n<(int)sizeof(T)>(a_l + o, c + g);
-          if (SELECT) cp_async4(r_l + o, rank + g);
-          if (MASKED) cp_async_n<(int)sizeof(T)>(m_l + o, mk + g);
-        }
-        if (row < jn) {
-          if (PROJECT) cp_async_n<(int)sizeof(T)>(b_l + k * TT + row, ub + (size_t)k * d + row);
-          else cp_async_n<(int)sizeof(T)>(b_l + o, ub + (size_t)row * d + k);
-        }
-      }
+  if (tid == 0) {
+    for (int b = 0; b < 2; ++b) {
+      mbar_init_count(full + b, P);
+      mbar_init_count(empty + b, WIDE_THREADS);
     }
-    ++iv;
-    if (++ip < panels) return;
-    ip = 0;
-    if (++it < t_end) {
-      iw = tile(it);
-      if (SELECT && tid < iw.rows)  // its cuts ride with this tile's last panel
-        cp_async4(m_s + (it - t_begin) % 2 * TT + tid, m + iw.r0 + tid);
-    }
-  };
-
-  // The FMAs' step v: panel p of tile t (w). Step v's own chunks, landed,
-  // go into transposed buffer v % 2 (select: c = +0 where rank >= m;
-  // masked: c times the mask); k in [D, ldk) are +0 terms in A and in B.
-  WideTile w = iw;
-  auto transpose = [&](int v, int p, int t) {
-    const int k0 = p * KP;
-    const int kv = min(KP, d - k0), kn = min(KP, ldk - k0);
-    const int jn = min(TT, d - w.j0);
-    T *a_l, *b_l, *m_l;
-    int* r_l;
-    stage(v, a_l, b_l, r_l, m_l);
-    T* at = tr + (v % 2) * TBUF;
-    T* bt = at + KP * LDT;
-    const int* ms = m_s + (t - t_begin) % 2 * TT;
-    if (vec) {  // kv == kn
-      for (int i = tid; i < TT * CH; i += WIDE_THREADS) {
-        int row, ch;
-        chunk(i, row, ch);
-        if (ch * E < kv) {
-          const int o = land(row, ch);
-          if (row < w.rows) {
-            Pack<T> val = *reinterpret_cast<const Pack<T>*>(a_l + o);
-            if (SELECT) {
-              const IntPack<E> rk = *reinterpret_cast<const IntPack<E>*>(r_l + o);
-              const int cut = ms[row];
-#pragma unroll
-              for (int e = 0; e < E; ++e)
-                if (!(rk.v[e] < cut)) val.v[e] = T(0);
-            }
-            if (MASKED) {
-              const Pack<T> mv = *reinterpret_cast<const Pack<T>*>(m_l + o);
-#pragma unroll
-              for (int e = 0; e < E; ++e) val.v[e] = val.v[e] * mv.v[e];
-            }
-#pragma unroll
-            for (int e = 0; e < E; ++e) at[(ch * E + e) * LDT + row] = val.v[e];
-          }
-          if (!PROJECT && row < jn) {
-            const Pack<T> val = *reinterpret_cast<const Pack<T>*>(b_l + o);
-#pragma unroll
-            for (int e = 0; e < E; ++e) bt[(ch * E + e) * LDT + row] = val.v[e];
-          }
-        }
-        if (PROJECT) {  // U[k][j] as it lies: a copy, not a transpose
-          const int k = i / (TT / E), jc = i % (TT / E) * E;
-          if (k < kv && jc < jn)
-            *reinterpret_cast<Pack<T>*>(bt + k * LDT + jc) =
-                *reinterpret_cast<const Pack<T>*>(b_l + k * TT + jc);
-        }
-      }
-    } else {
-      for (int i = tid; i < TT * KP; i += WIDE_THREADS) {
-        const int row = i % TT, k = i / TT;
-        if (k >= kn) continue;
-        const int o = land(row, k / E) + k % E;
-        if (row < w.rows) {
-          T val = T(0);
-          if (k < kv && (!SELECT || r_l[o] < ms[row])) val = a_l[o];
-          if (MASKED && k < kv) val = val * m_l[o];
-          at[k * LDT + row] = val;
-        }
-        if (row < jn)
-          bt[k * LDT + row] = k >= kv ? T(0) : PROJECT ? b_l[k * TT + row] : b_l[o];
-      }
-    }
-  };
-
-  if (SELECT && t_begin < t_end && tid < iw.rows)  // the first cuts, now
-    m_s[tid] = m[iw.r0 + tid];
+  }
   __syncthreads();
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < steps) issue();
-    cp_async_commit();
-  }
 
-  T acc[8][8];  // [row r + 4 h][column e + 4 h]
-  for (int v = 0, t = t_begin, p = 0; v < steps; ++v) {
-    cp_async_wait<STAGES - 2>();  // this thread's copies of step v landed
-    transpose(v, p, t);
-    __syncthreads();  // step v transposed; step v-1 done with
-    if (v + STAGES - 1 < steps) issue();
-    cp_async_commit();
-
-    if (p == 0) {  // a new tile: acc = +0
+  if (warp >= WIDE_THREADS / 32) {
+    // ---- the producer warpgroup: copies, masks and splits -------------------
+    const int pt = tid - WIDE_THREADS;
+    // A: rows 16 mf + g and + 8 of m fragments mf = pt / 32 + 4 i, k 4q .. + 3
+    // The copies run STAGES - 1 steps ahead of the split: step iv, panel ip
+    // of tile it (iw), lands in ring buffer iv % STAGES. A thread reads back
+    // only what it copied, so the producers need no barrier of their own.
+    int it = 0, ip = 0, iv = 0;
+    WideTile iw = wide_tile(0, tps, nsl, sw, nb);
+    auto issue = [&]() {
+      const int k0 = ip * KP;
+      const int kv = min(KP, d - k0);      // k of D in this panel
+      const int jw = min(sw, d - iw.j0);   // columns of D in this slab
+      float* a_r = ring + (iv % STAGES) * STAGE;
+      float* u_r = a_r + U_OFF;
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc[i][e] = T(0);
-    }
-
-    const T* at = tr + (v % 2) * TBUF + row_t;
-    const T* bt = tr + (v % 2) * TBUF + KP * LDT + col_t;
-    auto kstep = [&](int k) {  // acc += A[:, k] B[k, :], k ascending
-      T a[2][KU], b[2][KU];
-      load_ku(at + k * LDT, a[0]);
-      load_ku(at + k * LDT + 16, a[1]);
-      load_ku(bt + k * LDT, b[0]);
-      load_ku(bt + k * LDT + 32, b[1]);
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 8; ++e)
-          acc[i][e] = fma_t(a[i >> 2][i & 3], b[e >> 2][e & 3], acc[i][e]);
-    };
-    const int kn = min(KP, ldk - p * KP);
-    if (kn == KP) {
-#pragma unroll 1
-      for (int k = 0; k < KP; ++k) kstep(k);
-    } else {
-#pragma unroll 4
-      for (int k = 0; k < kn; ++k) kstep(k);
-    }
-    if (++p < panels) continue;
-    p = 0;
-
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {  // out = x + acc (the projection: acc)
-      const int row = row_t + (i & 3) + 16 * (i >> 2);
-      if (row >= w.rows) continue;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int col = w.j0 + col_t + 32 * h;
-        const size_t o = (size_t)(w.r0 + row) * d + col;
-        const T* aa = acc[i] + 4 * h;
-        if (vec && col + KU <= d) {
-          T y[KU];
-          if (PROJECT) {
-#pragma unroll
-            for (int e = 0; e < KU; ++e) y[e] = aa[e];
-          } else {
-            load_ku(x + o, y);
-#pragma unroll
-            for (int e = 0; e < KU; ++e) y[e] = y[e] + aa[e];
-          }
-          store_ku(out + o, y);
+      for (int r = 0; r < TM * 2 / P * 2; ++r) {  // rows as they lie: [row][KP]
+        const int row = ((pt >> 5) + (r >> 1) * (P / 32)) * 16 + g + 8 * (r & 1);
+        if (row >= iw.rows || q * 4 >= kv) continue;
+        const size_t ga = (size_t)(iw.r0 + row) * d + k0 + q * 4;
+        float* dst = a_r + row * KP + q * 4;
+        if (vec) {
+          cp_async16(dst, c + ga);
+          if (SELECT) cp_async16(dst + TM * KP, rank + ga);
+          if (MASKED) cp_async16(dst + TM * KP, mk + ga);
         } else {
-#pragma unroll
-          for (int e = 0; e < KU; ++e)
-            if (col + e < d) out[o + e] = PROJECT ? aa[e] : x[o + e] + aa[e];
+          for (int e = 0; e < 4 && q * 4 + e < kv; ++e) {
+            cp_async4(dst + e, c + ga + e);
+            if (SELECT) cp_async4(dst + TM * KP + e, rank + ga + e);
+            if (MASKED) cp_async4(dst + TM * KP + e, mk + ga + e);
+          }
         }
       }
+      const float* ub = basis + (size_t)iw.s * d * d;
+#pragma unroll
+      for (int r = 0; r < WT_SLAB * KP / 4 / P; ++r) {
+        const int i = pt + r * P;
+        if (PROJECT) {  // chunk (k, nc): U[k0 + k][j0 + 4 nc .. + 3]
+          const int k = i & 15, nc = i >> 4;
+          if (k >= kv || nc * 4 >= jw) continue;
+          const float* src = ub + (size_t)(k0 + k) * d + iw.j0 + nc * 4;
+          float* dst = u_r + k * WT_LDU + nc * 4;
+          if (vec) {
+            cp_async16(dst, src);
+          } else {
+            for (int e = 0; e < 4 && nc * 4 + e < jw; ++e) cp_async4(dst + e, src + e);
+          }
+        } else {  // chunk (n, kc): U[j0 + n][k0 + 4 kc .. + 3] = B[4 kc ..][n]
+          const int n = i >> 2, kc = i & 3;
+          if (n >= jw || kc * 4 >= kv) continue;
+          const float* src = ub + (size_t)(iw.j0 + n) * d + k0 + kc * 4;
+          float* dst = u_r + i * 4;
+          if (vec) {
+            cp_async16(dst, src);
+          } else {
+            for (int e = 0; e < 4 && kc * 4 + e < kv; ++e) cp_async4(dst + e, src + e);
+          }
+        }
+      }
+      ++iv;
+      if (++ip < panels) return;
+      ip = 0;
+      if (++it < n_tiles) iw = wide_tile(it, tps, nsl, sw, nb);
+    };
+
+#pragma unroll
+    for (int s0 = 0; s0 < STAGES - 1; ++s0) {
+      if (s0 < steps) issue();
+      cp_async_commit();
     }
-    if (++t < t_end) w = tile(t);
+    WideTile ws{};
+    int cut[TM * 2 / P * 2];  // select: this thread's rows' cuts
+    for (int v = 0, t = 0, p = 0; v < steps; ++v) {
+      if (p == 0) {
+        ws = wide_tile(t, tps, nsl, sw, nb);
+#pragma unroll
+        for (int r = 0; r < TM * 2 / P * 2; ++r) {
+          const int row = ((pt >> 5) + (r >> 1) * (P / 32)) * 16 + g + 8 * (r & 1);
+          cut[r] = SELECT && row < ws.rows ? m[ws.r0 + row] : 0;
+        }
+      }
+      const int k0 = p * KP, kv = min(KP, d - k0);
+      const int jw = min(sw, d - ws.j0);
+      cp_async_wait<STAGES - 2>();  // step v landed (this thread's copies)
+      // plane v % 2 is free once the MMAs of step v - 2 are done with it
+      if (v >= 2) mbar_wait_or_trap(empty + (v & 1), ((v >> 1) - 1) & 1);
+      const float* a_r = ring + (v % STAGES) * STAGE;
+      const float* u_r = a_r + U_OFF;
+      uint4* pa = planes + (v & 1) * WT_PLANES;
+      uint4* pb = pa + WT_PLANE_A;
+#pragma unroll
+      for (int r2 = 0; r2 < TM * 2 / P; ++r2) {
+        // A: rows g and g + 8 (h) of m fragment mf, k 4q .. + 3, masked;
+        // step s of the pair gets {A[g][4q + 2s], A[g + 8][..], A[g][4q +
+        // 2s + 1], A[g + 8][..]}: lane (g, q)'s fragment as the MMA reads it
+        const int mf = (pt >> 5) + r2 * (P / 32);
+        float val[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = mf * 16 + g + 8 * h;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) val[h][e] = 0.f;
+          if (row >= ws.rows) continue;
+          const float4 raw = *reinterpret_cast<const float4*>(a_r + row * KP + q * 4);
+          const float rv[4] = {raw.x, raw.y, raw.z, raw.w};
+          float mv[4] = {1.f, 1.f, 1.f, 1.f};
+          int rk[4] = {0, 0, 0, 0};
+          if (MASKED) {
+            const float4 t4 = *reinterpret_cast<const float4*>(a_r + TM * KP + row * KP + q * 4);
+            mv[0] = t4.x, mv[1] = t4.y, mv[2] = t4.z, mv[3] = t4.w;
+          }
+          if (SELECT) {
+            const int4 t4 = *reinterpret_cast<const int4*>(a_r + TM * KP + row * KP + q * 4);
+            rk[0] = t4.x, rk[1] = t4.y, rk[2] = t4.z, rk[3] = t4.w;
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool live = q * 4 + e < kv && (!SELECT || rk[e] < cut[r2 * 2 + h]);
+            val[h][e] = live ? (MASKED ? rv[e] * mv[e] : rv[e]) : 0.f;
+          }
+        }
+        uint4* slot = pa + mf * 128 + lane;  // [m fragment][step][hi, lo][lane]
+#pragma unroll
+        for (int s2 = 0; s2 < 2; ++s2) {
+          const float f[4] = {val[0][2 * s2], val[1][2 * s2], val[0][2 * s2 + 1],
+                              val[1][2 * s2 + 1]};
+          uint4 hi, lo;
+          split4(f, hi, lo);
+          slot[s2 * 64] = hi;
+          slot[s2 * 64 + 32] = lo;
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < WT_SLAB * KP / 4 / P; ++r) {
+        const int i = pt + r * P;
+        if (PROJECT) {
+          // B[k][4 nc + e] goes to n fragment nc / 2, lane ((nc % 2) * 4 + e)
+          // * 4 + k / 4, component k % 4; a half warp with nc odd stores its
+          // e in the order 1, 0, 3, 2, so the warp's 32 stores hit 32 banks
+          const int k = i & 15, nc = i >> 4;
+          float val[4] = {0.f, 0.f, 0.f, 0.f};
+          if (k < kv && nc * 4 < jw) {
+            const float4 raw = *reinterpret_cast<const float4*>(u_r + k * WT_LDU + nc * 4);
+            const float rv[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) val[e] = nc * 4 + e < jw ? rv[e] : 0.f;
+          }
+          uint32_t* pw = reinterpret_cast<uint32_t*>(pb + (nc >> 1) * 64);
+#pragma unroll
+          for (int ee = 0; ee < 4; ++ee) {
+            const int e = ee ^ (nc & 1);
+            uint32_t hi, lo;
+            split_plane(val[e], hi, lo);
+            const int word = (((nc & 1) * 4 + e) * 4 + (k >> 2)) * 4 + (k & 3);
+            pw[word] = hi;
+            pw[128 + word] = lo;
+          }
+        } else {  // chunk (n, kc): n fragment n / 8, lane (n % 8) * 4 + kc = i % 32
+          const int n = i >> 2, kc = i & 3;
+          float val[4] = {0.f, 0.f, 0.f, 0.f};
+          if (n < jw) {
+            const float4 raw = *reinterpret_cast<const float4*>(u_r + i * 4);
+            const float rv[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+            for (int e = 0; e < 4; ++e) val[e] = kc * 4 + e < kv ? rv[e] : 0.f;
+          }
+          uint4 hi, lo;
+          split4(val, hi, lo);
+          const int slot = (i >> 5) * 64 + (i & 31);
+          pb[slot] = hi;
+          pb[slot + 32] = lo;
+        }
+      }
+      mbar_arrive(full + (v & 1));
+      // ring buffer v % STAGES is read: refill it STAGES - 1 steps ahead
+      if (v + STAGES - 1 < steps) issue();
+      cp_async_commit();
+      if (++p == panels) p = 0, ++t;
+    }
+    cp_async_wait<0>();
+    return;
   }
-  cp_async_wait<0>();
+
+  // ---- the MMA warps: 2 warpgroups of 32-row by 64-column warp tiles --------
+  const int wm = warp % WT_WM, wn = warp / WT_WM;
+  // The MMAs of step v (plane v % 2) for this warp's first nf n fragments:
+  // a panel's six products of a fragment pair go into part from +0, which
+  // is then added to acc (an fp32 add, rounded to nearest)
+  float acc[2][8][4];
+  int jw = 0, f0 = 0, nf_w = 0;  // the tile's columns, this warp's n fragments
+  auto mmas = [&](int v, int nf) {
+    const uint4* pa = planes + (v & 1) * WT_PLANES + wm * 256 + lane;
+    const uint4* pb = planes + (v & 1) * WT_PLANES + WT_PLANE_A + f0 * 64 + lane;
+    uint4 ah[2][2], al[2][2];  // [m fragment][step]: fragments as loaded
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+        ah[mi][s2] = pa[mi * 128 + s2 * 64];
+        al[mi][s2] = pa[mi * 128 + s2 * 64 + 32];
+      }
+    // two n fragments at a time, each product for all four (fragment, m
+    // fragment) pairs back to back: no MMA waits on the one before it
+#pragma unroll
+    for (int j0 = 0; j0 < 8; j0 += WT_JG) {
+      if (j0 >= nf) break;
+      uint4 bh[WT_JG], bl[WT_JG];
+      float part[WT_JG][2][4];
+#pragma unroll
+      for (int jj = 0; jj < WT_JG; ++jj)
+        if (j0 + jj < nf) bh[jj] = pb[(j0 + jj) * 64], bl[jj] = pb[(j0 + jj) * 64 + 32];
+#pragma unroll
+      for (int s2 = 0; s2 < 2; ++s2) {
+#pragma unroll
+        for (int jj = 0; jj < WT_JG; ++jj) {
+          const uint32_t h0 = s2 ? bh[jj].z : bh[jj].x, h1 = s2 ? bh[jj].w : bh[jj].y;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            if (j0 + jj >= nf) continue;
+            if (s2 == 0) mma_tf32_zero(part[jj][mi], al[mi][s2], h0, h1);
+            else mma_tf32(part[jj][mi], al[mi][s2], h0, h1);
+          }
+        }
+#pragma unroll
+        for (int jj = 0; jj < WT_JG; ++jj) {
+          const uint32_t l0 = s2 ? bl[jj].z : bl[jj].x, l1 = s2 ? bl[jj].w : bl[jj].y;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            if (j0 + jj < nf) mma_tf32(part[jj][mi], ah[mi][s2], l0, l1);
+        }
+#pragma unroll
+        for (int jj = 0; jj < WT_JG; ++jj) {
+          const uint32_t h0 = s2 ? bh[jj].z : bh[jj].x, h1 = s2 ? bh[jj].w : bh[jj].y;
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi)
+            if (j0 + jj < nf) mma_tf32(part[jj][mi], ah[mi][s2], h0, h1);
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < WT_JG; ++jj)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (j0 + jj < nf) acc[mi][j0 + jj][e] += part[jj][mi][e];
+    }
+  };
+
+  WideTile w{};
+  for (int v = 0, t = 0, p = 0; v < steps; ++v) {
+    if (p == 0) {  // a new tile: acc = +0
+      w = wide_tile(t, tps, nsl, sw, nb);
+      jw = min(sw, d - w.j0);
+      warp_frags(jw, wn, f0, nf_w);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[mi][j][e] = 0.f;
+    }
+    mbar_wait_or_trap(full + (v & 1), (v >> 1) & 1);  // plane v % 2 split
+    if (nf_w == 8) mmas(v, 8);  // the whole warp tile, unguarded
+    else if (nf_w > 0) mmas(v, nf_w);  // warp-uniform: a narrow slab
+    mbar_arrive(empty + (v & 1));  // done with plane v % 2
+
+    if (++p == panels) {
+      p = 0, ++t;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 32 + mi * 16 + h * 8 + g;
+          if (row >= w.rows) continue;
+          const size_t o = (size_t)(w.r0 + row) * d + w.j0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = (f0 + j) * 8 + 2 * q;
+            if (j >= nf_w || col >= jw) continue;
+            const float y0 = acc[mi][j][2 * h], y1 = acc[mi][j][2 * h + 1];
+            if (vec) {  // D % 4 == 0: col + 1 < jw
+              float2 r = make_float2(y0, y1);
+              if (!PROJECT) {
+                const float2 xv = *reinterpret_cast<const float2*>(x + o + col);
+                r = make_float2(xv.x + y0, xv.y + y1);
+              }
+              *reinterpret_cast<float2*>(out + o + col) = r;
+            } else {
+              out[o + col] = PROJECT ? y0 : x[o + col] + y0;
+              if (col + 1 < jw) out[o + col + 1] = PROJECT ? y1 : x[o + col + 1] + y1;
+            }
+          }
+        }
+    }
+  }
 }
 
+// -- fp64: gbatc_wide_dmma (correct, select and the masked mode) ------------
+//
+// DMMA m16n8k8 in fp64, as project_f64_wide, on panels of WD_KP = 16 k (two
+// k steps) in a WD_STAGES-deep cp.async ring that the MMA warps read
+// directly: A[rows, k0 : k0 + 16] (c; select: and rank; masked: and the
+// mask) and U[j0 : j0 + sw, k0 : k0 + 16], whose rows are B's columns,
+// k-contiguous as the .col fragment wants. Within a k step a fragment's
+// column q takes k = 2q and column q + 4 takes k = 2q + 1 (in A and in B
+// alike). B lies as it is read, 8 chunks of 16 bytes a row, the chunk
+// index XOR-ed with 4 on odd rows (wd_chunk) so the two rows a quarter
+// warp loads fall on distinct banks: lane (g, q)'s {b0, b1} is one 16-byte
+// load. The producers copy A 8 bytes at a time into rows g and g + 8 of a
+// fragment interleaved (wd_a), so {a0, a1} and {a2, a3} are two 16-byte
+// loads that land in the registers the DMMA reads (project_f64_wide's B
+// fragment is two 8-byte loads, and an A fragment read from rows as they
+// lie needs four register moves a DMMA); the thread that copied a value of
+// c masks it in place once it lands (select: +0 where rank >= m; masked: c
+// times the mask) and then marks the buffer full. Order: each fragment's
+// steps ascend from +0 over k of D padded with +0 to a multiple of 8, out
+// = x + acc; select on (c, rank, m) feeds the MMAs the bits correct feeds
+// them on where(rank < m, c, 0). What bounds it: 48.7 GFLOP at (58, 1600,
+// 512), 0.75 ms at the 64.5 TFLOP/s DMMA reaches on an H100
+// (tools/mma_peak.py), and the producers' copies, 128 threads issuing
+// 8-byte copies for A; the MMA warps spill. With the other side taken out,
+// the MMA warps take 1.32 ms and the producers 1.19 of correct's 1.46
+// there (tools/gbatc_wide_timing.py --probes).
+constexpr int WD_KP = 16;     // k a panel: two k steps
+constexpr int WD_STAGES = 4;  // panels in the ring
+
+constexpr int WD_LDA = 2 * WD_KP + 2;  // doubles a row pair of A, padded
+
+// U's panel: the double offset of 16-byte chunk ch of row n
+__device__ __forceinline__ int wd_chunk(int row, int ch) {
+  return row * WD_KP + ((ch ^ ((row & 1) << 2)) << 1);  // doubles
+}
+// A's panel: rows g and g + 8 of an m fragment interleaved, {A[g][k],
+// A[g + 8][k]} at offset k of the pair, so a lane's two fragment k are
+// two 16-byte loads that land in fragment order
+__device__ __forceinline__ int wd_a(int row, int k) {
+  return ((row >> 4) * 8 + (row & 7)) * WD_LDA + 2 * k + ((row >> 3) & 1);
+}
+// doubles of a ring stage: [A | rank (select) or mask (masked) | U]
+template <int MODE>
+__host__ __device__ constexpr int wd_stage_words() {
+  return WT_TM / 2 * WD_LDA +
+         (MODE == MODE_SELECT ? WT_TM * WD_KP / 2 : MODE == MODE_MASKED ? WT_TM * WD_KP : 0) +
+         WT_SLAB * WD_KP;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(WT_THREADS, 1)
+gbatc_wide_dmma(const double* __restrict__ x, const double* __restrict__ c,
+                const int* __restrict__ rank, const int* __restrict__ m,
+                const double* __restrict__ mk, const double* __restrict__ basis,
+                double* __restrict__ out, int s_count, long long nb, int d,
+                int vec) {
+  constexpr bool SELECT = MODE == MODE_SELECT, MASKED = MODE == MODE_MASKED;
+  constexpr int TM = WT_TM, KP = WD_KP, KS = KP / 8, STAGES = WD_STAGES;
+  constexpr int STAGE = wd_stage_words<MODE>();
+  constexpr int A_WORDS = TM / 2 * WD_LDA;      // A in a stage
+  constexpr int U_OFF = STAGE - WT_SLAB * KP;  // U in a stage
+  constexpr int P = WT_PRODUCERS;
+  constexpr int A_CH = TM * KP / 2 / P;       // A chunks a producer thread
+  constexpr int U_CH = WT_SLAB * KP / 2 / P;  // U chunks a producer thread
+  static_assert(STAGES >= 2 && KP == 16 && A_CH * P * 2 == TM * KP, "ring shape");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  double* ring = reinterpret_cast<double*>(smem_raw);
+  // full[s]: ring buffer s landed (and masked); empty[s]: its MMAs done
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int ks_n = (d + 7) / 8;  // k steps of D
+  const int dp = ks_n * 8;       // D padded with zero terms
+  const int panels = (ks_n + KS - 1) / KS;
+  const int nsl = (d + WT_SLAB - 1) / WT_SLAB;
+  const int sw = slab_width(d);
+  const int tps = (int)((nb + TM - 1) / TM) * nsl;
+  const int total = tps * s_count;
+  const int n_tiles = wide_tiles(total);
+  const int steps = n_tiles * panels;
+
+  if (tid == 0) {
+    for (int b = 0; b < STAGES; ++b) {
+      mbar_init_count(full + b, P);
+      mbar_init_count(empty + b, WIDE_THREADS);
+    }
+  }
+  __syncthreads();
+
+  if (warp >= WIDE_THREADS / 32) {
+    // ---- the producer warpgroup: copies and masks ----------------------------
+    // chunk i = pt + r P of a panel: A (row, ch) = (i / 8, i % 8), two k of a
+    // row; U (n, ch) likewise. k in [D, dp) of a panel is +0 in A and in B
+    // (written with the copies); rows past the tile and columns past the
+    // slab only feed outputs that are never stored. A thread reads back
+    // only what it copied.
+    const int pt = tid - WIDE_THREADS;
+    int it = 0, ip = 0, iv = 0;
+    WideTile iw = wide_tile(0, tps, nsl, sw, nb);
+    auto issue = [&]() {
+      const int k0 = ip * KP;
+      const int kv = min(KP, d - k0);   // k of D in this panel
+      const int kn = min(KP, dp - k0);  // k its MMAs run
+      const int jw = min(sw, d - iw.j0);
+      double* a_s = ring + (iv % STAGES) * STAGE;
+      double* u_s = a_s + U_OFF;
+#pragma unroll
+      for (int r = 0; r < A_CH; ++r) {
+        const int i = pt + r * P, row = i >> 3, ch = i & 7;
+        if (row >= iw.rows) continue;
+        const size_t ga = (size_t)(iw.r0 + row) * d + k0 + 2 * ch;
+        for (int e = 0; e < 2; ++e) {
+          const int k = 2 * ch + e;
+          if (k >= kn) break;
+          double* dst = a_s + wd_a(row, k);
+          if (k >= kv) {
+            *dst = 0.0;
+            continue;
+          }
+          cp_async8(dst, c + ga + e);
+          if (vec && e == 0) {  // kv is even: the chunk is whole
+            if (SELECT) cp_async8(reinterpret_cast<int*>(a_s + A_WORDS) + i * 2, rank + ga);
+            if (MASKED) cp_async16(a_s + A_WORDS + i * 2, mk + ga);
+          } else if (!vec) {
+            if (SELECT) cp_async4(reinterpret_cast<int*>(a_s + A_WORDS) + i * 2 + e, rank + ga + e);
+            if (MASKED) cp_async8(a_s + A_WORDS + i * 2 + e, mk + ga + e);
+          }
+        }
+      }
+      const double* ub = basis + ((size_t)iw.s * d + iw.j0) * d + k0;
+#pragma unroll 4
+      for (int r = 0; r < U_CH; ++r) {  // chunk (n, ch): U[j0 + n][k0 + 2 ch ..]
+        const int i = pt + r * P, n = i >> 3, ch = i & 7;
+        if (n >= jw || 2 * ch >= kn) continue;
+        const double* src = ub + (size_t)n * d + 2 * ch;
+        double* dst = u_s + wd_chunk(n, ch);
+        if (vec && 2 * ch < kv) {
+          cp_async16(dst, src);
+        } else {
+          for (int e = 0; e < 2 && 2 * ch + e < kn; ++e) {
+            if (2 * ch + e < kv) cp_async8(dst + e, src + e);
+            else dst[e] = 0.0;
+          }
+        }
+      }
+      ++iv;
+      if (++ip < panels) return;
+      ip = 0;
+      if (++it < n_tiles) iw = wide_tile(it, tps, nsl, sw, nb);
+    };
+
+#pragma unroll
+    for (int s0 = 0; s0 < STAGES - 1; ++s0) {
+      if (s0 < steps) issue();
+      cp_async_commit();
+    }
+    WideTile wk{};
+    int cut[A_CH];  // select: the cuts of this thread's rows
+    for (int v = 0, t = 0, p = 0; v < steps; ++v) {
+      if (SELECT && p == 0) {
+        wk = wide_tile(t, tps, nsl, sw, nb);
+#pragma unroll
+        for (int r = 0; r < A_CH; ++r) {
+          const int row = (pt + r * P) >> 3;
+          cut[r] = row < wk.rows ? m[wk.r0 + row] : 0;
+        }
+      } else if (MASKED && p == 0) {
+        wk = wide_tile(t, tps, nsl, sw, nb);
+      }
+      cp_async_wait<STAGES - 2>();  // step v landed (this thread's copies)
+      if (SELECT || MASKED) {  // c masked in place: +0 where rank >= m, or c * mask
+        const int kv = min(KP, d - p * KP);
+        double* a_s = ring + (v % STAGES) * STAGE;
+#pragma unroll
+        for (int r = 0; r < A_CH; ++r) {
+          const int i = pt + r * P, row = i >> 3, ch = i & 7;
+          if (row >= wk.rows) continue;
+          for (int e = 0; e < 2 && 2 * ch + e < kv; ++e) {
+            double* cv = a_s + wd_a(row, 2 * ch + e);
+            if (SELECT) {
+              const int rk = reinterpret_cast<const int*>(a_s + A_WORDS)[i * 2 + e];
+              if (!(rk < cut[r])) *cv = 0.0;
+            } else {
+              *cv = *cv * a_s[A_WORDS + i * 2 + e];
+            }
+          }
+        }
+      }
+      mbar_arrive(full + v % STAGES);
+      // ring buffer (v - 1) % STAGES is refilled once its MMAs are done
+      if (v + STAGES - 1 < steps) {
+        if (v >= 1) mbar_wait_or_trap(empty + (v - 1) % STAGES, ((v - 1) / STAGES) & 1);
+        issue();
+      }
+      cp_async_commit();
+      if (++p == panels) p = 0, ++t;
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // ---- the MMA warps -----------------------------------------------------------
+  const int wm = warp % WT_WM, wn = warp / WT_WM;
+  double acc[2][8][4];
+  int jw = 0, f0 = 0, nf_w = 0;
+  // the MMAs of step v for this warp's first nf n fragments
+  auto mmas = [&](int v, int ksn, int nf) {
+    const double* a_s = ring + (v % STAGES) * STAGE;
+    const double* u_s = a_s + U_OFF;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {  // k0 + 8 ks .. + 7
+      if (ks >= ksn) break;
+      double a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {  // rows g and g + 8 at k = 8 ks + 2q, + 1
+        const double* ap = a_s + wd_a(wm * 32 + mi * 16 + g, 8 * ks + 2 * q);
+        const double2 k0v = *reinterpret_cast<const double2*>(ap);
+        const double2 k1v = *reinterpret_cast<const double2*>(ap + 2);
+        a[mi][0] = k0v.x, a[mi][1] = k0v.y, a[mi][2] = k1v.x, a[mi][3] = k1v.y;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (j >= nf) continue;
+        const double2 b = *reinterpret_cast<const double2*>(
+            u_s + wd_chunk((f0 + j) * 8 + g, 4 * ks + q));
+        dmma(acc[0][j], a[0], b.x, b.y);
+        dmma(acc[1][j], a[1], b.x, b.y);
+      }
+    }
+  };
+
+  WideTile w{};
+  for (int v = 0, t = 0, p = 0; v < steps; ++v) {
+    if (p == 0) {  // a new tile: acc = +0
+      w = wide_tile(t, tps, nsl, sw, nb);
+      jw = min(sw, d - w.j0);
+      warp_frags(jw, wn, f0, nf_w);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.0;
+    }
+    mbar_wait_or_trap(full + v % STAGES, (v / STAGES) & 1);  // step v landed
+    const int ksn = min(KS, ks_n - p * KS);  // the last panel may hold one step
+    if (nf_w == 8 && ksn == KS) mmas(v, KS, 8);  // unguarded
+    else if (nf_w > 0) mmas(v, ksn, nf_w);  // warp-uniform
+    mbar_arrive(empty + v % STAGES);  // done with ring buffer v % STAGES
+
+    if (++p == panels) {
+      p = 0, ++t;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = wm * 32 + mi * 16 + h * 8 + g;
+          if (row >= w.rows) continue;
+          const size_t o = (size_t)(w.r0 + row) * d + w.j0;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int col = (f0 + j) * 8 + 2 * q;
+            if (j >= nf_w || col >= jw) continue;
+            if (vec) {  // D even: col + 1 < jw
+              const double2 xv = *reinterpret_cast<const double2*>(x + o + col);
+              *reinterpret_cast<double2*>(out + o + col) =
+                  make_double2(xv.x + acc[mi][j][2 * h], xv.y + acc[mi][j][2 * h + 1]);
+            } else {
+              out[o + col] = x[o + col] + acc[mi][j][2 * h];
+              if (col + 1 < jw) out[o + col + 1] = x[o + col + 1] + acc[mi][j][2 * h + 1];
+            }
+          }
+        }
+    }
+  }
+}
 
 template <int MODE, int NCH, int MINB>
 int launch_ring(const float* x, const float* c, const int* rank, const int* m,
@@ -1714,22 +2186,26 @@ int launch_ring(const float* x, const float* c, const int* rank, const int* m,
   return (int)cudaGetLastError();
 }
 
-// every mode past D = 128, either dtype; x is null in the projection
+// every route past D = 128 but the fp64 projection: gbatc_wide_3xtf32
+// (fp32) or gbatc_wide_dmma (fp64), one CTA an SM; x is null in the
+// projection
 template <typename T, int MODE>
 int launch_wide(const T* x, const T* c, const int* rank, const int* m,
                 const T* mk, const T* u, T* out, int s, long long nb, int d,
                 void* stream) {
-  constexpr int TT = WIDE_TILE, KP = WIDE_KP, E = 16 / (int)sizeof(T);
-  constexpr int MINB = sizeof(T) == 4 ? 2 : 1;  // CTAs an SM
-  const size_t third = MODE == MODE_SELECT ? 4 : MODE == MODE_MASKED ? sizeof(T) : 0;
-  const size_t smem = (size_t)WIDE_STAGES * TT * KP * (2 * sizeof(T) + third) +
-                      (size_t)4 * KP * (TT + 4) * sizeof(T) +
-                      (MODE == MODE_SELECT ? 2 * TT * sizeof(int) : 0);
-  const long long tiles =
-      (long long)s * ((nb + TT - 1) / TT) * ((d + TT - 1) / TT);
-  const int panels = ((d + E - 1) / E * E + KP - 1) / KP;
+  constexpr bool F32 = sizeof(T) == 4;
+  const size_t smem =
+      F32 ? wt_smem_bytes<MODE>()
+          : (size_t)WD_STAGES * wd_stage_words<MODE>() * sizeof(double) +
+                2 * WD_STAGES * sizeof(uint64_t);
+  const long long tiles = (long long)s * ((nb + WT_TM - 1) / WT_TM) *
+                          ((d + WT_SLAB - 1) / WT_SLAB);
+  const int panels = F32 ? (d + WT_KP - 1) / WT_KP : ((d + 7) / 8 + 1) / 2;
   if (tiles * panels > INT32_MAX) return (int)cudaErrorInvalidValue;
-  auto kernel = gbatc_wide<T, MODE, MINB>;
+  void (*kernel)(const T*, const T*, const int*, const int*, const T*, const T*,
+                 T*, int, long long, int, int);
+  if constexpr (F32) kernel = gbatc_wide_3xtf32<MODE>;
+  else kernel = gbatc_wide_dmma<MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -1737,15 +2213,15 @@ int launch_wide(const T* x, const T* c, const int* rank, const int* m,
   if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      WIDE_THREADS, smem);
+  const int threads = WT_THREADS;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
   const long long slots = (long long)sms * per_sm;
   const long long grid = tiles < slots ? tiles : slots;
-  const int vec = d % E == 0 && aligned16(x) && aligned16(c) && aligned16(rank) &&
-                  aligned16(mk) && aligned16(u) && aligned16(out);
-  kernel<<<(unsigned)grid, WIDE_THREADS, smem,
+  const int vec = d % (16 / (int)sizeof(T)) == 0 && aligned16(x) && aligned16(c) &&
+                  aligned16(rank) && aligned16(mk) && aligned16(u) && aligned16(out);
+  kernel<<<(unsigned)grid, threads, smem,
            static_cast<cudaStream_t>(stream)>>>(x, c, rank, m, mk, u, out, s,
                                                 nb, d, vec);
   return (int)cudaGetLastError();

@@ -12,9 +12,17 @@ depends on D (``csrc/gbatc_kernels.cu``):
   projection as 3xTF32 (``project_f32_3xtf32``), fp32 select and correct
   on a cp.async ring (``correct_f32_ring``), and the fp64 select and
   correct and the masked 2D correct on ``gbatc_tile_kernel``;
-* past 128 the basis is staged in k panels: the fp64 projection on the
-  fp64 tensor cores in 256-column slabs (``project_f64_wide``), and every
-  other (kernel, dtype) in 128 x 128 tiles (``gbatc_wide``).
+* past 128 the basis is staged in k panels, every route on the tensor
+  cores: the fp64 projection in 256-column slabs (``project_f64_wide``),
+  every fp32 route (the projection, select, correct and the masked 2D
+  correct) as 3xTF32 (``gbatc_wide_3xtf32``: each operand split once, as
+  it is staged, into tf32 hi and lo planes in fragment order; a k pair's
+  three products summed from +0 and then added to the accumulator), and
+  the fp64 select, correct and masked correct on DMMA
+  (``gbatc_wide_dmma``). Both work 128-row tiles against slabs of up to
+  128 columns, a producer warpgroup copying and preparing each k panel
+  ahead of 8 MMA warps. Select stays bitwise correct on ``where(rank < m,
+  c, 0)`` in both dtypes.
 
 See :mod:`repro_torch.kernels._wrap` for what every wrapper checks and how
 it launches.

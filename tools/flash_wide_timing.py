@@ -61,14 +61,16 @@ B, H, T, D = cs.FLASH_WIDE_PATH
 SHAPES = {"decode_4096": (B, H, T, D), "encode_512": (512, H, T, D)}
 
 
-def build(sources: dict) -> dict:
-    """{name: source path} -> {name: (CDLL, ptxas usage of its wide
-    kernels)}; every nvcc runs at once."""
+def build(sources: dict, stem: str = "flash_attention", kernels: str = "flash_wide",
+          out: str = OUT) -> dict:
+    """{name: path of a copy of ``csrc/<stem>.cu``} -> {name: (CDLL, ptxas
+    usage of its kernels whose names hold ``kernels``)}, each built with the
+    package's nvcc flags into ``<out>/<name>/``; every nvcc runs at once."""
     procs = {}
     for name, src in sources.items():
-        out_dir = os.path.join(OUT, name)
+        out_dir = os.path.join(out, name)
         os.makedirs(out_dir, exist_ok=True)
-        lib = os.path.join(out_dir, "libflash_attention.so")
+        lib = os.path.join(out_dir, f"lib{stem}.so")
         procs[name] = (lib, subprocess.Popen(
             [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", lib, src],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -76,20 +78,26 @@ def build(sources: dict) -> dict:
     for name, (lib, proc) in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
-            sys.exit(f"nvcc failed on {name}:\n{log[-3000:]}")
+            errors = "\n".join(ln for ln in log.splitlines() if "error" in ln)
+            sys.exit(f"nvcc failed on {name}:\n{errors[:6000]}\n{log[-1500:]}")
         usage, cur = {}, None
         for ln in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
-                cur = m.group(1) if "flash_wide" in m.group(1) else None
+                cur = m.group(1) if kernels in m.group(1) else None
             elif cur and ("spill" in ln or "Used" in ln):
                 usage.setdefault(cur, []).append(ln.strip()[-100:])
-        cdll = ctypes.CDLL(lib)
+        libs[name] = (ctypes.CDLL(lib), usage)
+    return libs
+
+
+def declare_flash(libs: dict) -> dict:
+    """The C signatures of ``build``'s flash libraries; returns ``libs``."""
+    for cdll, _ in libs.values():
         for fn in (cdll.flash_attention_f32, cdll.flash_attention_bf16):
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong]
                            + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-        libs[name] = (cdll, usage)
     return libs
 
 
@@ -142,7 +150,7 @@ def main() -> None:
     for v in args.variant:
         name, path = v.split("=", 1)
         sources[name] = path
-    libs = build(sources)
+    libs = declare_flash(build(sources))
     print(json.dumps({"build": {n: u for n, (_, u) in libs.items()}}), flush=True)
     if args.sass:
         print(json.dumps({"sass": sass(os.path.join(OUT, "checkout",
