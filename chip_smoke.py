@@ -68,8 +68,10 @@ Phases (each prints one JSON line; any failure exits non-zero):
    plain version, the same bits twice and for a sub-range, the rows or
    species the CTAs take on a second pass bitwise their own call; and it
    holds every kernel inside its old domain to the sha256s of the build
-   before that widening (``OLD_DOMAIN_SHA256``), and flash past D = 256
-   to those of its tensor-core kernel's first build (``FLASH_WIDE_SHA256``);
+   before that widening (``OLD_DOMAIN_SHA256``), flash past D = 256
+   to those of its tensor-core kernel's first build (``FLASH_WIDE_SHA256``)
+   and ``rwkv6_scan`` past N = 64 to those of ``rwkv6_chunked``'s first
+   build (``RWKV_WIDE_SHA256``, both timed paths included);
 7. ``ops_path``  each of the six ``repro_torch.kernels.ops.*_op`` functions
    (the JAX package's ``kernels/ops.py``, name for name) once at its
    full-width shape, from numpy inputs on the default device, against its
@@ -154,7 +156,11 @@ Phases (each prints one JSON line; any failure exits non-zero):
    plain versions, bf16 within one bf16 ulp of each element's value, flash
    in both dtypes faster than its plain version and giving the same bits
    twice and for a batch sub-range, timed beside SDPA and their bounds
-   (fp32's is 3xTF32's, with the CUDA cores' beside it);
+   (fp32's is 3xTF32's, with the CUDA cores' beside it). This phase runs
+   in a process of its own (this script with ``--child lm_serve_path``),
+   started after ``wide_head_path`` and waited for after ``mesh_path``, so
+   its times are taken beside those phases'; its lines print where it
+   would have run;
 13. ``lm_train_path``  the language-model training path
    (``repro_torch.train.train_loop.make_train_step``, ``launch.train.train``,
    ``train.checkpoint``) on the card, every step through the portable route
@@ -208,7 +214,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    bytes less the tuple's table and the step count and learning rate the
    port keeps on the host (likewise the decode step's arguments and its
    logits and cache), with the step's peak less the argument bytes
-   reported;
+   reported. The children of (1) start after the ``kernels`` phase, at
+   a lower priority, and count beside the codec paths;
 15. ``analysis_path``  the invariant checker (``repro_torch.analysis``) on
    the card: (1) ``python -m repro_torch.analysis`` in a subprocess (the
    AST lint, the wire schema and the trace audit at its tiny shapes on the
@@ -222,7 +229,8 @@ Phases (each prints one JSON line; any failure exits non-zero):
    select and correct, flash in the attention decode, ``block_quant`` in
    the quantized data-parallel step); one line a program with its ops,
    host syncs, fp64 ops, transfers and launches;
-16. the ``{"kernels": [...]}`` line, the card line, and the final ``ok`` line.
+16. the ``{"kernels": [...]}`` line, the card line, the ``total`` line
+   (with each phase's seconds in this process), and the final ``ok`` line.
 
 Without CUDA the script exits non-zero and prints no result.
 """
@@ -230,12 +238,15 @@ Without CUDA the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import atexit
+import bisect
 import hashlib
 import json
 import math
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -541,11 +552,60 @@ FLASH_WIDE_SHA256 = {
 # second pass, and the last ones, are bitwise a call of their own
 FLASH_MANY_TILES = {"bfloat16": ((1, 1, 65536 * 64 + 1, 8, 64, False, 0), 64),
                     "float32": ((1, 1, 65536 * 128 + 1, 8, 64, False, 0), 128)}
-# rwkv6_scan past N = 64 (64-column slabs to N = 256, rwkv6_wide past it),
+# rwkv6_scan past N = 64 (rwkv6_chunked: the chunked form on the tensor
+# cores, S in registers to N = 1024, in S_T's memory past it: N = 1100),
 # both dtypes, with a random s0; RWKV_WIDE_PATH, RWKV-6 7B's d_model 4096
-# as 32 heads of 128, is timed
-RWKV_WIDE = [(1, 100, 2, 65), (2, 37, 3, 96), (1, 64, 1, 256), (2, 20, 2, 300)]
+# as 32 heads of 128, and RWKV_WIDER_PATH, 16 heads of 512 (the same 21.5
+# GFLOP of step-form work), are timed
+RWKV_WIDE = [(1, 100, 2, 65), (2, 37, 3, 96), (1, 64, 1, 256), (2, 20, 2, 300),
+             (1, 40, 2, 1100)]
 RWKV_WIDE_PATH = (8, 1024, 32, 128)
+RWKV_WIDER_PATH = (2, 1024, 8, 512)
+RWKV_CHUNK = 16  # rwkv6_chunked's CK_C: tokens a chunk
+
+
+def rwkv_chunk_flops(b, t, h, n) -> int:
+    """The chunked form's matrix products (state term, update, intra) at
+    RWKV_CHUNK tokens a chunk: 4 N^2 + 2 C N flops a token and head."""
+    return b * t * h * (4 * n * n + 2 * RWKV_CHUNK * n)
+
+
+# sha256 of rwkv6_scan's (out, S_T) at every RWKV_WIDE shape and at both
+# paths, both dtypes, on rwkv_wide_digests' numpy-made inputs (shape i from
+# RWKV_WIDE_SEED + i; each path's from one batch row's draw, repeated), as
+# rwkv6_chunked's first build gave them on an H100: a later redesign says
+# when it moves them
+RWKV_WIDE_SEED = 970
+RWKV_WIDE_SHA256 = {
+    "[1, 100, 2, 65]/float32":
+        "e923a76cd08b61e897f23a68ce10a184c18ea719767f2c72fb8b329dcda6b267",
+    "[1, 100, 2, 65]/bfloat16":
+        "d0f48b09dfa056edac6797658d1553416a96722aeea431924da9accb407859b2",
+    "[2, 37, 3, 96]/float32":
+        "77b54f739339a9a506254d857d713f2a1702f31e7e00f92b955c87cbaf666e27",
+    "[2, 37, 3, 96]/bfloat16":
+        "c415d141c082cefe47abe314925638d020226a516588f360dfe3f8e6e1352128",
+    "[1, 64, 1, 256]/float32":
+        "66fba1851dcf1121b3674e1355d573702f2e061f7d82599aa639dc85c4f0321a",
+    "[1, 64, 1, 256]/bfloat16":
+        "a832003b47512158bd22a6f93f045b784071864b4ee5a51b9f12958bd5d55795",
+    "[2, 20, 2, 300]/float32":
+        "12dad5a414d613719773219649b1ae4506066b78e61a8c3142b6f5a901a010e5",
+    "[2, 20, 2, 300]/bfloat16":
+        "5a85d1a3a16adc816a5a67f490d4be0fdfca31b57df667cca59161c5aa744c62",
+    "[1, 40, 2, 1100]/float32":
+        "2b9b3fd8fccdce051ed4f8fbbc084de7a8ffe7cda493f0501913cc5154cbf738",
+    "[1, 40, 2, 1100]/bfloat16":
+        "fadc66ef17052348320fb427bed1c9a4052a21648deef429f5b1fb665c36bc2c",
+    "[8, 1024, 32, 128]/float32":
+        "a756921c8654d49b28a8e4616d6b1ee0b6ad021ad935f266cdb64cf7da2262e2",
+    "[8, 1024, 32, 128]/bfloat16":
+        "74a2a16edb25a91fcc3f9ccc78f14cd01997731f7fdef47d09b655cc0bfecc0f",
+    "[2, 1024, 8, 512]/float32":
+        "a40d33c87ea160d833fe8288fe7775174c6ac52e651c944fb6b44068c7353007",
+    "[2, 1024, 8, 512]/bfloat16":
+        "88ddc1773f8aaeb0cf0c647ab867a3ed096161218cbb9a644e0cf511be5b6bd9",
+}
 # grids past 65,535 in y: rglru_scan's batch rows, the GBATC tile kernel's
 # species (all six batched routes), and fp32 project and correct at a
 # basis of 65,537 x 182 x 182 = 2.17e9 elements (8.7 GB, offsets past
@@ -772,6 +832,19 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+# every process this script starts and has not yet reaped: stopped at exit,
+# on a failure and on SIGTERM alike
+CHILDREN: list = []
+
+
+def stop_children() -> None:
+    for p in CHILDREN:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    CHILDREN.clear()
+
+
 def gpu_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -844,9 +917,33 @@ PTXAS_NAMES = {
         r"rwkv6_kernelI(f|13__nv_bfloat16)Li(\d+)E",
         lambda m: "rwkv6/{}/np{}".format(
             "f32" if m.group(1) == "f" else "bf16", m.group(2))), (
-        r"rwkv6_wideI(f|13__nv_bfloat16)E",
-        lambda m: "rwkv6/{}/wide".format("f32" if m.group(1) == "f" else "bf16"))],
+        r"rwkv6_chunkedI(f|13__nv_bfloat16)Li(\d+)E",
+        lambda m: "rwkv6/{}/chunked/{}".format(
+            "f32" if m.group(1) == "f" else "bf16",
+            f"np{m.group(2)}" if m.group(2) != "0" else "s_in_memory"))],
 }
+
+
+def loop_counts(func: str) -> list:
+    """(innermost, instructions, FFMAs, MMAs) of each loop (a backward
+    branch's span of addresses) of one function of ``cuobjdump -sass``."""
+    ins = sorted((int(a, 16), op) for a, op in re.findall(
+        r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func))
+    spans = [(int(t, 16), int(a, 16)) for a, t in re.findall(
+        r"/\*([0-9a-f]{4,})\*/[^;\n]*\bBRA\b[^;\n]*0x([0-9a-f]+)", func)
+        if int(t, 16) < int(a, 16)]  # backward branches: loops
+    addr = [a for a, _ in ins]
+    ffma, mma = [0], [0]  # running counts over the sorted instructions
+    for _, op in ins:
+        ffma.append(ffma[-1] + op.startswith("FFMA"))
+        mma.append(mma[-1] + op.startswith(("HMMA", "DMMA")))
+    counted = []
+    for lo, hi in spans:
+        a, b = bisect.bisect_left(addr, lo), bisect.bisect_right(addr, hi)
+        counted.append((
+            not any(lo <= x and y <= hi and (x, y) != (lo, hi) for x, y in spans),
+            b - a, ffma[b] - ffma[a], mma[b] - mma[a]))
+    return counted
 
 
 def sass_loops(build) -> dict:
@@ -854,35 +951,31 @@ def sass_loops(build) -> dict:
     and tensor-core MMAs (HMMA, DMMA) of the loop that holds the most MMAs,
     an innermost one where one holds any (else the smallest of those
     holding the most: a key loop around its tile copies), or, in a kernel
-    without MMAs, of the loop that holds the most FFMAs, alike. MMAs rank
+    without MMAs, of the loop that holds the most FFMAs, alike; and the most
+    MMAs any one loop holds (``mma_any_loop``: a kernel's main loop around
+    its inner ones, as rwkv6_chunked's chunk loop). MMAs rank
     first because a division's slow path, which jumps back into the
     epilogue, reads as a loop of FFMAs (``cuobjdump -sass`` of the built
-    library); empty where cuobjdump is missing."""
+    library, one process a library, all started together); empty where
+    cuobjdump is missing."""
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    loops = {}
-    for stem, names in PTXAS_NAMES.items():
+    dumps = {}
+    for stem in PTXAS_NAMES:
         lib = build.build_dir() / f"lib{stem}.so"
-        if not (os.path.isfile(tool) and lib.is_file()):
-            continue
-        sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
-                              text=True, timeout=120).stdout
+        if os.path.isfile(tool) and lib.is_file():
+            dumps[stem] = subprocess.Popen([tool, "-sass", str(lib)], text=True,
+                                           stdout=subprocess.PIPE,
+                                           stderr=subprocess.DEVNULL)
+    loops = {}
+    for stem, proc in dumps.items():
+        names = PTXAS_NAMES[stem]
+        sass = proc.communicate(timeout=120)[0]
         for func in re.split(r"\n\s+Function : ", sass)[1:]:
             hit = next(((m, label) for pattern, label in names
                         if (m := re.search(pattern, func.split("\n", 1)[0]))), None)
             if not hit:
                 continue
-            ins = [(int(a, 16), op) for a, op in re.findall(
-                r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", func)]
-            spans = [(int(t, 16), int(a, 16)) for a, t in re.findall(
-                r"/\*([0-9a-f]{4,})\*/[^;\n]*\bBRA\b[^;\n]*0x([0-9a-f]+)", func)
-                if int(t, 16) < int(a, 16)]  # backward branches: loops
-            counted = []  # (innermost, instructions, FFMAs, MMAs) a loop
-            for lo, hi in spans:
-                body = [o for a, o in ins if lo <= a <= hi]
-                counted.append((
-                    not any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b in spans),
-                    len(body), sum(o.startswith("FFMA") for o in body),
-                    sum(o.startswith(("HMMA", "DMMA")) for o in body)))
+            counted = loop_counts(func)
             best = None
             for unit, innermost in ((3, True), (3, False), (2, True), (2, False)):
                 pool = [c for c in counted if c[unit] and (c[0] or not innermost)]
@@ -891,7 +984,8 @@ def sass_loops(build) -> dict:
                     break
             if best:
                 loops[hit[1](hit[0])] = {"loop_instructions": best[0],
-                                         "ffma": best[1], "mma": best[2]}
+                                         "ffma": best[1], "mma": best[2],
+                                         "mma_any_loop": max(c[3] for c in counted)}
     return loops
 
 
@@ -919,6 +1013,11 @@ def phase_build() -> dict:
     info["ptxas"] = usage
     info["sass_loops"] = sass_loops(_build)
     emit(info)
+    # rwkv6_scan past N = 64 runs on the tensor cores: each rwkv6_chunked
+    # chunk loop holds HMMAs (where cuobjdump can read the library)
+    chunked = {k: info["sass_loops"].get(k, {}) for k in usage if "/chunked/" in k}
+    if info["sass_loops"] and not all(v.get("mma_any_loop") for v in chunked.values()):
+        fail(f"a rwkv6_chunked chunk loop has no HMMA: {chunked}")
     if sorted(info["compiled"]) != sorted(_build.SOURCES):
         fail(f"only {info['compiled']} of {list(_build.SOURCES)} were compiled "
              "from the checkout's sources in this run")
@@ -1725,6 +1824,46 @@ def flash_wide_digests(torch) -> dict:
     return out
 
 
+def rwkv_wide_digests(torch, scan=None) -> dict:
+    """{case: sha256 of (out, S_T)} of rwkv6_scan at every RWKV_WIDE shape
+    and at RWKV_WIDE_PATH and RWKV_WIDER_PATH, both dtypes (see
+    RWKV_WIDE_SHA256). Each case draws r, k, v, w's logits, u and s0 once,
+    in fp32 with numpy (w = sigmoid(3 x) clamped to [1e-6, 1 - 1e-6] on the
+    card), and casts them to each dtype; a path's operands are one batch
+    row's draw repeated along the batch, and its rows' outputs must be
+    bitwise equal (a (b, h)'s bits depend only on its inputs). ``scan``
+    (default: the package's ``rwkv6_scan``) takes the wrapper's operands."""
+    import numpy as np
+
+    from repro_torch.kernels import rwkv6_scan as wk
+
+    scan = scan or wk.rwkv6_scan
+    out = {}
+    cases = [(shape, 1) for shape in RWKV_WIDE] + [
+        ((1,) + path[1:], path[0]) for path in (RWKV_WIDE_PATH, RWKV_WIDER_PATH)]
+    for i, ((b, t, h, n), rep) in enumerate(cases):
+        rng = np.random.default_rng(RWKV_WIDE_SEED + i)
+
+        def dev(*shape):
+            x = torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+            return x.repeat(rep, *([1] * (len(shape) - 1))) if len(shape) == 4 else x
+
+        rkv = [dev(b, t, h, n) for _ in range(3)]
+        w = dev(b, t, h, n).mul_(3.0).sigmoid_().clamp_(1e-6, 1 - 1e-6)
+        u, s0 = 0.5 * dev(h, n), dev(b, h, n, n)
+        for dt in (torch.float32, torch.bfloat16):
+            o, s_t = scan(*(x.to(dt) for x in rkv + [w, u]), s0)
+            if rep > 1 and not all(torch.equal(o[:1], o[j:j + 1]) and
+                                   torch.equal(s_t[:1], s_t[j:j + 1]) for j in range(1, rep)):
+                fail(f"rwkv6_scan {(rep * b, t, h, n)} {dt}: equal batch rows gave "
+                     "different outputs")
+            out[f"{[rep * b, t, h, n]}/{str(dt)[6:]}"] = digest(torch, o, s_t)
+            del o, s_t
+        del rkv, w, u, s0
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_ops_kernels(torch, launches: int) -> list[dict]:
     """The 2D GBATC pair, block_quant, rwkv6_scan and rglru_scan against
     their plain versions on the card: at the reference's sweeps, ragged
@@ -1923,7 +2062,7 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
         tolerance="max abs diff <= 2e-4 x max(1, max|plain|) (+ one bf16 ulp of it in bf16)"))
     del args
 
-    # past N = 64: the 64-column slabs (to N = 256) and rwkv6_wide (past it)
+    # past N = 64: rwkv6_chunked (S in registers to N = 1024, in S_T's memory past it)
     t0 = time.perf_counter()
     wide_err = 0.0
     for b, t, h, n in RWKV_WIDE:
@@ -1949,30 +2088,56 @@ def phase_ops_kernels(torch, launches: int) -> list[dict]:
                 same_rows(torch, f"{what} out", full[0], [(out_index, got[0])])
                 same_rows(torch, f"{what} S_T", full[1], [(s_index, got[1])])
             del args, full
-    b, t, h, n = RWKV_WIDE_PATH
-    args = rw_inputs(b, t, h, n, f32)
-    wide_err = max(wide_err, rw_check(args, "timed wide shape"))
-    same_twice(torch, "rwkv6_scan (wide)", lambda: wk.rwkv6_scan(*args))
-    full = wk.rwkv6_scan(*args)
-    part = wk.rwkv6_scan(*(a if i == 4 else a[:2].contiguous() for i, a in enumerate(args)))
-    for what, f, p in zip(("out", "S_T"), full, part):
-        same_rows(torch, f"rwkv6_scan (wide, {what})", f, [(slice(0, 2), p)])
-    del full, part
-    tokens = b * t * h
-    wide = kernel_row(
-        torch, "", "", "", lambda: wk.rwkv6_scan(*args),
-        lambda: kref.rwkv6_scan_ref(*args), None, "float32", RWKV_WIDE_PATH,
-        5 * tokens * n * 4 + 2 * b * h * n * n * 4 + h * n * 4, 5 * tokens * n * n,
-        launches, wide_err, plain_launches=3, initial_state="random (B,H,N,N)",
-        kernel="rwkv6_kernel<float, 128>: two 64-column slabs a (b, h)",
+    # decays that underflow at once, and w > 1 clamped, in the chunked form
+    rw_check(rw_inputs(1, 64, 1, 128, f32, decay=1e-30, carried=False), "N = 128, w = 1e-30")
+    above = rw_inputs(1, 40, 1, 96, f32, decay=1.5)
+    at_one = above[:3] + (torch.ones_like(above[3]),) + above[4:]
+    if not all(torch.equal(a, b) for a, b in zip(wk.rwkv6_scan(*above), wk.rwkv6_scan(*at_one))):
+        fail("rwkv6_scan past N = 64 does not clamp w > 1 to 1")
+    # the two timed paths: the bound is the larger of the bytes and the
+    # chunked form's products at the 3xTF32 rate, the step form's FFMA
+    # bound beside it
+    for key, path in (("wide_heads", RWKV_WIDE_PATH), ("wider_heads", RWKV_WIDER_PATH)):
+        b, t, h, n = path
+        args = rw_inputs(b, t, h, n, f32)
+        err = rw_check(args, f"timed shape {path}")
+        wide_err = max(wide_err, err)
+        same_twice(torch, f"rwkv6_scan {path}", lambda: wk.rwkv6_scan(*args))
+        full = wk.rwkv6_scan(*args)
+        rows_b = slice(0, 2 if b > 2 else 1)  # a batch sub-range (u has no batch)
+        part = wk.rwkv6_scan(*(a if i == 4 else a[rows_b].contiguous()
+                               for i, a in enumerate(args)))
+        for what, f, p in zip(("out", "S_T"), full, part):
+            same_rows(torch, f"rwkv6_scan ({path}, {what})", f, [(rows_b, p)])
+        del full, part
+        tokens = b * t * h
+        np_ = -(-n // 128) * 128  # N rounded up to the kernel's panels
+        cp = 16 * 8 * 128 // np_  # columns a slab (CP)
+        row = kernel_row(
+            torch, "", "", "", lambda: wk.rwkv6_scan(*args),
+            lambda: kref.rwkv6_scan_ref(*args), None, "float32", path,
+            5 * tokens * n * 4 + 2 * b * h * n * n * 4 + h * n * 4,
+            rwkv_chunk_flops(b, t, h, n), launches, err, plain_launches=3,
+            peak="float32_3xtf32", initial_state="random (B,H,N,N)",
+            bound_ffma_ms=5 * tokens * n * n / PEAK_FLOPS["float32"] * 1e3,
+            kernel=f"rwkv6_chunked<float, {np_}>: chunks of {RWKV_CHUNK} tokens "
+                   f"on the tensor cores (3xTF32), {-(-n // cp)} slab(s) of {cp} "
+                   "columns a (b, h)",
+            tolerance="as the N <= 64 shapes")
+        for k in ("name", "route", "source", "replaces", "launches"):
+            row.pop(k)
+        rows[-1][key] = row
+        del args
+    got = rwkv_wide_digests(torch)
+    missed = sorted(k for k, sha in got.items() if RWKV_WIDE_SHA256.get(k) != sha)
+    rows[-1]["wide_heads"].update(
         shapes_checked=RWKV_WIDE, dtypes_checked=["float32", "bfloat16"],
-        subranges_checked=["batch 1 (0-1 at the timed shape)", "head 1"],
-        tolerance="as the N <= 64 shapes")
-    for key in ("name", "route", "source", "replaces", "launches"):
-        wide.pop(key)
-    wide["seconds"] = time.perf_counter() - t0
-    rows[-1]["wide_heads"] = wide
-    del args
+        subranges_checked=["batch 1", "head 1", "batch 0-1 at RWKV_WIDE_PATH",
+                           "batch 0 at RWKV_WIDER_PATH"],
+        max_abs_err_all=wide_err,
+        digests={"seed": RWKV_WIDE_SEED, "cases": len(got), "equal_to_pinned": not missed,
+                 "missed": missed, "got": {k: got[k] for k in missed}},
+        seconds=time.perf_counter() - t0)
 
     # -- rglru_scan --------------------------------------------------------
     def rg_check(a, bb, h0, what) -> tuple:
@@ -3478,7 +3643,7 @@ LM_CHECK_ARCHS = ("llama3_2_1b", "stablelm_3b", "yi_9b", "rwkv6_7b",
 LM_CHECK_BATCH, LM_CHECK_PROMPT, LM_CHECK_STEPS = 2, 2112, 4
 # and two .smoke() configs widened past the kernels' old domains, d_model =
 # heads x head dim: Llama with 320-wide heads (flash_wide_mma), RWKV-6 with
-# 128-wide heads (rwkv6_scan's 64-column slabs); same batch and prompt
+# 128-wide heads (rwkv6_scan's rwkv6_chunked); same batch and prompt
 LM_WIDE_CHECKS = {
     "llama3_2_1b.smoke.d_head_320": ("llama3_2_1b", {"d_model": 1280, "d_head": 320}),
     "rwkv6_7b.smoke.rwkv_head_dim_128": ("rwkv6_7b", {"d_model": 256, "rwkv_head_dim": 128}),
@@ -3860,7 +4025,8 @@ def device_breakdown(torch, fn) -> dict:
                                                            "flash_f32_3xtf32",
                                                            "flash_bf16_mma",
                                                            "flash_wide_mma")),
-                                      ("rwkv6_scan", ("rwkv6_kernel",)),
+                                      ("rwkv6_scan", ("rwkv6_kernel",
+                                                      "rwkv6_chunked")),
                                       ("rglru_scan", ("rglru_kernel",)))
                     if any(tag in name for tag in tags)),
                    "gemm" if any(g in name for g in GEMM_NAMES) else "other")
@@ -4566,20 +4732,39 @@ def phase_lm_train_path(torch) -> dict:
 DRYRUN_DECODE_LEN = 4096
 DRYRUN_TIMED_STEPS = 3  # timed train steps after one warm-up, for the HFU
 DRYRUN_TIMEOUT_S = 600  # each dry-run child's limit
+# the children count on the host while the codec paths run (they start
+# after the kernels phase, so no kernel is timed beside them), held to a
+# quarter of its cores at a lower priority: the codec paths' host work
+# spreads over every core, and doubled beside them on all of them
+DRYRUN_CORES = max(1, len(os.sched_getaffinity(0)) // 4)
+DRYRUN_NICE = 10
 
 
-def dryrun_children(out_dir: str) -> dict:
+def dryrun_children() -> dict:
     """Gate 1's children: ``python -m repro_torch.launch.dryrun --arch <a>
-    --mesh both --out <out_dir>``, one per config, all started together."""
+    --mesh both --out <out_dir>``, one per config, all started together on
+    ``DRYRUN_CORES`` of the host's cores at ``DRYRUN_NICE``; returns the
+    processes, their directory, the time they were started and the cores."""
     from repro_torch.configs.base import list_configs
 
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=os.path.join(ROOT, "build"))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
-    return {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-         "--mesh", "both", "--out", out_dir],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
-        for arch in list_configs()}
+    cores = sorted(os.sched_getaffinity(0))[-DRYRUN_CORES:]
+    # the child sets its cores and priority before it imports anything
+    boot = (f"import os, runpy, sys; os.sched_setaffinity(0, {cores}); "
+            f"os.nice({DRYRUN_NICE}); sys.argv[0] = 'dryrun'; "
+            "runpy.run_module('repro_torch.launch.dryrun', run_name='__main__', "
+            "alter_sys=True)")
+    procs = {}
+    for arch in list_configs():
+        p = subprocess.Popen(
+            [sys.executable, "-c", boot, "--arch", arch, "--mesh", "both", "--out", out_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        CHILDREN.append(p)
+        procs[arch] = p
+    return {"procs": procs, "out_dir": out_dir, "started": time.perf_counter(),
+            "cores": cores}
 
 
 def dryrun_cells(torch, procs: dict, out_dir: str) -> dict:
@@ -4626,10 +4811,12 @@ def dryrun_cells(torch, procs: dict, out_dir: str) -> dict:
             "children": children}
 
 
-def phase_dryrun_path(torch) -> dict:
+def phase_dryrun_path(torch, children: dict | None = None) -> dict:
     """The dry run and its two checks on the card (see the module
-    docstring, step 13); returns the phase line, whose ``launches`` give
-    each kernel's count over the real steps (none: the portable route)."""
+    docstring, step 14); returns the phase line, whose ``launches`` give
+    each kernel's count over the real steps (none: the portable route).
+    ``children`` are gate 1's processes from :func:`dryrun_children`,
+    started earlier; without them they start here."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from repro_torch.configs.base import ShapeSpec, get_config
@@ -4642,8 +4829,10 @@ def phase_dryrun_path(torch) -> dict:
     t_start = time.perf_counter()
     info = {"phase": "dryrun_path", "gpu": gpu_line()}
     totals = {"real_steps": {k: 0 for k in all_counts()}}
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_", dir=os.path.join(ROOT, "build"))
-    procs = dryrun_children(out_dir)
+    children = children or dryrun_children()
+    procs, out_dir = children["procs"], children["out_dir"]
+    info["children_head_start_s"] = max(0.0, t_start - children["started"])
+    info["children_cores"] = children["cores"]
     try:
         # gates 2 and 3 while the children count on the host: lm_train_path's
         # full-width cell without the gradient compression
@@ -4863,6 +5052,74 @@ def phase_analysis_path(torch, main_codec, attention_artifact) -> dict:
     return info
 
 
+# phases that run in a process of their own (this script with --child),
+# beside main_path to mesh_path: they take nothing from another phase (the
+# wide paths generate the same seeded field again), and their device memory
+# (at most about 30 GB, lm_serve_path's) fits beside those phases' (about
+# 5 GB); lm_train_path (its peak is about 74 GB) runs alone
+CHILD_PHASES = ("wide_block_path", "wide_head_path", "lm_serve_path")
+CHILD_TIMEOUT_S = 900
+
+
+def run_child(torch, args, phases: list) -> None:
+    """The --child process: ``phases`` in order, each printing its lines."""
+    # the backend flags the kernels phase leaves set in the starting process
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    data = None
+    if {"wide_block_path", "wide_head_path"} & set(phases):
+        data, _, gen_s = generate(args)
+        emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
+    for phase in phases:
+        if phase == "wide_block_path":
+            phase_wide_block_path(torch, args, data)
+        elif phase == "wide_head_path":
+            phase_wide_head_path(torch, args, data)
+        else:
+            phase_lm_serve_path(torch)
+
+
+def start_child(args, phases: list) -> dict:
+    """Starts ``phases`` in a process of their own on the same card, with
+    this run's arguments, standard output to a file in this run's build
+    directory (whose libraries it loads, so nothing is compiled again);
+    its standard error is this process's."""
+    out = open(os.path.join(os.environ["REPRO_TORCH_BUILD_DIR"], "child.out"), "w+")
+    argv = [sys.executable, os.path.abspath(__file__), "--child", ",".join(phases)]
+    for name in ("launches", "frames", "height", "width", "ae_steps", "attn_ae_steps",
+                 "corr_steps", "seed"):
+        argv += [f"--{name.replace('_', '-')}", str(getattr(args, name))]
+    p = subprocess.Popen(argv, stdout=out, cwd=ROOT)
+    CHILDREN.append(p)
+    return {"phases": phases, "proc": p, "out": out, "started": time.perf_counter()}
+
+
+def join_child(child: dict) -> dict:
+    """Waits for the child, prints its lines here and returns its phase
+    lines by phase."""
+    p, out, phases = child["proc"], child["out"], child["phases"]
+    try:
+        rc = p.wait(timeout=CHILD_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"{phases} (in a process of their own) ran past {CHILD_TIMEOUT_S} s")
+    CHILDREN.remove(p)
+    child["seconds"] = time.perf_counter() - child["started"]
+    out.seek(0)
+    text = out.read()
+    out.close()
+    print(text, end="", flush=True)
+    if rc != 0:
+        fail(f"{phases} (in a process of their own) exited {rc}")
+    lines = [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+    got = {}
+    for ln in lines:  # each phase's last line is its phase line
+        if ln.get("phase") in phases:
+            got[ln["phase"]] = ln
+    if sorted(got) != sorted(phases):
+        fail(f"the child printed phase lines of {sorted(got)}, not of {phases}")
+    return got
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases",
@@ -4879,6 +5136,10 @@ def main() -> None:
     ap.add_argument("--attn-ae-steps", type=int, default=300)
     ap.add_argument("--corr-steps", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--child",
+                    help="run only these phases (of CHILD_PHASES, comma-separated), "
+                         "in the build directory of the run that started this "
+                         "process (see start_child)")
     args = ap.parse_args()
     phases = args.phases.split(",")
 
@@ -4887,6 +5148,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a GPU")
     import repro_torch  # noqa: F401  (fails here when run outside a checkout)
+
+    atexit.register(stop_children)
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    if args.child:
+        child = args.child.split(",")
+        if not set(child) <= set(CHILD_PHASES):
+            fail(f"--child takes phases of {CHILD_PHASES}, not {child}")
+        run_child(torch, args, child)
+        return
 
     # a fresh build directory per run: the build phase proves a build from
     # the checkout's sources every time, and a re-run never fails on (or
@@ -4897,17 +5167,27 @@ def main() -> None:
     try:
         run(torch, args, phases)
     finally:
+        stop_children()
         shutil.rmtree(build_dir, ignore_errors=True)
 
 
 def run(torch, args, phases) -> None:
     t_start = time.perf_counter()
+    walls: dict = {}  # each phase's seconds in this process, in its order
+
+    def timed(name: str, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        walls[name] = time.perf_counter() - t0
+        return out
+
     if "env" in phases:
-        phase_env(torch)
+        timed("env", phase_env, torch)
     if "build" in phases:
-        phase_build()
-    rows, missed, pins_missed, wide_missed = [], [], [], []
+        timed("build", phase_build)
+    rows, missed, pins_missed, wide_missed, rwkv_missed = [], [], [], [], []
     if "kernels" in phases:
+        t0 = time.perf_counter()
         launches = max(20, args.launches)
         batched, missed = phase_kernels(torch, launches)
         pins_missed = phase_old_domain_pins(torch)
@@ -4916,10 +5196,13 @@ def run(torch, args, phases) -> None:
         ops_rows = phase_ops_kernels(torch, launches)
         # the order of PERF.md's table of TPU kernels
         rows = batched + ops_rows[:2] + [flash] + ops_rows[2:]
+        rwkv_missed = next(r for r in rows if r["name"] == "rwkv6_scan")[
+            "wide_heads"]["digests"]["missed"]
         lm_shapes = phase_lm_kernels(torch, launches)
         for r in rows:  # lm_serve_path's shapes beside the codec's
             if r["name"] in lm_shapes:
                 r["lm_serve_shapes"] = lm_shapes[r["name"]]
+        walls["kernels"] = time.perf_counter() - t0
     paths, outputs = {}, {}
     for phase in ("partial_path", "serve_path"):
         if phase in phases and not {"main_path", "attention_path"} <= set(phases):
@@ -4929,43 +5212,54 @@ def run(torch, args, phases) -> None:
             fail(f"{phase} needs the main_path phase")
     if "analysis_path" in phases and not {"main_path", "attention_path"} <= set(phases):
         fail("analysis_path needs the main_path and attention_path phases")
+    # no kernel is timed from here on: the dry run's children count on a
+    # quarter of the host's cores, and CHILD_PHASES run in a process of their
+    # own, beside main_path to mesh_path
+    dry_children = dryrun_children() if "dryrun_path" in phases else None
+    beside = [ph for ph in CHILD_PHASES if ph in phases]
+    torch.cuda.empty_cache()
+    child = start_child(args, beside) if beside else None
     data = temperature = main_codec = attention_artifact = None
-    if {"main_path", "attention_path", "wide_block_path", "wide_head_path"} & set(phases):
+    if {"main_path", "attention_path"} & set(phases):
         data, temperature, gen_s = generate(args)
         emit({"phase": "generate", "shape": list(data.shape), "seconds": gen_s})
         if "main_path" in phases:
             paths["main_path"], *outputs["main_path"], main_codec = \
-                phase_main_path(torch, args, data)
+                timed("main_path", phase_main_path, torch, args, data)
         if "attention_path" in phases:
             paths["attention_path"], *outputs["attention_path"], attention_artifact = \
-                phase_attention_path(torch, args, data)
-        if "wide_block_path" in phases:
-            paths["wide_block_path"] = phase_wide_block_path(torch, args, data)
-        if "wide_head_path" in phases:
-            paths["wide_head_path"] = phase_wide_head_path(torch, args, data)
-    ops_calls = phase_ops_path(torch) if "ops_path" in phases else {}
-    partial = (phase_partial_path(torch, outputs["main_path"],
-                                  outputs["attention_path"])
+                timed("attention_path", phase_attention_path, torch, args, data)
+    ops_calls = timed("ops_path", phase_ops_path, torch) if "ops_path" in phases else {}
+    partial = (timed("partial_path", phase_partial_path, torch, outputs["main_path"],
+                     outputs["attention_path"])
                if "partial_path" in phases else None)
-    serve = (phase_serve_path(torch, args, outputs["main_path"],
-                              outputs["attention_path"])
+    serve = (timed("serve_path", phase_serve_path, torch, args, outputs["main_path"],
+                   outputs["attention_path"])
              if "serve_path" in phases else None)
-    stream = (phase_stream_path(torch, args, paths["main_path"], data, temperature,
-                                outputs["main_path"][2])
+    stream = (timed("stream_path", phase_stream_path, torch, args, paths["main_path"],
+                    data, temperature, outputs["main_path"][2])
               if "stream_path" in phases else None)
     # analysis_path runs last, on main_path's fit and attention_path's blob
     analysis_inputs = ((main_codec, attention_artifact)
                        if "analysis_path" in phases else None)
     attention_artifact = None
     outputs.clear()
-    mesh = (phase_mesh_path(torch, args, paths["main_path"], data, main_codec)
+    mesh = (timed("mesh_path", phase_mesh_path, torch, args, paths["main_path"], data,
+                  main_codec)
             if "mesh_path" in phases else None)
     main_codec = None
     del data, temperature
-    lm = phase_lm_serve_path(torch) if "lm_serve_path" in phases else None
-    lm_train = phase_lm_train_path(torch) if "lm_train_path" in phases else None
-    dry = phase_dryrun_path(torch) if "dryrun_path" in phases else None
-    analysis = (phase_analysis_path(torch, *analysis_inputs)
+    got = timed("beside (wait)", join_child, child) if child else {}
+    for phase in ("wide_block_path", "wide_head_path"):
+        if phase in got:
+            paths[phase] = got[phase]
+    lm = got.get("lm_serve_path")
+    torch.cuda.empty_cache()
+    lm_train = (timed("lm_train_path", phase_lm_train_path, torch)
+                if "lm_train_path" in phases else None)
+    dry = (timed("dryrun_path", phase_dryrun_path, torch, dry_children)
+           if "dryrun_path" in phases else None)
+    analysis = (timed("analysis_path", phase_analysis_path, torch, *analysis_inputs)
                 if "analysis_path" in phases else None)
     analysis_inputs = None
     for r in rows:
@@ -5007,9 +5301,16 @@ def run(torch, args, phases) -> None:
              "differ from OLD_DOMAIN_SHA256's")
     if wide_missed:
         fail(f"flash past D = 256 moved: {wide_missed} differ from FLASH_WIDE_SHA256's")
+    if rwkv_missed:
+        fail(f"rwkv6_scan past N = 64 moved: {rwkv_missed} differ from RWKV_WIDE_SHA256's")
     emit({"kernels": rows})
     print(gpu_line(), flush=True)
-    emit({"phase": "total", "seconds": time.perf_counter() - t_start})
+    emit({"phase": "total", "seconds": time.perf_counter() - t_start,
+          "phase_seconds": walls,
+          "beside": {"child": {"phases": [ph for ph in CHILD_PHASES if ph in phases],
+                               "seconds": child and child["seconds"]},
+                     "dryrun_path": "its children, from the end of the kernels phase "
+                                    f"on {DRYRUN_CORES} of the host's cores"}})
     if not complete:
         fail(f"only phases {phases} were run; the ok line needs all of them")
     emit({"ok": True, "device": {"platform": "gpu",

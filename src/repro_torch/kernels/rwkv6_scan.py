@@ -5,8 +5,9 @@ Counterpart of the Pallas function ``rwkv6_scan`` in the JAX package's
 and u (H, N), all fp32 or all bf16, with s0 (B, H, N, N) fp32 or None
 (zero), w clamped to [1e-37, 1] as the TPU kernel clamps it. Returns (out
 (B, T, H, N) in r's dtype, S_T (B, H, N, N) fp32). Any N >= 1 (RWKV-6's
-head size is 64; past it the columns of S go in slabs to separate CTAs,
-past 256 S lives in device memory) and any T; nothing is padded. See
+head size is 64; past it the chunked form on the tensor cores, the columns
+of S in slabs to separate CTAs, S in registers to N = 1024 and in S_T's
+memory past it) and any T; nothing is padded. See
 :func:`repro_torch.kernels.ref.rwkv6_scan_ref` for the recurrence and
 :mod:`repro_torch.kernels._wrap` for what every wrapper checks and how it
 launches.

@@ -2,9 +2,9 @@
 
 The CUDA kernels take every head dim D >= 1 (flash attention: past D = 256
 on ``flash_wide``), every RWKV-6 head size N >= 1 (``rwkv6_scan``: past N =
-64 in 64-column slabs, past 256 with S in device memory) and every grid
-past 65,535 in y; the card's checks of those routes are in
-``chip_smoke.py``. Here, with ``device="cpu"`` (each kernel's plain
+64 in the chunked form on the tensor cores, past 1024 with S in device
+memory) and every grid past 65,535 in y; the card's checks of those routes
+are in ``chip_smoke.py``. Here, with ``device="cpu"`` (each kernel's plain
 version), at small sizes:
 
 * flash's plain version against the reference's Pallas kernel in

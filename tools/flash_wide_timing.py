@@ -112,15 +112,16 @@ def launch(lib, q, k, v):
     return o
 
 
-def sass(lib_path: str) -> dict:
-    """The checkout's SASS of its wide kernels into chiprun_out/, and per
-    kernel its instructions, local loads / stores and HMMAs."""
+def sass(lib_path: str, kernels: str = "flash_wide", name: str = "flash_wide") -> dict:
+    """The checkout's SASS of its kernels whose names hold ``kernels`` into
+    chiprun_out/<name>_sass.txt, and per kernel its instructions, local
+    loads / stores and HMMAs."""
     tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
     text = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=300).stdout
-    funcs = [f for f in re.split(r"\n\s+Function : ", text)[1:] if "flash_wide" in f[:200]]
+    funcs = [f for f in re.split(r"\n\s+Function : ", text)[1:] if kernels in f[:200]]
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "flash_wide_sass.txt"), "w") as f:
+    with open(os.path.join(ROOT, "chiprun_out", f"{name}_sass.txt"), "w") as f:
         f.write("\n\n".join(funcs))
     out = {}
     for func in funcs:
