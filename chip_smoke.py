@@ -259,6 +259,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # published H100 SXM peaks (NVIDIA data sheet, dense, full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 67e12,  # fp64: tensor-core DMMA rate
+              "float64_cuda_cores": 33.5e12,  # fp64 DFMAs outside the tensor cores
               "bfloat16": 989e12,
               # fp32 products as 3xTF32: three TF32 products at 495 TFLOP/s
               "float32_3xtf32": 495e12 / 3}
@@ -279,11 +280,12 @@ WIDE = [(1, 65536, 256), (2, 513, 256), (1, 1, 256), (3, 100, 200), (2, 77, 129)
 WIDE_SEED = 300  # the seed at WIDE[0]; WIDE[i] takes WIDE_SEED + i
 # sha256 of the wide routes' outputs on wide_digest_operands(*WIDE[i],
 # WIDE_SEED + i) on an H100. The fp64 projection's are its first, row-tile
-# build's (project_f64_wide keeps them). The fp32 select's and correct's
-# were re-pinned from the first build of gbatc_wide_3xtf32, which moved
-# those routes from FFMAs to 3xTF32 tensor-core products (a k pair's three
-# products summed from +0, then added to the accumulator): they moved
-# their last bits, within FP32_LIMIT of the plain version
+# build's (project_f64_wide and project_f64_wide_tma keep them). The fp32
+# select's and correct's were re-pinned from the first build of
+# gbatc_wide_3xtf32, which moved those routes from FFMAs to 3xTF32
+# tensor-core products (a k pair's three products summed from +0, then
+# added to the accumulator): they moved their last bits, within FP32_LIMIT
+# of the plain version
 WIDE_SHA256 = {
     (1, 65536, 256): {
         "gbatc_project_batched":
@@ -623,7 +625,8 @@ GRID_Y_GBATC_WIDE = (65537, 2, 182)
 # with a random s0 (out, S_T), both dtypes; rglru_scan at RGLRU_SWEEP with
 # h0 (h, h_T), both dtypes; the tile kernel's routes (fp64 select and
 # correct at D <= 128, the masked 2D pair in both dtypes) at the kernels
-# phase's D <= 128 shapes. A widening moves no bit of a shape that ran.
+# phase's D <= 128 shapes. A widening moves no bit of a shape that ran, and
+# the fp32 masked pair keeps these bits on correct_f32_ring.
 FLASH_PIN_EXTRA = [(2, 2, 100, 130, 80, True, 0), (1, 2, 70, 90, 256, False, 0),
                    (1, 1, 130, 130, 256, True, 40)]
 OLD_DOMAIN_SEED = 900
@@ -889,6 +892,8 @@ PTXAS_NAMES = {
             *m.groups()[1:])), (
         r"project_f64_wideE",
         lambda m: "f64/project/wide"), (
+        r"project_f64_wide_tmaE",
+        lambda m: "f64/project/wide/tma"), (
         r"gbatc_wide_3xtf32ILi(\d)E",
         lambda m: "f32/{}/wide/3xtf32".format(
             ("project", "correct", "select", "masked")[int(m.group(1))])), (
@@ -1246,14 +1251,14 @@ ALL_ROUTES = MAIN_ROUTES + (("gbatc_project_batched", "float32"),
 
 
 def batched_rows(torch, shape, seed, launches, err: dict, routes=MAIN_ROUTES,
-                 **extra) -> list[dict]:
+                 peak=None, **extra) -> list[dict]:
     """The batched routes timed at ``shape`` beside their plain versions,
     bounds and library yardsticks (``torch.bmm`` for the projection,
     ``torch.baddbmm`` for correct; no one call computes the select); the
     fp32 routes on the tensor cores (the projection at every D, select and
     correct past 128) are bound at the 3xTF32 rate, with the FFMA bound
-    beside it (``bound_ffma_ms``);
-    ``max_abs_err`` is ``err``'s, from batched_checks. The projection's
+    beside it (``bound_ffma_ms``), and the others at ``PEAK_FLOPS[peak]``
+    where ``peak`` is given; ``max_abs_err`` is ``err``'s, from batched_checks. The projection's
     operands come from ``seed``, select's and correct's from ``seed + 1``."""
     from repro_torch.kernels import gbatc_project as gk
     from repro_torch.kernels import ref as kref
@@ -1282,7 +1287,7 @@ def batched_rows(torch, shape, seed, launches, err: dict, routes=MAIN_ROUTES,
         tensor_cores = dtype == torch.float32 and (project or d > 128)
         bounds = ({"peak": "float32_3xtf32",
                    "bound_ffma_ms": flops / PEAK_FLOPS["float32"] * 1e3}
-                  if tensor_cores else {})
+                  if tensor_cores else {"peak": peak} if peak else {})
         rows.append(kernel_row(
             torch, name, "gbatc_kernels.cu",
             f"src/repro/kernels/gbatc_project.py:{GBATC_LINES[name]}",
@@ -1324,6 +1329,7 @@ def phase_kernels(torch, launches: int) -> tuple[list[dict], list]:
     rows = batched_rows(torch, (S, NB, D), 1, launches, err,
                         ragged_shapes_checked=RAGGED)
     rows[2]["partial_shapes_checked"] = PARTIAL_CORRECT_SHAPES
+    f64_tile = phase_f64_tile_kernels(torch, launches, err)
     wide = phase_wide_kernels(torch, launches)
     any_d, missed = phase_any_d_kernels(torch, launches)
     grid_y = grid_y_gbatc(torch)
@@ -1331,11 +1337,13 @@ def phase_kernels(torch, launches: int) -> tuple[list[dict], list]:
         r["wide_shapes"] = wide[r["name"]]
         r["any_d"] = any_d[r["name"]]
         r["grid_y"] = grid_y[r["name"]]
+        if r["name"] in f64_tile:
+            r["f64_tile"] = f64_tile[r["name"]]
     emit({"phase": "kernels", "launches_timed": launches,
           "summary": [{k: r[k] for k in ("name", "dtype", "max_abs_err", "ms",
                                          "plain_ms", "library_ms", "bound_ms")}
                       for r in rows],
-          "wide": wide, "any_d": any_d, "grid_y": grid_y})
+          "f64_tile": f64_tile, "wide": wide, "any_d": any_d, "grid_y": grid_y})
     return rows, missed
 
 
@@ -1464,6 +1472,26 @@ def phase_wide_kernels(torch, launches: int) -> dict:
         for k in ("route", "source", "replaces", "launches"):
             r.pop(k)
         r["sha256"] = sha[r["name"]]
+        out[r.pop("name")] = r
+    return out
+
+
+# the tile kernel's fp64 routes, which no path launches (the engine selects
+# and replays in fp32): timed at the main path's shape
+F64_TILE_ROUTES = (("gbatc_select_accumulate", "float64"),
+                   ("gbatc_correct_batched", "float64"))
+
+
+def phase_f64_tile_kernels(torch, launches: int, err: dict) -> dict:
+    """The tile kernel's fp64 correct and select at (S, NB, D), checked by
+    batched_checks there (``err``), timed beside ``torch.baddbmm`` (correct;
+    no one call computes the select), bound by their bytes or their DFMAs
+    on the CUDA cores (33.5 TFLOP/s). Returns {kernel: entry}."""
+    out = {}
+    for r in batched_rows(torch, (S, NB, D), 2, launches, err, routes=F64_TILE_ROUTES,
+                          peak="float64_cuda_cores"):
+        for k in ("route", "source", "replaces", "launches"):
+            r.pop(k)
         out[r.pop("name")] = r
     return out
 

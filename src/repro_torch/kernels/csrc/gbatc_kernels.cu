@@ -13,15 +13,18 @@
 // src/repro/kernels/gbatc_project.py, and its 2D single-species pair:
 // gbatc_project is the project mode at S = 1, gbatc_correct the masked
 // mode at S = 1 (the mask an operand of the kernel's dtype, multiplied
-// into the coefficients while they are staged, as the select mode forms
-// rank < m there). What is kept from them is the
+// into the coefficients once they are staged, where the select mode forms
+// rank < m). What is kept from them is the
 // function; their 128-lane padding, padded rows in device memory and the
 // INT32_MAX rank sentinel are not: D is a runtime argument and ragged row
 // tiles are masked here.
 //
-// Seven kernels serve these modes: four up to D = 128, and past it three
-// that stage the basis in k panels ("Wide blocks" below), all of them on
-// the tensor cores.
+// Eight kernels serve these modes: four up to D = 128 (project_f64_dmma,
+// project_f32_3xtf32, correct_f32_ring for every fp32 correct, select and
+// masked route, gbatc_tile_kernel for the fp64 ones), and past it four that
+// stage the basis in k panels ("Wide blocks" below), the fp64 projection's
+// two (project_f64_wide_tma, project_f64_wide) and every other route's two
+// (gbatc_wide_3xtf32, gbatc_wide_dmma), all of them on the tensor cores.
 //
 // fp64 project (project_f64_dmma): at the main path's (58, 20480, 80) the
 // work is 760 MB read, 760 MB written and 15.2 GFLOP, so bytes bound it
@@ -96,23 +99,27 @@
 //   so a row's bits do not depend on its tile position. No TF32 anywhere
 //   else: cuBLAS and cuDNN stay in full fp32 (device.py::strict_fp32).
 //
-// fp32 correct and select (correct_f32_ring; they replace the Pallas
-// gbatc_correct_batched, src/repro/kernels/gbatc_project.py:240, and
-// gbatc_select_accumulate, :288): at the main path's (58, 20480, 80) select
-// reads x, c and rank and writes out (1.52 GB, 0.455 ms at 3.35 TB/s),
-// correct reads x and c (1.14 GB, 0.341 ms); either does 7.6 G FFMA, 0.227
-// ms on the CUDA cores at 67 TFLOP/s. What bounds them on this card is the
+// fp32 correct, select and the masked mode (correct_f32_ring; they replace
+// the Pallas gbatc_correct_batched, src/repro/kernels/gbatc_project.py:240,
+// gbatc_select_accumulate, :288, and the 2D gbatc_correct, :140): at the
+// main path's (58, 20480, 80) select reads x, c and rank and writes out
+// (1.52 GB, 0.455 ms at 3.35 TB/s), correct reads x and c (1.14 GB, 0.341
+// ms); either does 7.6 G FFMA, 0.227 ms on the CUDA cores at 67 TFLOP/s.
+// The masked 2D correct at (1187840, 80) moves select's bytes (x, c, the
+// mask, out: 0.454 ms). What bounds them on this card is the
 // FFMAs as much as the bytes: the compiler's outer-product FFMAs issue well
 // below the FFMA peak (each reads two fresh registers), so the FMA loop
 // alone takes about as long as correct's byte stream, and the design's aim
 // is to keep both going at once. Design:
 //
-// * Both modes keep one order of arithmetic, the tile kernel's before
+// * The three modes keep one order of arithmetic, the tile kernel's before
 //   them: acc = +0, acc = fmaf(c'_k, U[j][k], acc) for k ascending (k
 //   padded with zeros to a multiple of 4), out = x + acc, where c'_k is
-//   +0 in select when rank >= m. Select on (c, rank, m) is therefore
-//   bitwise correct on where(rank < m, c, 0): the encode side's
-//   reconstruction and the decode side's replay agree bit for bit. No
+//   +0 in select when rank >= m and c_k * mask_k (one fp32 multiply) in the
+//   masked mode. Select on (c, rank, m) is therefore bitwise correct on
+//   where(rank < m, c, 0): the encode side's reconstruction and the decode
+//   side's replay agree bit for bit; the masked mode gives the tile
+//   kernel's bits (OLD_DOMAIN_SHA256 in chip_smoke.py pins them). No
 //   split-k, no TF32, no fast-math.
 // * The grid is persistent (two CTAs an SM at D <= 80); a CTA walks a
 //   contiguous, species-major range of 64-row tiles and reloads the basis,
@@ -124,10 +131,13 @@
 //   STAGES-1 are in flight. A thread copies the same chunks of every tile.
 //   Select copies rank into one more tile buffer and masks the
 //   coefficients a thread copied itself once they land, against cuts that
-//   landed a tile earlier; a thread reads only its own rank chunks, so it
-//   refills them for the next tile right after masking, and one barrier a
-//   tile serves both modes. Neither mask nor masked coefficients reach
-//   device memory.
+//   landed a tile earlier; the masked mode copies its mask alike and
+//   multiplies them by it. A thread reads only its own rank or mask
+//   chunks, so it refills them for the next tile right after masking, and
+//   one barrier a tile serves every mode. Neither mask nor masked
+//   coefficients reach device memory. The masked mode on the tile kernel
+//   (a run of 64-row tiles a CTA, each staged once, no ring) took 0.90-0.95
+//   ms at (1187840, 80); on this ring 0.66 (tools/gbatc_wide_timing.py).
 // * A thread owns 4 rows (16 apart) by 4 contiguous columns. Per 4 k it
 //   issues 4 16-byte loads of A (rows padded to an odd number of 16-byte
 //   chunks, so 8 rows fall on distinct banks), 4 16-byte broadcast loads of
@@ -139,16 +149,16 @@
 //   from registers to device memory, a 16-byte store a row; a warp covers
 //   8 rows by 64 contiguous bytes, whole 32-byte sectors.
 // * Two stages: more measured slower. Two CTAs an SM at D <= 80 (89 KB
-//   of shared memory for select, 67 KB for correct), one at D <= 128 (164
-//   KB for select).
+//   of shared memory for select and the masked mode, 67 KB for correct),
+//   one at D <= 128 (164 KB for select and the masked mode).
 //
-// The masked mode and the fp64 correct and select modes up to D = 128
-// (gbatc_tile_kernel; the masked mode replaces the Pallas gbatc_correct,
-// src/repro/kernels/gbatc_project.py:140, and reaches over half its byte
-// bound): at D = 80 each output element costs 80 FMAs against 8 (fp32) or
-// 16 (fp64) bytes moved, which sits near the ridge of the fp32 CUDA-core
-// roofline, so the kernel must neither re-read inputs nor stall on them.
-// Design:
+// The fp64 correct, select and masked modes up to D = 128
+// (gbatc_tile_kernel; no fp32 route runs it): at the main path's (58,
+// 20480, 80) correct reads x and c and writes out in fp64 (2.28 GB, 0.68
+// ms at 3.35 TB/s) and does 7.6 G DFMA (0.45 ms at the CUDA cores' 33.5
+// TFLOP/s), so bytes bound it; it takes 2.3 ms, select 1.4
+// (tools/gbatc_wide_timing.py; no path launches them: the engine selects
+// and replays in fp32). Design:
 //
 // * One CTA owns one species and a run of row tiles of 64 blocks; the
 //   species' basis stays in shared memory for the CTA's life (transposed on
@@ -176,13 +186,14 @@
 //   mask in there. Neither the mask nor the masked coefficients are ever
 //   written to device memory.
 //
-// Wide blocks, D > 128 (project_f64_wide, gbatc_wide_3xtf32,
-// gbatc_wide_dmma): every mode takes any D, as the Pallas wrappers do by
-// padding. The weight checkpoint's blocks are 256 long (train/checkpoint.py)
-// and a codec's 8 x 8 x 8 block is 512. A species' basis is 512 KB in fp64
-// and 256 KB in fp32 at D = 256, more than the 227 KB of shared memory a CTA
-// may hold, so the kernels stage it in k panels beside the matching panel
-// of the row tile, one ring of panels a CTA that runs on across its tiles.
+// Wide blocks, D > 128 (project_f64_wide_tma, project_f64_wide,
+// gbatc_wide_3xtf32, gbatc_wide_dmma): every mode takes any D, as the Pallas
+// wrappers do by padding. The weight checkpoint's blocks are 256 long
+// (train/checkpoint.py) and a codec's 8 x 8 x 8 block is 512. A species'
+// basis is 512 KB in fp64 and 256 KB in fp32 at D = 256, more than the 227
+// KB of shared memory a CTA may hold, so the kernels stage it in k panels
+// beside the matching panel of the row tile, one ring of panels a CTA that
+// runs on across its tiles.
 // At a codec's (58, 1600, 512) every mode does 2 x 58 x 1600 x 512^2 = 48.7
 // GFLOP against 0.13-0.26 ms of bytes: the operations bound all of them,
 // at 0.73 ms on the fp64 tensor cores (67 TFLOP/s), 0.29 ms for fp32 as
@@ -190,7 +201,11 @@
 // needs products only for the kept terms, about half of them at uniform
 // cuts. Design:
 //
-// * project_f64_wide (the fp64 projection): DMMA m16n8k8 in fp64 as
+// * project_f64_wide_tma (the fp64 projection with D even and R, U and C
+//   16-byte aligned): 128-row tiles against slabs of up to 128 columns,
+//   panels landed by TMA copies that one thread issues; notes above it.
+// * project_f64_wide (the fp64 projection at odd D or an unaligned
+//   operand, which TMA cannot copy): DMMA m16n8k8 in fp64 as
 //   project_f64_dmma. A 64-row tile takes a slab of 256 columns (all of
 //   them at D <= 256): 8 warps of 32 rows by 64 columns, 64 fp64
 //   accumulators a lane. A panel is 32 k: the tile's A[:, k0 : k0 + 32]
@@ -201,7 +216,10 @@
 //   a lane (rows q and q + 4), which take the 4 wavefronts of one 16-byte
 //   load: a panel in fragment order would take 8-byte copies, and filling
 //   it that way measured slower than the loads it saves. Past D = 256 a
-//   row tile's slabs follow each other, each looping k over all of D.
+//   row tile's slabs follow each other, each looping k over all of D. It
+//   took 1.44-1.49 ms at (58, 1600, 512), its copies alone 1.03-1.05 and its
+//   DMMAs alone 0.98-1.00: all 8 warps issue the copies, and a 2-panel ring
+//   leaves one panel in flight behind the MMAs.
 // * gbatc_wide_3xtf32<MODE> (every fp32 route: project, correct, select and
 //   the masked mode) and gbatc_wide_dmma<MODE> (fp64 correct, select and the
 //   masked mode): 128-row tiles against slabs of up to 128 columns, a
@@ -214,8 +232,8 @@
 //   that needs no register move. Notes above each kernel give its layout,
 //   its order of arithmetic and what bounds it.
 // * The order of arithmetic is fixed, so no bit depends on the tiling:
-//   project_f64_wide and gbatc_wide_dmma run each fragment's m16n8k8 steps
-//   ascending from +0, no step past ceil(D / 8), +0 in A and B past D;
+//   both fp64 projections and gbatc_wide_dmma run each fragment's m16n8k8
+//   steps ascending from +0, no step past ceil(D / 8), +0 in A and B past D;
 //   gbatc_wide_3xtf32 adds each k pair's three TF32 products into a partial
 //   from +0 and the partial into the accumulator; out = x + acc (the
 //   projection: acc). c' = +0 where rank >= m, c' = c * mask in the masked
@@ -230,6 +248,8 @@
 // limit: all shared memory is dynamic and every launcher raises the
 // function's limit first. Launchers return the cudaError_t of the launch.
 
+#include <cuda.h>  // CUtensorMap (no -lcuda: the encoder comes from the runtime)
+#include <cudaTypedefs.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -1160,19 +1180,23 @@ __global__ void __launch_bounds__(NCH * 64, MINB)
 correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
                  const int* __restrict__ rank,  // select only, (S, NB, D)
                  const int* __restrict__ m,     // select only, (S, NB)
+                 const float* __restrict__ mk,  // masked only, (S, NB, D)
                  const float* __restrict__ basis, float* __restrict__ out,
                  int s_count, long long nb, int d, int lda, int vec) {
   constexpr int RM = RING_RM, TM = RING_TM, LDB = 16 * NCH;
   constexpr int STAGES = RING_STAGES;
-  constexpr bool SELECT = MODE == MODE_SELECT;
+  constexpr bool SELECT = MODE == MODE_SELECT, MASKED = MODE == MODE_MASKED;
+  constexpr bool AUX = SELECT || MASKED;  // a second tile: rank or the mask
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int threads = blockDim.x;
   const int ldk = (d + KU - 1) / KU * KU;  // k padded with zero terms
   float* b_s = reinterpret_cast<float*>(smem_raw);  // (ldk, LDB): U^T
   float* c_s = b_s + ldk * LDB;                      // (STAGES, TM, lda)
-  // select: one rank tile (TM, lda), then the cuts (STAGES, TM)
+  // select: one rank tile (TM, lda), then the cuts (STAGES, TM); masked:
+  // one mask tile (TM, lda)
   int* r_s = reinterpret_cast<int*>(c_s + STAGES * TM * lda);
-  int* m_s = r_s + (SELECT ? TM * lda : 0);
+  float* mk_s = reinterpret_cast<float*>(r_s);
+  int* m_s = r_s + (AUX ? TM * lda : 0);
 
   const int tid = threadIdx.x;
   const int ry = (tid >> 2) % RING_NRY;
@@ -1219,16 +1243,22 @@ correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
     float* dst = c_s + buf * TM * lda;
     own_chunks(rows, [&](int, int off, size_t g) { copy(dst + off, src + g); });
   };
-  // select: rank of tile t into the one rank tile. A thread reads there
-  // only the chunks it copied itself, so it may refill them for the next
-  // tile as soon as it has masked them, with no barrier between
-  auto issue_rank = [&](int t) {
+  // select, masked: rank or the mask of tile t into the one such tile. A
+  // thread reads there only the chunks it copied itself, so it may refill
+  // them for the next tile as soon as it has masked them, with no barrier
+  // between
+  auto issue_aux = [&](int t) {
     int s;
     long long r0;
     int rows;
     tile(t, s, r0, rows);
-    const int* src = rank + (size_t)r0 * d;
-    own_chunks(rows, [&](int, int off, size_t g) { copy(r_s + off, src + g); });
+    if (SELECT) {
+      const int* src = rank + (size_t)r0 * d;
+      own_chunks(rows, [&](int, int off, size_t g) { copy(r_s + off, src + g); });
+    } else {
+      const float* src = mk + (size_t)r0 * d;
+      own_chunks(rows, [&](int, int off, size_t g) { copy(mk_s + off, src + g); });
+    }
   };
   // select: the cuts of tile t into slot buf, one group ahead of its tile
   auto issue_m = [&](int t, int buf) {
@@ -1238,7 +1268,8 @@ correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
     tile(t, s, r0, rows);
     if (tid < rows) cp_async4(m_s + buf * TM + tid, m + r0 + tid);
   };
-  // select: c = +0 where rank >= m, over the chunks this thread copied
+  // select: c = +0 where rank >= m; masked: c = c * mask (one fp32
+  // multiply, as the tile kernel had it); over the chunks this thread copied
   auto mask_own = [&](int t, int buf) {
     int s;
     long long r0;
@@ -1247,6 +1278,17 @@ correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
     float* cd = c_s + buf * TM * lda;
     const int* ms = m_s + buf * TM;
     own_chunks(rows, [&](int row, int off, size_t) {
+      if (MASKED) {
+        if (vec) {
+          const float4 w = *reinterpret_cast<const float4*>(mk_s + off);
+          float4 v = *reinterpret_cast<float4*>(cd + off);
+          v.x = v.x * w.x, v.y = v.y * w.y, v.z = v.z * w.z, v.w = v.w * w.w;
+          *reinterpret_cast<float4*>(cd + off) = v;
+        } else {
+          cd[off] = cd[off] * mk_s[off];
+        }
+        return;
+      }
       const int cut = ms[row];
       if (vec) {
         const int4 r = *reinterpret_cast<const int4*>(r_s + off);
@@ -1278,12 +1320,12 @@ correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
     if (tid < rows) m_s[tid] = m[r0 + tid];
   }
   __syncthreads();
-  // cp.async groups, oldest first: [rank t_begin], then per stage
-  // [c t, cuts t+1]; each iteration adds [rank t+1] and [c t+STAGES-1,
-  // cuts t+STAGES], so waiting for all but the newest STAGES-2 groups
-  // covers c, rank and cuts of the tile at hand
-  if (SELECT) {
-    issue_rank(t_begin);
+  // cp.async groups, oldest first: [rank or mask t_begin], then per stage
+  // [c t, cuts t+1]; each iteration adds [rank or mask t+1] and [c
+  // t+STAGES-1, cuts t+STAGES], so waiting for all but the newest STAGES-2
+  // groups covers c, rank or mask and cuts of the tile at hand
+  if (AUX) {
+    issue_aux(t_begin);
     cp_async_commit();
   }
 #pragma unroll
@@ -1298,12 +1340,12 @@ correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
   for (int t = t_begin; t < t_end; ++t) {
     const int buf = (t - t_begin) % STAGES;
     cp_async_wait<STAGES - 2>();  // this thread's copies of tile t landed
-    if (SELECT) {
+    if (AUX) {
       mask_own(t, buf);
-      // the rank chunks just read are refilled next: keep the compiler
-      // from moving those reads past the copies
+      // the rank or mask chunks just read are refilled next: keep the
+      // compiler from moving those reads past the copies
       asm volatile("" ::: "memory");
-      if (t + 1 < t_end) issue_rank(t + 1);
+      if (t + 1 < t_end) issue_aux(t + 1);
       cp_async_commit();
     }
     __syncthreads();  // tile t whole and masked; tile t-1 done with
@@ -1349,10 +1391,12 @@ correct_f32_ring(const float* __restrict__ x, const float* __restrict__ c,
       for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
     const float* ap = c_s + buf * TM * lda + ry * lda;
     const float* bp = b_s + col;
-    // unrolled 5 times (20 k at D = 80) for correct, twice for select,
-    // whose mask and rank pointers leave fewer registers: what measured
-    // fastest without spilling
-#pragma unroll(MODE == MODE_SELECT ? 2 : 5)
+    // unrolled 5 times (20 k at D = 80) for correct and the masked mode,
+    // twice for select, whose mask and rank pointers leave fewer
+    // registers: what measured fastest without spilling (the masked mode
+    // unrolled twice spilled 56 bytes at D <= 80 and took 0.73 ms at
+    // (1187840, 80) against 0.66)
+#pragma unroll(SELECT ? 2 : 5)
     for (int k0 = 0; k0 < ldk; k0 += 4) {
       float a[RM][4];
 #pragma unroll
@@ -2154,14 +2198,264 @@ gbatc_wide_dmma(const double* __restrict__ x, const double* __restrict__ c,
   }
 }
 
+// -- fp64 projection past D = 128: project_f64_wide_tma ------------------------
+//
+// C = R U on DMMA m16n8k8 in fp64, as project_f64_wide, in 128-row tiles
+// against slabs of up to 128 columns (slab_width, the tiles and the
+// persistent order of gbatc_wide_dmma), its panels landed by the Tensor
+// Memory Accelerator. A CTA is 8 MMA warps of 32 rows by 64 columns (warp
+// (wm, wn) = (warp % 4, warp / 4)) and a producer warpgroup, one thread of
+// which issues every copy: per panel of TMA_KP k, the tile's A[rows, k0 :
+// k0 + 32] as two boxes of 16 k by 128 rows and U[k0 : k0 + 32, j0 : j0 +
+// sw] as boxes of 32 k by 16 columns, each one cp.async.bulk.tensor.3d over
+// (D, NB, S) or (D, D, S), both with the 128-byte swizzle (box rows of 128
+// bytes, the 16-byte chunk c of row r at c ^ (r % 8)), into a ring of
+// TMA_STAGES panels (192 KB) with full / empty mbarriers (the waits trap
+// rather than hang). The producers give their registers to the MMA warps
+// (setmaxnreg), whose 64 fp64 accumulators a lane need them: a single
+// producer warp beside them left 168 registers a thread and the MMA warps
+// spilled. The tensor maps fill what lies past NB rows or D columns with
+// +0, so ragged rows, the last slab and the k past D cost no code: +0 in A
+// and in B past D, as the other projections have it. TMA needs rows of a
+// multiple of 16 bytes and aligned bases, so the launcher takes this kernel
+// only for even D with R, U and C 16-byte aligned (project_f64_wide
+// otherwise).
+//
+// The swizzle makes every fragment load conflict-free, given two
+// relabelings that move no bit. Rows: a fragment's row g is the tile's row
+// 8 i + pg, pg = 2 (g % 4) + g / 4, so the 4 rows a half warp loads fall on
+// swizzle keys 0, 2, 4, 6 (or 1, 3, 5, 7) and its 16 eight-byte loads on 16
+// distinct bank pairs. Columns: n fragments come in pairs (2 b, 2 b + 1) over
+// box b's 16 columns, fragment column g of the pair taking columns 16 b + 2
+// pc and + 1, pc = g / 2 + 4 (g % 2), so lane (g, q)'s B values of both
+// fragments, {B[k][16 b + 2 pc], B[k][16 b + 2 pc + 1]}, are one 16-byte
+// load, whose quarter warps fall on 8 distinct chunks; lane (g, q) then
+// holds output columns 16 b + 2 q, + 1 and 16 b + 2 q + 8, + 9 of its rows,
+// two 16-byte stores. A k step is 8 eight-byte loads of A and 8 sixteen-byte
+// loads of B for 16 DMMAs a warp (project_f64_wide: 24 eight-byte loads).
+//
+// Order of arithmetic: project_f64_wide's. Each output's m16n8k8 steps run
+// ascending from +0, ceil(D / 8) of them, fragment column q of a step
+// taking k0 + q and column q + 4 taking k0 + q + 4; which row or column of a
+// fragment an output sits in moves no bit (WIDE_SHA256 and ANY_D_SHA256
+// hold). What bounds it at (58, 1600, 512): 48.7 GFLOP, 0.73 ms at 67
+// TFLOP/s (0.75 at the 64.5 that mma.sync reaches, tools/mma_peak.py),
+// against 0.26 ms of bytes; at (1, 65536, 256) 8.6 GFLOP, 0.13 ms. From L2
+// a tile reads 128 x 512 x 8 bytes of A and as many of U, 16 KB a k step
+// for 128 DMMAs (project_f64_wide's 64 x 256 tiles: 20 KB), 3.1 GB in all
+// (3.7). Measured at (58, 1600, 512) (tools/gbatc_wide_timing.py --probes,
+// an H100 at 700 W): the copies alone take 0.40 ms, so L2 does not bind
+// and the CTAs share no panel (no cluster); the DMMAs alone took 0.97-1.01
+// with one thread of the MMA warps issuing the copies and the two together
+// 1.17-1.19, since that warp waited on the others before each refill; with
+// the producer warpgroup 0.92 (torch.bmm 0.89; project_f64_wide 1.43), and
+// 0.19 at (1, 65536, 256) (bmm 0.19; project_f64_wide 0.29).
+constexpr int TMA_FROM_D = 128;                    // the fp64 projection's TMA route past it
+constexpr int TMA_KP = 32;                         // k a panel
+constexpr int TMA_STAGES = 3;                      // panels in the ring
+constexpr int TMA_BOX = 16;                        // doubles a box row: 128 bytes
+constexpr int TMA_A_BOX = WT_TM * TMA_BOX * 8;     // bytes of an A box (16 k)
+constexpr int TMA_B_BOX = TMA_KP * TMA_BOX * 8;    // bytes of a U box (16 columns)
+constexpr int TMA_A_BYTES = TMA_KP / TMA_BOX * TMA_A_BOX;
+constexpr int TMA_STAGE = TMA_A_BYTES + WT_SLAB / TMA_BOX * TMA_B_BOX;
+constexpr int TMA_THREADS = WIDE_THREADS + 128;    // 8 MMA warps, a producer warpgroup
+// registers a thread after setmaxnreg: the producers give theirs to the MMA
+// warps (168 a thread at launch: 128 x 40 + 256 x 232 = 384 x 168)
+constexpr int TMA_PRODUCER_REGS = 40, TMA_MMA_REGS = 232;
+constexpr size_t TMA_SMEM = (size_t)TMA_STAGES * TMA_STAGE +
+                            2 * TMA_STAGES * sizeof(uint64_t) + 1024;  // + alignment
+static_assert(TMA_A_BOX % 1024 == 0 && TMA_B_BOX % 1024 == 0 && TMA_KP % TMA_BOX == 0 &&
+              TMA_SMEM <= 232448, "TMA ring shape");
+static_assert(128 * TMA_PRODUCER_REGS + WIDE_THREADS * TMA_MMA_REGS <= 64 * 1024 &&
+              TMA_PRODUCER_REGS % 8 == 0 && TMA_MMA_REGS % 8 == 0, "register split");
+
+__device__ __forceinline__ void fence_mbarrier_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+// the mbarrier's phase completes on this arrival and `bytes` of copies
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)), "r"(bytes) : "memory");
+}
+// one TMA copy of the box at (c0, c1, c2) of `map` to shared memory,
+// reported to `bar` as transaction bytes
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0,
+                                            int c1, int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar)) : "memory");
+}
+
+__global__ void __launch_bounds__(TMA_THREADS, 1)
+project_f64_wide_tma(const __grid_constant__ CUtensorMap a_map,  // R: (D, NB, S)
+                     const __grid_constant__ CUtensorMap u_map,  // U: (D, D, S)
+                     double* __restrict__ out, int s_count, long long nb, int d) {
+  constexpr int TM = WT_TM, KP = TMA_KP, KS = KP / 8, STAGES = TMA_STAGES;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the 128-byte swizzle repeats every 1024 bytes from a 1024-byte aligned base
+  unsigned char* ring = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  // full[s]: ring buffer s landed; empty[s]: its MMAs done
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * TMA_STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ks_n = (d + 7) / 8;  // k steps of D
+  const int panels = (ks_n + KS - 1) / KS;
+  const int nsl = (d + WT_SLAB - 1) / WT_SLAB;
+  const int sw = slab_width(d);
+  // tile and step indices fit an int (the launcher checks tiles x panels)
+  const int tps = (int)((nb + TM - 1) / TM) * nsl;
+  const int total = tps * s_count;
+  const int n_tiles = wide_tiles(total);
+  const int steps = n_tiles * panels;
+
+  if (tid == 0) {
+    for (int b = 0; b < STAGES; ++b) {
+      mbar_init_count(full + b, 1);
+      mbar_init_count(empty + b, WIDE_THREADS);
+    }
+    fence_mbarrier_init();
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // One thread of the producer warpgroup issues the copies: panel v of the
+  // CTA's stream (tile t, panel p of it) into ring buffer v % STAGES, once
+  // every MMA warp is done with step v - STAGES there.
+  WideTile iw{};
+  int iv = 0, it = 0, ip = 0;
+  auto issue = [&]() {
+    const int st = iv % STAGES;
+    if (ip == 0) iw = wide_tile(it, tps, nsl, sw, nb);
+    const int k0 = ip * KP;
+    const int na = min(KP / TMA_BOX, (d - k0 + TMA_BOX - 1) / TMA_BOX);  // A boxes in D
+    const int nbx = (min(sw, d - iw.j0) + TMA_BOX - 1) / TMA_BOX;      // U boxes
+    unsigned char* a_s = ring + st * TMA_STAGE;
+    const int row0 = (int)(iw.r0 - (long long)iw.s * nb);
+    mbar_expect_tx(full + st, na * TMA_A_BOX + nbx * TMA_B_BOX);
+    for (int i = 0; i < na; ++i)
+      tma_load_3d(a_s + i * TMA_A_BOX, &a_map, k0 + i * TMA_BOX, row0, iw.s, full + st);
+    for (int b = 0; b < nbx; ++b)
+      tma_load_3d(a_s + TMA_A_BYTES + b * TMA_B_BOX, &u_map, iw.j0 + b * TMA_BOX, k0,
+                  iw.s, full + st);
+    ++iv;
+    if (++ip == panels) ip = 0, ++it;
+  };
+  if (warp >= WIDE_THREADS / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(TMA_PRODUCER_REGS) : "memory");
+    if (tid == WIDE_THREADS) {
+      for (int v = 0; v < steps; ++v) {
+        if (v >= STAGES) mbar_wait_or_trap(empty + v % STAGES, (v / STAGES - 1) & 1);
+        issue();
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(TMA_MMA_REGS) : "memory");
+
+  // ---- the MMA warps ---------------------------------------------------------
+
+  const int wm = warp % WT_WM, wn = warp / WT_WM;
+  const int g = lane >> 2, q = lane & 3;
+  const int pg = 2 * (g & 3) + (g >> 2);   // fragment row g's row (mod 8) in a tile
+  const int pc = (g >> 1) + 4 * (g & 1);   // fragment column g's column pair in a box
+  // byte offsets in a stage: rows 8 (4 wm + 2 mi + h) + pg of an A box, and
+  // this lane's k = 8 ks + q (a[0], a[1]) and + 4 (a[2], a[3]) in it
+  const int a_row = (wm * 32 + pg) * 128 + (q & 1) * 8;
+  const int a_k0 = ((q >> 1) ^ pg) << 4, a_k4 = ((2 + (q >> 1)) ^ pg) << 4;
+  // U rows k = 8 ks + q and + 4 of a box, chunk pc, swizzled by k % 8
+  const int b_k0 = TMA_A_BYTES + q * 128 + ((pc ^ q) << 4);
+  const int b_k4 = TMA_A_BYTES + (q + 4) * 128 + ((pc ^ q ^ 4) << 4);
+  double acc[2][8][4];
+  // the MMAs of ring buffer `st` for this warp's first nb_ boxes, ksn k steps
+  auto mmas = [&](const unsigned char* st, int ksn, int nb_) {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      if (ks >= ksn) break;
+      const unsigned char* ab = st + (ks >> 1) * TMA_A_BOX + a_row;
+      const int sx = (ks & 1) << 6;  // k 8 .. 15 of a box: chunk + 4, swizzled
+      double a[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const unsigned char* ar = ab + (16 * mi + 8 * h) * 128;
+          a[mi][h] = *reinterpret_cast<const double*>(ar + (a_k0 ^ sx));
+          a[mi][2 + h] = *reinterpret_cast<const double*>(ar + (a_k4 ^ sx));
+        }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (b >= nb_) break;
+        const unsigned char* bb = st + (wn * 4 + b) * TMA_B_BOX + ks * 1024;
+        const double2 b0 = *reinterpret_cast<const double2*>(bb + b_k0);
+        const double2 b1 = *reinterpret_cast<const double2*>(bb + b_k4);
+        dmma(acc[0][2 * b], a[0], b0.x, b1.x);
+        dmma(acc[1][2 * b], a[1], b0.x, b1.x);
+        dmma(acc[0][2 * b + 1], a[0], b0.y, b1.y);
+        dmma(acc[1][2 * b + 1], a[1], b0.y, b1.y);
+      }
+    }
+  };
+
+  WideTile w{};
+  int jw = 0, nbw = 0;
+  bool live = false;  // warp-uniform: this warp has rows and columns in the tile
+  for (int v = 0, t = 0, p = 0; v < steps; ++v) {
+    if (p == 0) {  // a new tile: acc = +0
+      w = wide_tile(t, tps, nsl, sw, nb);
+      jw = min(sw, d - w.j0);
+      nbw = max(0, min(4, (jw + TMA_BOX - 1) / TMA_BOX - wn * 4));
+      live = nbw > 0 && wm * 32 < w.rows;
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          acc[mi][j][0] = acc[mi][j][1] = acc[mi][j][2] = acc[mi][j][3] = 0.0;
+    }
+    const int st = v % STAGES;
+    mbar_wait_or_trap(full + st, (v / STAGES) & 1);  // step v landed
+    const int ksn = min(KS, ks_n - p * KS);  // the last panel may hold fewer steps
+    if (live) {
+      if (nbw == 4 && ksn == KS) mmas(ring + st * TMA_STAGE, KS, 4);  // unguarded
+      else mmas(ring + st * TMA_STAGE, ksn, nbw);
+    }
+    mbar_arrive(empty + st);  // done with ring buffer st
+
+    if (++p < panels) continue;
+    p = 0, ++t;
+    if (!live) continue;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = wm * 32 + 16 * mi + 8 * h + pg;
+        if (row >= w.rows) continue;
+        double* o = out + (size_t)(w.r0 + row) * d + w.j0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int col = (wn * 4 + b) * TMA_BOX + 2 * q;  // and col + 8
+          if (b >= nbw || col >= jw) continue;
+          *reinterpret_cast<double2*>(o + col) =
+              make_double2(acc[mi][2 * b][2 * h], acc[mi][2 * b + 1][2 * h]);
+          if (col + 8 < jw)  // D even: col + 9 < jw too
+            *reinterpret_cast<double2*>(o + col + 8) =
+                make_double2(acc[mi][2 * b][2 * h + 1], acc[mi][2 * b + 1][2 * h + 1]);
+        }
+      }
+  }
+}
+
 template <int MODE, int NCH, int MINB>
 int launch_ring(const float* x, const float* c, const int* rank, const int* m,
-                const float* u, float* out, int s, long long nb, int d,
-                void* stream) {
+                const float* mk, const float* u, float* out, int s, long long nb,
+                int d, void* stream) {
   const int threads = 64 * ((d + 15) / 16);
   const int ldk = (d + KU - 1) / KU * KU, lda = ring_lda(d);
   size_t words = (size_t)ldk * 16 * NCH + (size_t)RING_STAGES * RING_TM * lda;
   if (MODE == MODE_SELECT) words += (size_t)RING_TM * lda + RING_STAGES * RING_TM;
+  if (MODE == MODE_MASKED) words += (size_t)RING_TM * lda;
   const size_t smem = words * sizeof(float);
   const long long tiles = (long long)s * ((nb + RING_TM - 1) / RING_TM);
   if (tiles > INT32_MAX) return (int)cudaErrorInvalidValue;
@@ -2180,9 +2474,9 @@ int launch_ring(const float* x, const float* c, const int* rank, const int* m,
   const long long slots = (long long)sms * per_sm;
   const long long grid = tiles < slots ? tiles : slots;
   const int vec = d % 4 == 0 && aligned16(x) && aligned16(c) &&
-                  aligned16(rank) && aligned16(out);
+                  aligned16(rank) && aligned16(mk) && aligned16(out);
   kernel<<<(unsigned)grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, c, rank, m, u, out, s, nb, d, lda, vec);
+      x, c, rank, m, mk, u, out, s, nb, d, lda, vec);
   return (int)cudaGetLastError();
 }
 
@@ -2227,20 +2521,20 @@ int launch_wide(const T* x, const T* c, const int* rank, const int* m,
   return (int)cudaGetLastError();
 }
 
-// two CTAs an SM at D <= 80, one at D <= 128, the wide kernel past it
+// every fp32 correct, select and masked route: correct_f32_ring, two CTAs
+// an SM at D <= 80, one at D <= 128, gbatc_wide_3xtf32 past it
 template <int MODE>
 int launch_correct_f32(const float* x, const float* c, const int* rank,
-                       const int* m, const float* u, float* out, int s,
-                       long long nb, int d, int tiles_per_cta, void* stream) {
+                       const int* m, const float* mk, const float* u, float* out,
+                       int s, long long nb, int d, int tiles_per_cta, void* stream) {
   if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80)
-    return launch_ring<MODE, 5, 2>(x, c, rank, m, u, out, s, nb, d, stream);
+    return launch_ring<MODE, 5, 2>(x, c, rank, m, mk, u, out, s, nb, d, stream);
   if (d <= MAX_D)
-    return launch_ring<MODE, 8, 1>(x, c, rank, m, u, out, s, nb, d, stream);
-  return launch_wide<float, MODE>(x, c, rank, m, nullptr, u, out, s, nb, d,
-                                  stream);
+    return launch_ring<MODE, 8, 1>(x, c, rank, m, mk, u, out, s, nb, d, stream);
+  return launch_wide<float, MODE>(x, c, rank, m, mk, u, out, s, nb, d, stream);
 }
 
 template <int NFW, int TM, int STAGES>
@@ -2301,6 +2595,78 @@ int launch_dmma_wide(const double* r, const double* u, double* c, int s,
   return (int)cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled from the driver, through the runtime (no -lcuda);
+// null where the driver lacks it
+PFN_cuTensorMapEncodeTiled_v12000 tensor_map_encoder() {
+  static const PFN_cuTensorMapEncodeTiled_v12000 fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// a 3D fp64 tensor map over (n0, n1, n2) contiguous doubles, boxes of
+// (TMA_BOX, box1, 1), 128-byte swizzle, +0 past the tensor
+bool encode_f64_3d(CUtensorMap* map, const double* base, long long n0, long long n1,
+                   long long n2, int box1) {
+  const PFN_cuTensorMapEncodeTiled_v12000 encode = tensor_map_encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0 * 8, (cuuint64_t)(n0 * n1) * 8};
+  const cuuint32_t box[3] = {TMA_BOX, (cuuint32_t)box1, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT64, 3, const_cast<double*>(base), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The TMA route's operands: rows a multiple of 16 bytes (D even), R, U and
+// C 16-byte aligned, NB and D within the maps' int coordinates.
+inline bool tma_ok(const double* r, const double* u, const double* c, long long nb,
+                   int d) {
+  return d % 2 == 0 && aligned16(r) && aligned16(u) && aligned16(c) && nb <= INT32_MAX;
+}
+
+int launch_dmma_tma(const double* r, const double* u, double* c, int s, long long nb,
+                    int d, void* stream) {
+  const long long tiles = (long long)s * ((nb + WT_TM - 1) / WT_TM) *
+                          ((d + WT_SLAB - 1) / WT_SLAB);
+  const int panels = ((d + 7) / 8 + TMA_KP / 8 - 1) / (TMA_KP / 8);
+  if (tiles * panels > INT32_MAX) return (int)cudaErrorInvalidValue;
+  CUtensorMap a_map, u_map;
+  if (!encode_f64_3d(&a_map, r, d, nb, s, WT_TM) ||
+      !encode_f64_3d(&u_map, u, d, d, s, TMA_KP))
+    return (int)cudaErrorNotSupported;
+  auto kernel = project_f64_wide_tma;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TMA_THREADS,
+                                                      TMA_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long slots = (long long)sms * per_sm;
+  const long long grid = tiles < slots ? tiles : slots;
+  kernel<<<(unsigned)grid, TMA_THREADS, TMA_SMEM, static_cast<cudaStream_t>(stream)>>>(
+      a_map, u_map, c, s, nb, d);
+  return (int)cudaGetLastError();
+}
+
 int launch_project_f64(const double* r, const double* u, double* c, int s,
                        long long nb, int d, int tiles_per_cta, void* stream) {
   if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
@@ -2308,6 +2674,10 @@ int launch_project_f64(const double* r, const double* u, double* c, int s,
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d <= 80) return launch_dmma<5, 64, 3>(r, u, c, s, nb, d, stream);
   if (d <= MAX_D) return launch_dmma<8, 32, 3>(r, u, c, s, nb, d, stream);
+  // past TMA_FROM_D with TMA's operands: project_f64_wide_tma; else
+  // (odd D, an unaligned operand) project_f64_wide's cp.async copies
+  if (d > TMA_FROM_D && tma_ok(r, u, c, nb, d))
+    return launch_dmma_tma(r, u, c, s, nb, d, stream);
   return launch_dmma_wide(r, u, c, s, nb, d, stream);
 }
 
@@ -2373,20 +2743,22 @@ int launch_as(const T* a, const T* basis, const T* x, const int* rank,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int MODE>
-int launch(const T* a, const T* basis, const T* x, const int* rank,
-           const int* m, const T* mk, T* out, int s, long long nb, int d,
-           int tiles_per_cta, void* stream) {
+// every fp64 correct, select and masked route: the tile kernel up to D =
+// 128, gbatc_wide_dmma past it (every fp32 route is launch_correct_f32's)
+template <int MODE>
+int launch_f64(const double* a, const double* basis, const double* x, const int* rank,
+               const int* m, const double* mk, double* out, int s, long long nb, int d,
+               int tiles_per_cta, void* stream) {
   if (d < 1 || s < 0 || nb < 0 || tiles_per_cta < 1)
     return (int)cudaErrorInvalidValue;
   if (s == 0 || nb == 0) return (int)cudaSuccess;
   if (d > MAX_D)
-    return launch_wide<T, MODE>(x, a, rank, m, mk, basis, out, s, nb, d, stream);
+    return launch_wide<double, MODE>(x, a, rank, m, mk, basis, out, s, nb, d, stream);
   if (d <= 5 * TX)
-    return launch_as<T, MODE, 5>(a, basis, x, rank, m, mk, out, s, nb, d,
-                                 tiles_per_cta, stream);
-  return launch_as<T, MODE, MAX_D / TX>(a, basis, x, rank, m, mk, out, s, nb,
-                                        d, tiles_per_cta, stream);
+    return launch_as<double, MODE, 5>(a, basis, x, rank, m, mk, out, s, nb, d,
+                                      tiles_per_cta, stream);
+  return launch_as<double, MODE, MAX_D / TX>(a, basis, x, rank, m, mk, out, s, nb,
+                                             d, tiles_per_cta, stream);
 }
 
 }  // namespace
@@ -2415,42 +2787,42 @@ int gbatc_correct_batched_f32(const float* x, const float* c, const float* u,
                               float* out, int s, long long nb, int d,
                               int tiles_per_cta, void* stream) {
   // persistent ring kernel, as select: tiles_per_cta is only checked
-  return launch_correct_f32<MODE_CORRECT>(x, c, nullptr, nullptr, u, out, s,
-                                          nb, d, tiles_per_cta, stream);
+  return launch_correct_f32<MODE_CORRECT>(x, c, nullptr, nullptr, nullptr, u, out,
+                                          s, nb, d, tiles_per_cta, stream);
 }
 int gbatc_correct_batched_f64(const double* x, const double* c,
                               const double* u, double* out, int s,
                               long long nb, int d, int tiles_per_cta,
                               void* stream) {
-  return launch<double, MODE_CORRECT>(c, u, x, nullptr, nullptr, nullptr, out,
-                                      s, nb, d, tiles_per_cta, stream);
+  return launch_f64<MODE_CORRECT>(c, u, x, nullptr, nullptr, nullptr, out, s, nb, d,
+                                  tiles_per_cta, stream);
 }
 int gbatc_select_accumulate_f32(const float* x, const float* c,
                                 const int* rank, const int* m, const float* u,
                                 float* out, int s, long long nb, int d,
                                 int tiles_per_cta, void* stream) {
-  return launch_correct_f32<MODE_SELECT>(x, c, rank, m, u, out, s, nb, d,
+  return launch_correct_f32<MODE_SELECT>(x, c, rank, m, nullptr, u, out, s, nb, d,
                                          tiles_per_cta, stream);
 }
 int gbatc_select_accumulate_f64(const double* x, const double* c,
                                 const int* rank, const int* m, const double* u,
                                 double* out, int s, long long nb, int d,
                                 int tiles_per_cta, void* stream) {
-  return launch<double, MODE_SELECT>(c, u, x, rank, m, nullptr, out, s, nb, d,
-                                     tiles_per_cta, stream);
+  return launch_f64<MODE_SELECT>(c, u, x, rank, m, nullptr, out, s, nb, d,
+                                 tiles_per_cta, stream);
 }
 int gbatc_correct_masked_f32(const float* x, const float* c, const float* mask,
                              const float* u, float* out, int s, long long nb,
                              int d, int tiles_per_cta, void* stream) {
-  return launch<float, MODE_MASKED>(c, u, x, nullptr, nullptr, mask, out, s,
-                                    nb, d, tiles_per_cta, stream);
+  return launch_correct_f32<MODE_MASKED>(x, c, nullptr, nullptr, mask, u, out, s, nb,
+                                         d, tiles_per_cta, stream);
 }
 int gbatc_correct_masked_f64(const double* x, const double* c,
                              const double* mask, const double* u, double* out,
                              int s, long long nb, int d, int tiles_per_cta,
                              void* stream) {
-  return launch<double, MODE_MASKED>(c, u, x, nullptr, nullptr, mask, out, s,
-                                     nb, d, tiles_per_cta, stream);
+  return launch_f64<MODE_MASKED>(c, u, x, nullptr, nullptr, mask, out, s, nb, d,
+                                 tiles_per_cta, stream);
 }
 
 }  // extern "C"

@@ -99,8 +99,9 @@ def emulate_3xtf32(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor | None = No
     return acc if x is None else x + acc
 
 
-def emulate_dmma(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """``x + a @ b`` as gbatc_wide_dmma computes it, fp64."""
+def emulate_dmma(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor | None) -> torch.Tensor:
+    """``x + a @ b`` (``a @ b`` where x is None) as gbatc_wide_dmma and the
+    fp64 projection's kernels compute it, fp64."""
     k = a.shape[-1]
     kp = -(-k // STEP) * STEP
     a = torch.nn.functional.pad(a, (0, kp - k))
@@ -108,7 +109,7 @@ def emulate_dmma(a: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Ten
     acc = torch.zeros(a.shape[:-1] + b.shape[-1:], dtype=torch.float64)
     for k0 in range(0, kp, STEP):
         acc = acc + a[..., k0:k0 + STEP] @ b[..., k0:k0 + STEP, :]
-    return x + acc
+    return acc if x is None else x + acc
 
 
 def kept(c, rank, m):
@@ -117,8 +118,9 @@ def kept(c, rank, m):
 
 def emulated(route: str, x, c, u, rank=None, m=None, mask=None, *, three=True):
     """The kernel's output for ``route`` (project, correct, select, masked):
-    gbatc_wide_3xtf32 in fp32, gbatc_wide_dmma in fp64 (no projection: the
-    fp64 projection stays on project_f64_wide)."""
+    gbatc_wide_3xtf32 in fp32, gbatc_wide_dmma in fp64 and, for the fp64
+    projection, project_f64_wide_tma (project_f64_wide for odd D or an
+    unaligned operand): the same DMMA k steps from +0."""
     coeffs = {"project": x, "correct": c, "select": None, "masked": None}[route]
     if route == "select":
         coeffs = kept(c, rank, m)
@@ -126,8 +128,7 @@ def emulated(route: str, x, c, u, rank=None, m=None, mask=None, *, three=True):
         coeffs = c * mask
     b = u if route == "project" else u.transpose(-1, -2)
     if x.dtype == torch.float64:
-        assert route != "project"
-        return emulate_dmma(coeffs, b, x)
+        return emulate_dmma(coeffs, b, None if route == "project" else x)
     return emulate_3xtf32(coeffs, b, None if route == "project" else x, three=three)
 
 
@@ -182,7 +183,7 @@ def test_3xtf32_emulation_within_the_fp32_limit(s, nb, d, route):
     assert max_err(got, want, x) <= FP32_LIMIT
 
 
-@pytest.mark.parametrize("route", ["correct", "select", "masked"])
+@pytest.mark.parametrize("route", ["project", "correct", "select", "masked"])
 @pytest.mark.parametrize("s,nb,d", SHAPES)
 def test_dmma_emulation_within_the_fp64_limit(s, nb, d, route):
     x, c, u, rank, m, mask = _t(*inputs(s if route != "masked" else 1, nb, d,
@@ -190,7 +191,7 @@ def test_dmma_emulation_within_the_fp64_limit(s, nb, d, route):
     got = emulated(route, x, c, u, rank, m, mask)
     want = plain(route, x, c, u, rank, m, mask)
     assert got.dtype == torch.float64 and got.shape == want.shape
-    assert max_err(got, want, c) <= FP64_REL_LIMIT
+    assert max_err(got, want, x if route == "project" else c) <= FP64_REL_LIMIT
 
 
 @pytest.mark.parametrize("d", [129, 257, 513, 1000])
@@ -221,7 +222,7 @@ def test_select_is_correct_on_the_kept_coefficients_bitwise(s, nb, d, dtype):
 PALLAS_SHAPES = [(2, 33, 257), (1, 9, 520)]
 
 
-@pytest.mark.parametrize("route", ["correct", "select"])
+@pytest.mark.parametrize("route", ["project", "correct", "select"])
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("s,nb,d", PALLAS_SHAPES)
 def test_emulation_matches_pallas(reference_x64, reference_pallas_load,  # noqa: F811
@@ -229,6 +230,9 @@ def test_emulation_matches_pallas(reference_x64, reference_pallas_load,  # noqa:
     x, c, u, rank, m, _ = inputs(s, nb, d, dtype=dtype, seed=d + 1)
 
     def pallas():
+        if route == "project":
+            return np.asarray(ref_kernels.gbatc_project_batched(
+                *(jnp.asarray(a) for a in (x, u)), interpret=True))
         if route == "correct":
             return np.asarray(ref_kernels.gbatc_correct_batched(
                 *(jnp.asarray(a) for a in (x, c, u)), interpret=True))
@@ -319,3 +323,226 @@ def test_checkpoint_gate_holds_on_the_emulated_select(monkeypatch):
     tau = 1e-3 * np.sqrt(np.mean(blocks**2)) * np.sqrt(256)
     assert (norms <= tau * (1 + 1e-6) + 2.0**-24 * np.linalg.norm(rblocks, axis=1)).all()
     assert report["ratio"] > 2.0
+
+
+def tma_constants() -> dict:
+    text = CU.read_text()
+    return {name: int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+            for name in ("TMA_FROM_D", "TMA_KP", "TMA_STAGES", "TMA_BOX", "WT_TM",
+                         "WT_SLAB", "WIDE_THREADS")}
+
+
+def c_function(name: str) -> str:
+    """The body of the C function ``name`` in the source."""
+    text = CU.read_text()
+    start = re.search(rf"\b{name}\([^;{{]*\)\s*{{", text, re.S).end()
+    depth, i = 1, start
+    while depth:
+        depth += {"{": 1, "}": -1}.get(text[i], 0)
+        i += 1
+    return text[start:i - 1]
+
+
+def test_tma_ring_fits_and_routes():
+    """project_f64_wide_tma's ring: panels of whole 16-k boxes whose rows
+    are the 128 bytes of the 128-byte swizzle, 1024-byte aligned boxes,
+    at least 3 stages, and a CTA's shared memory within the 227 KB a CTA
+    may hold (one CTA an SM: no cluster, no second CTA); 8 MMA warps and a
+    producer warpgroup, whose registers (setmaxnreg) go to the MMA warps
+    within the SM's 65,536. The launcher takes the TMA route only past
+    TMA_FROM_D (at least 128) with D even (rows a multiple of 16 bytes)
+    and R, U and C 16-byte aligned, and otherwise project_f64_wide."""
+    cst = tma_constants()
+    box_row = cst["TMA_BOX"] * 8
+    assert box_row == 128 and cst["TMA_KP"] % cst["TMA_BOX"] == 0
+    a_box, b_box = cst["WT_TM"] * box_row, cst["TMA_KP"] * box_row
+    assert a_box % 1024 == 0 and b_box % 1024 == 0
+    stage = cst["TMA_KP"] // cst["TMA_BOX"] * a_box + cst["WT_SLAB"] // cst["TMA_BOX"] * b_box
+    smem = cst["TMA_STAGES"] * (stage + 16) + 1024
+    assert cst["TMA_STAGES"] >= 3 and smem <= 232448
+    text = CU.read_text()
+    assert "constexpr int TMA_THREADS = WIDE_THREADS + 128;" in text
+    regs = re.search(r"constexpr int TMA_PRODUCER_REGS = (\d+), TMA_MMA_REGS = (\d+);", text)
+    producer, mma = int(regs.group(1)), int(regs.group(2))
+    assert 128 * producer + 256 * mma <= 65536 and mma <= 255
+    assert "setmaxnreg.dec.sync.aligned.u32 %0;\\n\" ::\"n\"(TMA_PRODUCER_REGS)" in text
+    assert "setmaxnreg.inc.sync.aligned.u32 %0;\\n\" ::\"n\"(TMA_MMA_REGS)" in text
+    assert cst["WIDE_THREADS"] == 256 and cst["TMA_FROM_D"] >= 128
+    ok = c_function("tma_ok")
+    for need in ("d % 2 == 0", "aligned16(r)", "aligned16(u)", "aligned16(c)"):
+        assert need in ok, need
+    route = c_function("launch_project_f64")
+    assert re.search(r"if \(d > TMA_FROM_D && tma_ok\(r, u, c, nb, d\)\)\s*"
+                     r"return launch_dmma_tma\(", route)
+    assert route.rstrip().endswith("return launch_dmma_wide(r, u, c, s, nb, d, stream);")
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in c_function("encode_f64_3d")
+
+
+def _swizzle(offset: int) -> int:
+    """The 128-byte swizzle: 16-byte chunk c of 128-byte row r at c ^ (r % 8)."""
+    return offset ^ (((offset >> 7) & 7) << 4)
+
+
+def _lane_offsets() -> dict:
+    """The MMA warps' per-lane shared-memory byte offsets as the source
+    computes them (its expressions, evaluated for each warp and lane)."""
+    text = CU.read_text()
+    body = text[text.index("project_f64_wide_tma("):]
+    exprs = {name: re.search(rf"const int {name} = (.*?)[;,]", body).group(1)
+             for name in ("pg", "pc", "a_row", "b_k0", "b_k4")}
+    exprs["wm"], exprs["wn"] = re.search(r"const int wm = (.*?), wn = (.*?);", body).groups()
+    exprs["a_k0"] = re.search(r"const int a_k0 = (.*?), a_k4", body).group(1)
+    exprs["a_k4"] = re.search(r"a_k4 = (.*?);", body).group(1)
+    cst = tma_constants()
+    env0 = {"TMA_A_BYTES": cst["TMA_KP"] // cst["TMA_BOX"] * cst["WT_TM"] * 128,
+            "WT_WM": cst["WT_TM"] // 32}
+    out = {}
+    for warp in range(8):
+        for lane in range(32):
+            env = dict(env0, warp=warp, g=lane >> 2, q=lane & 3)
+            for name in ("wm", "wn", "pg", "pc", "a_row", "a_k0", "a_k4", "b_k0", "b_k4"):
+                env[name] = eval(exprs[name].replace("/", "//"), {}, env)  # C's int division
+            out[warp, lane] = env
+    return out
+
+
+def _emulate_tma_tile(a, u, rows, jw):
+    """One 128-row tile of project_f64_wide_tma against a slab of jw columns
+    at j0 = 0, all its panels: boxes landed as TMA lands them (swizzled, +0
+    past the tensor), fragments loaded at the source's offsets, each DMMA
+    step an fp64 product in the m16n8k8 fragment layout, outputs stored as
+    the epilogue stores them. Returns (out, times each element was
+    stored)."""
+    cst = tma_constants()
+    tm, kp, box = cst["WT_TM"], cst["TMA_KP"], cst["TMA_BOX"]
+    d = a.shape[1]
+    a_box, b_box = tm * box * 8, kp * box * 8
+    a_bytes = kp // box * a_box
+    lanes = _lane_offsets()
+    ks_n = -(-d // 8)
+    nbx = -(-jw // box)
+    acc = np.zeros((8, 32, 2, 8, 4))
+    for p in range(-(-ks_n // (kp // 8))):
+        k0 = p * kp
+        mem = np.full((a_bytes + cst["WT_SLAB"] // box * b_box) // 8, np.nan)
+
+        def land(base, src, r0, c0, n_rows):
+            for r in range(n_rows):
+                for e in range(box):
+                    i, j = r0 + r, c0 + e
+                    inside = i < src.shape[0] and j < src.shape[1]
+                    mem[(base + _swizzle((r * box + e) * 8)) // 8] = src[i, j] if inside else 0.0
+
+        for i in range(min(kp // box, -(-(d - k0) // box))):
+            land(i * a_box, a, 0, k0 + i * box, tm)
+        for b in range(nbx):
+            land(a_bytes + b * b_box, u, k0, b * box, kp)
+        for warp in range(8):
+            wm, wn = lanes[warp, 0]["wm"], lanes[warp, 0]["wn"]
+            nbw = max(0, min(4, nbx - 4 * wn))
+            if nbw == 0 or wm * 32 >= rows:
+                continue
+            for ks in range(min(kp // 8, ks_n - p * kp // 8)):
+                af = np.zeros((2, 16, 8))
+                bf = np.zeros((nbw, 2, 8, 8))
+                for lane in range(32):
+                    o = lanes[warp, lane]
+                    g, q = o["g"], o["q"]
+                    ab, sx = (ks >> 1) * a_box + o["a_row"], (ks & 1) << 6
+                    for mi in range(2):
+                        for h in range(2):
+                            ar = ab + (16 * mi + 8 * h) * 128
+                            af[mi, g + 8 * h, q] = mem[(ar + (o["a_k0"] ^ sx)) // 8]
+                            af[mi, g + 8 * h, q + 4] = mem[(ar + (o["a_k4"] ^ sx)) // 8]
+                    for b in range(nbw):
+                        bb = (wn * 4 + b) * b_box + ks * 1024
+                        for e in range(2):
+                            bf[b, e, q, g] = mem[(bb + o["b_k0"]) // 8 + e]
+                            bf[b, e, q + 4, g] = mem[(bb + o["b_k4"]) // 8 + e]
+                for mi in range(2):
+                    for b in range(nbw):
+                        for e in range(2):
+                            cm = af[mi] @ bf[b, e]
+                            for lane in range(32):
+                                g, q = lane >> 2, lane & 3
+                                acc[warp, lane, mi, 2 * b + e] += (
+                                    cm[g, 2 * q], cm[g, 2 * q + 1],
+                                    cm[g + 8, 2 * q], cm[g + 8, 2 * q + 1])
+    out, stores = np.zeros((rows, jw)), np.zeros((rows, jw), dtype=int)
+    for (warp, lane), o in lanes.items():
+        wm, wn, q = o["wm"], o["wn"], o["q"]
+        nbw = max(0, min(4, nbx - 4 * wn))
+        for mi in range(2):
+            for h in range(2):
+                row = wm * 32 + 16 * mi + 8 * h + o["pg"]
+                for b in range(nbw):
+                    col = (wn * 4 + b) * box + 2 * q
+                    if row >= rows or col >= jw:
+                        continue
+                    for c2, e in ((col, 0), (col + 8, 1)):
+                        if c2 < jw:
+                            out[row, c2:c2 + 2] = (acc[warp, lane, mi, 2 * b][2 * h + e],
+                                                   acc[warp, lane, mi, 2 * b + 1][2 * h + e])
+                            stores[row, c2:c2 + 2] += 1
+    return out, stores
+
+
+@pytest.mark.parametrize("d,rows,jw", [(130, 77, 88), (64, 128, 64)])
+def test_tma_tile_layout_is_the_product(d, rows, jw):
+    """The swizzled boxes, the row and column relabelings and the epilogue
+    of project_f64_wide_tma (offsets read from the source) compute R U: a
+    ragged tile (77 rows, a partial last box, k past D) and a whole one,
+    every output stored once, within 1e-12 of the product."""
+    rng = np.random.default_rng(d)
+    a, u = rng.standard_normal((rows, d)), rng.standard_normal((d, d))
+    out, stores = _emulate_tma_tile(a, u, rows, jw)
+    assert (stores == 1).all()
+    np.testing.assert_allclose(out, (a @ u)[:, :jw], rtol=0, atol=1e-12)
+
+
+def test_tma_fragment_loads_are_conflict_free():
+    """Each fragment load of project_f64_wide_tma's MMA warps takes the
+    fewest shared-memory wavefronts: an 8-byte load's half warps and a
+    16-byte load's quarter warps each touch 32 distinct banks (a 128-byte
+    row holds every bank once, so only the byte offset within the row
+    counts)."""
+    lanes = _lane_offsets()
+    cst = tma_constants()
+    a_box = cst["WT_TM"] * cst["TMA_BOX"] * 8
+    for warp in range(8):
+        for ks in range(cst["TMA_KP"] // 8):
+            sx = (ks & 1) << 6
+            loads = {}
+            for lane in range(32):
+                o = lanes[warp, lane]
+                ab = (ks >> 1) * a_box + o["a_row"]
+                for mi in range(2):
+                    for h in range(2):
+                        ar = ab + (16 * mi + 8 * h) * 128
+                        loads.setdefault(("a", mi, h, 0), []).append(ar + (o["a_k0"] ^ sx))
+                        loads.setdefault(("a", mi, h, 4), []).append(ar + (o["a_k4"] ^ sx))
+                loads.setdefault(("b", 0), []).append(o["b_k0"] + ks * 1024)
+                loads.setdefault(("b", 4), []).append(o["b_k4"] + ks * 1024)
+            for key, addr in loads.items():
+                width = 8 if key[0] == "a" else 16
+                group = 128 // width
+                for g0 in range(0, 32, group):
+                    banks = {(x % 128) // 4 + i for x in addr[g0:g0 + group]
+                             for i in range(width // 4)}
+                    assert len(banks) == 32, (warp, ks, key, g0)
+
+
+def test_fp32_masked_correct_runs_on_the_ring():
+    """The masked 2D correct in fp32 reaches correct_f32_ring at D <= 128
+    (gbatc_wide_3xtf32 past it), and no fp32 route instantiates the tile
+    kernel any more: it serves the fp64 correct, select and masked modes."""
+    assert "launch_correct_f32<MODE_MASKED>(" in c_function("gbatc_correct_masked_f32")
+    route = c_function("launch_correct_f32")
+    assert "if (d <= 80)\n    return launch_ring<MODE, 5, 2>(" in route
+    assert "if (d <= MAX_D)\n    return launch_ring<MODE, 8, 1>(" in route
+    assert "return launch_wide<float, MODE>(" in route
+    text = CU.read_text()
+    assert not re.search(r"launch_as<float|gbatc_tile_kernel<float|launch<float", text)
+    assert re.findall(r"launch_as<(\w+),", text) == ["double", "double"]
+    ring = text[text.index("correct_f32_ring("):text.index("inline bool aligned16")]
+    assert "v.x = v.x * w.x, v.y = v.y * w.y, v.z = v.z * w.z, v.w = v.w * w.w;" in ring
